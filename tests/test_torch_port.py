@@ -1,0 +1,69 @@
+"""Properties of the port as a whole: it imports nothing of JAX, flax,
+optax, msgpack or the JAX package, and its entry points run on the GPU or
+raise; they never fall back to the CPU."""
+import ast
+import pathlib
+
+import pytest
+import torch
+
+from turboae_tpu_torch.cli import eval_flagship
+from turboae_tpu_torch.config import Config
+from turboae_tpu_torch.train.sweep import sweep
+from turboae_tpu_torch.utils.device import resolve_device
+
+from _torch_parity import CROWN, ROOT
+
+FORBIDDEN = ('jax', 'flax', 'optax', 'msgpack', 'turboae_tpu')
+PORT_FILES = sorted(pathlib.Path(ROOT, 'turboae_tpu_torch').rglob('*.py')) + \
+    [pathlib.Path(ROOT, 'chip_smoke.py')]
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split('.')[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split('.')[0]
+        elif isinstance(node, ast.Call) and getattr(node.func, 'attr', getattr(node.func, 'id', '')) \
+                in ('import_module', '__import__') and node.args \
+                and isinstance(node.args[0], ast.Constant):
+            yield str(node.args[0].value).split('.')[0]
+
+
+@pytest.mark.parametrize('path', PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax(path):
+    assert path.exists()
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f'{path.name} imports {bad}'
+
+
+def test_ast_check_catches_forbidden_imports(tmp_path):
+    f = tmp_path / 'm.py'
+    f.write_text('import os\nfrom turboae_tpu.config import Config\nimport jax.numpy as jnp\n'
+                 'importlib.import_module("flax.serialization")\n')
+    assert set(_imported_roots(f)) & set(FORBIDDEN) == {'turboae_tpu', 'jax', 'flax'}
+
+
+@pytest.fixture
+def no_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+
+
+def test_resolve_device_raises_without_gpu(no_gpu):
+    with pytest.raises(RuntimeError, match='cuda'):
+        resolve_device()
+    assert resolve_device('cpu') == torch.device('cpu')
+
+
+def test_sweep_without_device_raises_without_gpu(no_gpu):
+    params = eval_flagship.load_flagship(CROWN, 'cpu')
+    with pytest.raises(RuntimeError, match='cuda'):
+        sweep(params, Config(batch_size=10), [0.0], num_block=10)
+
+
+def test_eval_cli_without_device_raises_without_gpu(no_gpu):
+    with pytest.raises(RuntimeError, match='cuda'):
+        eval_flagship.main(['--ckpt', CROWN, '--num_block', '10', '--batch_size', '10'])

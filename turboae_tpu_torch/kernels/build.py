@@ -1,0 +1,97 @@
+"""Builds the port's CUDA sources into shared libraries loaded with ctypes.
+
+Each source under `csrc/` has a plain `extern "C"` interface and includes no
+PyTorch header, so `nvcc` compiles it in seconds:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
+
+The library is built at first use into `_build/` beside this file (listed in
+.gitignore), named by a hash of the source and the flags, so an edited source
+builds anew and an unchanged one is loaded as it is. Several sources build in
+parallel: one nvcc process each, all started together.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Dict, List
+
+CSRC = Path(__file__).resolve().parent / 'csrc'
+BUILD_DIR = Path(__file__).resolve().parent / '_build'
+NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+              '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
+
+
+@dataclass
+class Built:
+    path: Path
+    seconds: float      # wall time of this build; 0.0 when the library was cached
+    log: str            # nvcc's output (ptxas register and shared-memory report)
+
+
+_LOADED: Dict[str, ctypes.CDLL] = {}
+_BUILT: Dict[str, Built] = {}
+
+
+def find_nvcc() -> str:
+    for cand in (os.path.join(os.environ.get('CUDA_HOME', ''), 'bin', 'nvcc'),
+                 shutil.which('nvcc') or '',
+                 '/usr/local/cuda/bin/nvcc'):
+        if cand and os.path.isfile(cand) and os.access(cand, os.X_OK):
+            return cand
+    raise RuntimeError('nvcc not found: set CUDA_HOME or put nvcc on PATH')
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f'{name}.cu').read_bytes()
+    digest = hashlib.sha256(src + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f'{name}-{digest}.so'
+
+
+def build(names: List[str]) -> Dict[str, Built]:
+    """Build every named source that is not built yet, all in parallel.
+
+    Raises RuntimeError with nvcc's stderr when a build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo = {}
+    for name in names:
+        if name in _BUILT:
+            continue
+        out = _target(name)
+        if out.exists():
+            _BUILT[name] = Built(out, 0.0, '')
+            continue
+        tmp = out.with_suffix(f'.{os.getpid()}.tmp')
+        cmd = [find_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(CSRC / f'{name}.cu')]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        todo[name] = (proc, tmp, out, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, out, t0) in todo.items():
+        stdout, stderr = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f'nvcc failed on {name}.cu (exit {proc.returncode}):\n'
+                          f'{stderr}{stdout}')
+            continue
+        os.replace(tmp, out)   # atomic: another process sees all or nothing
+        _BUILT[name] = Built(out, seconds, stdout + stderr)
+    if failed:
+        raise RuntimeError('\n'.join(failed))
+    return {name: _BUILT[name] for name in names}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The named library, built first if needed."""
+    if name not in _LOADED:
+        built = build([name])[name]
+        _LOADED[name] = ctypes.CDLL(str(built.path))
+    return _LOADED[name]

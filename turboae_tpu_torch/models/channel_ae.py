@@ -1,0 +1,43 @@
+"""Encoder -> channel -> decoder (JAX: models/channel_ae.py:23-72)."""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+from numpy.random import mtrand
+
+from ..channels.apply import apply_channel
+from ..ops.interleave import invert_perm
+from ..ops.ste import rx_quantize
+from .decoders import largecnn_apply
+from .encoders import intercnn_apply
+
+
+def make_perms(cfg, device) -> Dict[str, torch.Tensor]:
+    """Interleaver permutations as the reference builds them.
+
+    p1 and p2 are CONSECUTIVE draws from one MT19937 RandomState(0), not the
+    first draws of two seeds. Also holds p1's inverse.
+    """
+    L = cfg.block_len
+    if cfg.is_interleave == 0:
+        p1 = p2 = np.arange(L)
+    else:
+        rand_gen = mtrand.RandomState(0)
+        p1 = rand_gen.permutation(np.arange(L))
+        p2 = rand_gen.permutation(np.arange(L))
+    as_t = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device)
+    return {'p1': as_t(p1), 'p2': as_t(p2), 'p1_inv': as_t(invert_perm(p1))}
+
+
+def forward_ae(params, cfg, bits, fwd_noise, perms, training: bool = True,
+               stats=None):
+    """Returns (bit_estimates, codes, stats)."""
+    codes, stats = intercnn_apply(params['enc'], cfg, bits, perms,
+                                  training=training, stats=stats)
+    received = apply_channel(codes, fwd_noise, cfg.channel)
+    if cfg.rec_quantize:
+        # the reference passes rec_quantize_level as BOTH limit and level
+        received = rx_quantize(received, cfg.rec_quantize_level, cfg.rec_quantize_level)
+    return largecnn_apply(params['dec'], cfg, received, perms), codes, stats

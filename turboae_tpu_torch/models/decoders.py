@@ -1,0 +1,69 @@
+"""The flagship iterative decoder DEC_LargeCNN (JAX: models/decoders.py:54-148).
+
+The JAX package stacks the first num_iteration-1 iterations' weights for a
+lax.scan and peels the last one. Here every iteration has its own entry:
+params = {'iters': [it_0, ..., it_{n-1}]}, each
+{'dec1_cnn', 'dec2_cnn': [conv layers], 'dec1_lin', 'dec2_lin': heads}; the
+last iteration's dec2 head emits one channel. The iterations run as a Python
+loop.
+
+With cfg.use_fused_conv every conv stack goes through the hand-written bf16
+kernel (kernels/conv_stack.py), its output cast back to cfg.dtype, as
+JAX decoders.py:99-104 routes them through the Pallas kernel.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..kernels.conv_stack import fused_stack_apply_bf16
+from ..ops import conv1d as cv
+from ..ops.interleave import deinterleave, interleave
+from ..utils.device import torch_dtype
+
+
+def largecnn_apply(params, cfg, received, perms) -> torch.Tensor:
+    """received (B, L, 3) -> (B, L, 1) sigmoid bit estimates.
+
+    perms holds 'p1' and its inverse 'p1_inv' as int64 tensors."""
+    if cfg.encoder != 'TurboAE_rate3_cnn':
+        # the reference keys the dense conv flavour off the ENCODER name
+        raise NotImplementedError('dense decoder stacks are not ported yet')
+    dt = torch_dtype(cfg.dtype)
+    if cfg.use_fused_conv:
+        def stackf(layers, x):
+            return fused_stack_apply_bf16(layers, x).to(dt)
+    else:
+        def stackf(layers, x):
+            return cv.stack_apply(layers, x, compute_dtype=dt)
+    p, inv = perms['p1'], perms['p1_inv']
+
+    r_sys = received[:, :, 0:1]
+    r_par1 = received[:, :, 1:2]
+    r_par2 = received[:, :, 2:3]
+    r_sys_int = interleave(r_sys, p)
+    b, l, _ = received.shape
+    prior = torch.zeros((b, l, cfg.num_iter_ft), dtype=torch.float32,
+                        device=received.device)
+
+    def half_iter(w_cnn, w_lin, inputs, sub):
+        # raw linear head: CNN decoders apply no dec_act
+        x_plr = cv.linear_apply(w_lin, stackf(w_cnn, inputs), compute_dtype=dt)
+        return x_plr - sub if cfg.extrinsic else x_plr
+
+    *iters, final = params['iters']
+    for w in iters:
+        x_plr = half_iter(w['dec1_cnn'], w['dec1_lin'],
+                          torch.cat([r_sys, r_par1, prior], dim=2), prior)
+        x_plr_int = interleave(x_plr, p)
+        x_plr2 = half_iter(w['dec2_cnn'], w['dec2_lin'],
+                           torch.cat([r_sys_int, r_par2, x_plr_int], dim=2),
+                           x_plr_int)
+        prior = deinterleave(x_plr2, inv)
+
+    # final iteration: dec2's head emits one channel, no extrinsic subtraction
+    x_plr = half_iter(final['dec1_cnn'], final['dec1_lin'],
+                      torch.cat([r_sys, r_par1, prior], dim=2), prior)
+    x_plr_int = interleave(x_plr, p)
+    h = stackf(final['dec2_cnn'], torch.cat([r_sys_int, r_par2, x_plr_int], dim=2))
+    logit = cv.linear_apply(final['dec2_lin'], h, compute_dtype=dt)
+    return torch.sigmoid(deinterleave(logit, inv))

@@ -1,0 +1,36 @@
+"""Interleaver permutations (JAX: ops/interleave.py:20-53).
+
+Permutations are ALWAYS drawn on the host from numpy's MT19937 RandomState,
+never from a torch RNG: the reference's interleaver is that generator's
+permutation, and the JAX package uses the same one.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from numpy.random import mtrand
+
+
+def rand_perm(block_len: int, seed: int) -> np.ndarray:
+    """MT19937 permutation, identical to commpy RandInterlv(length, seed).p_array."""
+    return mtrand.RandomState(seed).permutation(np.arange(block_len))
+
+
+def invert_perm(p_array) -> np.ndarray:
+    p = np.asarray(p_array)
+    inv = np.zeros(len(p), dtype=np.int64)
+    inv[p] = np.arange(len(p))
+    return inv
+
+
+def interleave(x: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Permute the time axis of a (B, L, C) tensor: out[:, i] = x[:, p[i]].
+
+    `p` is an int64 index tensor on x's device.
+    """
+    return torch.index_select(x, 1, p)
+
+
+def deinterleave(x: torch.Tensor, p_inv: torch.Tensor) -> torch.Tensor:
+    """Inverse of `interleave`; takes the INVERSE permutation (see invert_perm)."""
+    return torch.index_select(x, 1, p_inv)

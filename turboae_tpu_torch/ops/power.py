@@ -1,0 +1,56 @@
+"""The encoder's block power constraint (JAX: ops/power.py:42-80).
+
+Whitens the whole code tensor with its global mean and Bessel-corrected
+(ddof=1) standard deviation, optionally STE-binarizes, optionally truncates.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from .ste import ste_quantize
+
+
+class NormStats(NamedTuple):
+    """Running mean/std for precomputed normalization (carried, not used on
+    the evaluation path)."""
+    mean: torch.Tensor
+    std: torch.Tensor
+    count: torch.Tensor
+
+
+def _std_bessel(x: torch.Tensor) -> torch.Tensor:
+    m = torch.mean(x)
+    return torch.sqrt(torch.sum((x - m) ** 2) / (x.numel() - 1))
+
+
+def power_constraint(x: torch.Tensor, cfg, training: bool = True,
+                     stats: Optional[NormStats] = None):
+    """Returns (codes, stats)."""
+    if cfg.no_code_norm:
+        return x, stats
+
+    this_mean = torch.mean(x)
+    this_std = _std_bessel(x)
+    if cfg.precompute_norm_stats and stats is not None:
+        cnt = stats.count + 1.0
+        new_mean = (stats.mean * (cnt - 1.0) + this_mean) / cnt
+        new_std = (stats.std * (cnt - 1.0) + this_std) / cnt
+        x_norm = (x - new_mean) / new_std
+        stats = NormStats(new_mean, new_std, cnt)
+    else:
+        x_norm = (x - this_mean) / this_std
+
+    # train_channel_mode is read whatever `training` is (JAX :64-72): an
+    # STE-trained encoder sends binarized codes at evaluation too;
+    # test_channel_mode overrides it only when set away from its default.
+    mode = cfg.train_channel_mode
+    if not training and cfg.test_channel_mode != 'block_norm':
+        mode = cfg.test_channel_mode
+    if mode == 'block_norm_ste':
+        x_norm = ste_quantize(x_norm, cfg.enc_value_limit, cfg.enc_quantize_level)
+
+    if cfg.enc_truncate_limit > 0:
+        x_norm = torch.clamp(x_norm, -cfg.enc_truncate_limit, cfg.enc_truncate_limit)
+    return x_norm, stats
