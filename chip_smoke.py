@@ -5,16 +5,28 @@
 
 Phases, each printing one JSON line:
   device       the card (nvidia-smi name and power limit, torch's name);
-  build        nvcc build of every CUDA source of the port (seconds; ~0 if cached);
+  build        nvcc build of every CUDA source of the port, all in parallel
+               (seconds; ~0 if cached);
   kernel_check each kernel against its plain PyTorch version on the card, at
-               the main path's shape and at edge shapes (one layer, K=1, odd B,
-               C and L that are no multiple of the kernel's tile);
+               its path's shape and at edge shapes (one or two layers, K=1, odd
+               B, C and L that are no multiple of the kernel's tile) and at the
+               long-block shape L=1000 that the wrappers window;
   forward      the crown checkpoint's forward on the card against the port's
                own forward on the CPU, on the same small input;
-  crown_sweep  the main path: the crown's bf16 evaluation sweep through the
+  crown_sweep  main path 1: the crown's bf16 evaluation sweep through the
                fused decoder (-1 dB and 0 dB, 20,000 blocks each, batch 2000),
                held to artifacts/eval_crown_r4.json by a two-proportion z test,
-               with the kernel's launch count read around it;
+               with the kernels' launch counts read around it;
+  train_step   from the crown's params and one batch of host-drawn bits and
+               noise: a decoder, an encoder, a joint and an STE encoder step in
+               f32, unfused, on the card against the port on the CPU;
+  train        main path 2: one epoch of the flagship recipe from a seeded
+               init at full width, bf16, fused (50 encoder steps, 5 decoder
+               epochs of 50 steps, batch 500), then validate; launches read
+               around it;
+  train_times  the port of bench.py (cli/bench_train.py), fused on and off;
+  conv_stack_bench  path 3: the port of scripts/bench_conv_stack.py, the only
+               path of K1, with its launches read around it;
   times        CUDA-event times of each kernel, its plain version and a
                PyTorch library yardstick, beside the card's bound;
 then the nvidia-smi line, the kernels' summary line, and last
@@ -35,7 +47,8 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # Published dense peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet)
-PEAK_BF16_FLOPS = 989e12
+PEAK_BF16_FLOPS = 989e12       # tensor cores, bf16
+PEAK_F32_FLOPS = 67e12         # CUDA cores, f32 (exact f32 has no tensor-core path)
 PEAK_BYTES_PER_S = 3.35e12
 
 SWEEP_POINTS = (-1.0, 0.0)
@@ -43,6 +56,16 @@ SWEEP_BLOCKS = 20000
 SWEEP_BATCH = 2000
 MAX_Z = 4.0
 KERNEL_REL_TOL = 1e-2       # bf16 tolerance of the Pallas kernel tests (tests/test_kernels.py:33-41)
+F32_REL_TOL = 2e-5          # f32 tolerance of the Pallas kernel tests (tests/test_kernels.py:25-30)
+
+TRAIN_BATCH = 500
+TRAIN_NUM_BLOCK = 25000     # scripts/train_flagship.py defaults: 50 steps per epoch
+# The last decoder epoch's mean loss (what scripts/train_flagship.py logs as
+# dec_loss) must lie below this after one epoch of the recipe. Fixed before
+# the first run on the card; the JAX trainer logged 0.159 there in f32
+# (logs/flagship.jsonl:1), an untrained decoder ~0.69.
+DEC_LOSS_MAX = 0.25
+PARITY_BATCH = 64
 
 
 def emit(phase: str, **fields):
@@ -68,26 +91,6 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def conv_stack_work(B, L, Cin, C, K, nl):
-    """(FLOP, bytes) one conv-stack call needs: each input read once (x and
-    weights bf16, biases f32), the bf16 output written once."""
-    macs = B * L * (K * Cin * C + (nl - 1) * K * C * C)
-    n_w = K * Cin * C + (nl - 1) * K * C * C
-    nbytes = B * L * Cin * 2 + n_w * 2 + nl * C * 4 + B * L * C * 2
-    return 2 * macs, nbytes
-
-
-def random_stack(gen, nl, cin, c, k, device):
-    layers = []
-    for i in range(nl):
-        fan = (cin if i == 0 else c) * k
-        bound = 1.0 / math.sqrt(fan)
-        w = (torch.rand((c, cin if i == 0 else c, k), generator=gen) * 2 - 1) * bound
-        b = (torch.rand((c,), generator=gen) * 2 - 1) * bound
-        layers.append({'w': w.to(device), 'b': b.to(device)})
-    return layers
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False; this script needs an '
@@ -99,12 +102,13 @@ def main() -> int:
     from turboae_tpu_torch.kernels import build
     from turboae_tpu_torch.kernels import conv_stack as ks
     from turboae_tpu_torch.models.channel_ae import forward_ae, make_perms
+    from turboae_tpu_torch.ops.conv1d import stack_init
     from turboae_tpu_torch.train.sweep import params_to, sweep
+    from turboae_tpu_torch.utils.device import no_tf32
     from turboae_tpu_torch.utils.metrics import snr_db2sigma, two_proportion_z
 
     # f32 references in full f32: no TF32 in matmuls or cuDNN convolutions
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    no_tf32()
     dev = torch.device('cuda', 0)
 
     # ---- device ----
@@ -117,37 +121,46 @@ def main() -> int:
 
     # ---- build ----
     t0 = time.perf_counter()
-    built = build.build([ks.LIBRARY])
+    built = build.build(list(ks.LIBRARIES))
     regs = [ln.strip() for b in built.values() for ln in b.log.splitlines()
             if 'registers' in ln or 'spill' in ln]
     emit('build', seconds=time.perf_counter() - t0,
          libraries={n: {'seconds': b.seconds, 'cached': b.seconds == 0.0} for n, b in built.items()},
          ptxas=regs)
 
-    # ---- kernel_check: K2 against its plain version on the card ----
+    # ---- kernel_check: each kernel against its plain version on the card ----
     crown = load_flagship(os.path.join(ROOT, 'artifacts', 'flagship.msgpack'), dev)
     gen = torch.Generator().manual_seed(0)
     main_shape = (SWEEP_BATCH, 100, 7, 100, 5, 5)     # B, L, Cin, C, K, layers
-    cases = [('main_path', main_shape, crown['dec']['iters'][0]['dec1_cnn']),
-             ('one_layer', (2000, 100, 7, 100, 5, 1), None),
-             ('k1', (256, 100, 7, 100, 1, 3), None),
-             ('odd_b', (333, 100, 7, 100, 5, 5), None),
-             ('ragged', (5, 23, 3, 30, 3, 2), None)]
+    bench_shape = (TRAIN_BATCH, 100, 7, 100, 5, 5)    # the conv-stack bench's, training's
+    edge = [('one_layer', (2000, 100, 7, 100, 5, 1)), ('two_layers', (500, 100, 7, 100, 5, 2)),
+            ('k1', (256, 100, 7, 100, 1, 3)), ('odd_b', (333, 100, 7, 100, 5, 5)),
+            ('ragged', (5, 23, 3, 30, 3, 2)), ('long_block_l1000', (16, 1000, 7, 100, 5, 5))]
+    kernels = {  # name: (wrapper, plain, tolerance, cases)
+        'conv_stack_bf16': (ks.conv_stack_bf16, ks.conv_stack_bf16_plain, KERNEL_REL_TOL,
+                            [('main_path', main_shape, crown['dec']['iters'][0]['dec1_cnn'])]
+                            + [(n, sh, None) for n, sh in edge if n != 'two_layers']),
+        'conv_stack_f32': (ks.conv_stack_f32, ks.conv_stack_f32_plain, F32_REL_TOL,
+                           [('bench', bench_shape, None)] + [(n, sh, None) for n, sh in edge]),
+    }
     max_abs = {}
-    for name, (B, L, cin, c, k, nl), layers in cases:
-        layers = layers or random_stack(gen, nl, cin, c, k, dev)
-        x = torch.randn((B, L, cin), generator=gen).to(dev)
-        got = ks.conv_stack_bf16(layers, x)
-        ref = ks.conv_stack_bf16_plain(layers, x)
-        torch.cuda.synchronize()
-        check(got.shape == (B, L, c) and got.dtype == torch.bfloat16, f'{name}: shape/dtype')
-        check(bool(torch.isfinite(got.float()).all()), f'{name}: non-finite output')
-        err = (got.float() - ref.float()).abs().max().item()
-        rel = err / ref.float().abs().max().item()
-        emit('kernel_check', kernel='conv_stack_bf16', case=name, shape=[B, L, cin, c, k, nl],
-             max_abs_err=err, max_rel_err=rel, tol=KERNEL_REL_TOL)
-        check(rel < KERNEL_REL_TOL, f'{name}: relative error {rel} >= {KERNEL_REL_TOL}')
-        max_abs[name] = err
+    for kname, (wrapper, plain, tol, cases) in kernels.items():
+        for name, (B, L, cin, c, k, nl), layers in cases:
+            layers = layers or stack_init(gen, nl, cin, c, k, dev)
+            x = torch.randn((B, L, cin), generator=gen).to(dev)
+            before = wrapper.launches
+            got = wrapper(layers, x)
+            ref = plain(layers, x)
+            torch.cuda.synchronize()
+            check(wrapper.launches == before + 1, f'{kname} {name}: not one launch')
+            check(got.shape == (B, L, c) and got.dtype == ref.dtype, f'{kname} {name}: shape/dtype')
+            check(bool(torch.isfinite(got.float()).all()), f'{kname} {name}: non-finite output')
+            err = (got.float() - ref.float()).abs().max().item()
+            rel = err / ref.float().abs().max().item()
+            emit('kernel_check', kernel=kname, case=name, shape=[B, L, cin, c, k, nl],
+                 max_abs_err=err, max_rel_err=rel, tol=tol)
+            check(rel < tol, f'{kname} {name}: relative error {rel} >= {tol}')
+            max_abs[kname] = max(max_abs.get(kname, 0.0), err)
 
     # ---- forward: the crown on the card against the port on the CPU ----
     crown_cpu = params_to(crown, 'cpu')
@@ -172,19 +185,19 @@ def main() -> int:
     # bf16 may differ by one ulp and move a probability near 0.5 across it
     check(outs['bfloat16']['decision_agreement'] > 0.99, 'bf16 fused decisions differ')
 
-    # ---- crown_sweep: the main path ----
+    # ---- crown_sweep: main path 1 ----
     with open(os.path.join(ROOT, 'artifacts', 'eval_crown_r4.json')) as f:
         ref = json.load(f)
     cfg = Config(batch_size=SWEEP_BATCH, dtype='bfloat16', use_fused_conv=True)
     sweep_gen = torch.Generator(device=dev).manual_seed(0)
     torch.cuda.synchronize()
-    ks.conv_stack_bf16.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     res = sweep(crown, cfg, list(SWEEP_POINTS), num_block=SWEEP_BLOCKS, device=dev,
                 generator=sweep_gen)
     torch.cuda.synchronize()
     sweep_s = time.perf_counter() - t0
-    launches = ks.conv_stack_bf16.launches
+    paths = {'crown_sweep': read_counts()}
     n_batches = SWEEP_BLOCKS // SWEEP_BATCH
     points = []
     for i, snr in enumerate(SWEEP_POINTS):
@@ -196,23 +209,158 @@ def main() -> int:
                        'bler': res['bler'][i], 'ber': res['ber'][i],
                        'ref_bler': ref['bler'][j], 'ref_ber': ref['ber'][j], 'z_bler': z})
     blocks_per_s = res['n_blocks'] * len(SWEEP_POINTS) / sweep_s
-    emit('crown_sweep', points=points, launches=launches,
-         expected_launches=12 * n_batches * len(SWEEP_POINTS), seconds=sweep_s,
-         blocks_per_s=blocks_per_s)
-    check(launches == 12 * n_batches * len(SWEEP_POINTS),
-          f'conv_stack_bf16 launched {launches} times in the sweep')
+    expected = 12 * n_batches * len(SWEEP_POINTS)
+    emit('crown_sweep', points=points, launches=paths['crown_sweep'],
+         expected_launches=expected, seconds=sweep_s, blocks_per_s=blocks_per_s)
+    check(paths['crown_sweep']['conv_stack_bf16'] == expected,
+          f"conv_stack_bf16 launched {paths['crown_sweep']['conv_stack_bf16']} times in the sweep")
     for p in points:
         check(abs(p['z_bler']) < MAX_Z, f"BLER at {p['snr']} dB: z = {p['z_bler']}")
 
-    # ---- times at the main path's shape ----
-    B, L, cin, c, k, nl = main_shape
-    layers = crown['dec']['iters'][0]['dec1_cnn']
+    # ---- train_step: f32 steps on the card against the CPU ----
+    train_step_parity(crown, crown_cpu, dev, gen)
+
+    # ---- train: main path 2, one epoch of the flagship recipe ----
+    paths['train'] = train_epoch_phase(
+        Config(batch_size=TRAIN_BATCH, num_block=TRAIN_NUM_BLOCK, dtype='bfloat16',
+               use_fused_conv=True), dev)
+
+    # ---- train_times: the port of bench.py, fused on and off ----
+    train_times_phase(dev)
+
+    # ---- conv_stack_bench: path 3, the only path of K1 ----
+    paths['conv_stack_bench'] = conv_stack_bench_phase(dev)
+
+    # ---- times: each kernel, its plain version, a library yardstick, its bound ----
+    sweep_layers = crown['dec']['iters'][0]['dec1_cnn']
+    times = {
+        ('conv_stack_bf16', 'sweep'): time_kernel(ks.conv_stack_bf16, ks.conv_stack_bf16_plain,
+                                                  torch.bfloat16, main_shape, sweep_layers, gen, dev),
+        ('conv_stack_bf16', 'train'): time_kernel(ks.conv_stack_bf16, ks.conv_stack_bf16_plain,
+                                                  torch.bfloat16, bench_shape, sweep_layers, gen, dev),
+        ('conv_stack_f32', 'bench'): time_kernel(ks.conv_stack_f32, ks.conv_stack_f32_plain,
+                                                 torch.float32, bench_shape, None, gen, dev),
+    }
+    for (kname, at), t in times.items():
+        emit('times', kernel=kname, at=at, **t, card=smi)
+
+    # ---- summary ----
+    print(smi, flush=True)
+    summary = []
+    for kname, at, src, line in (('conv_stack_bf16', 'sweep', 'conv_stack_bf16.cu', 250),
+                                 ('conv_stack_f32', 'bench', 'conv_stack_f32.cu', 137)):
+        t = times[(kname, at)]
+        by_path = {p: c[kname] for p, c in paths.items() if c[kname]}
+        summary.append({
+            'name': kname, 'route': 'cuda',
+            'source': f'turboae_tpu_torch/kernels/csrc/{src}',
+            'replaces': f'turboae_tpu/kernels/conv_stack.py:{line}',
+            'launches': sum(by_path.values()), 'launches_by_path': by_path,
+            'max_abs_err': max_abs[kname], 'ms': t['ms'], 'plain_ms': t['plain_ms'],
+            'bound_ms': t['bound_ms'], 'bound_by': t['bound_by'],
+            'library_ms': t['library_ms'], 'shape': t['shape']})
+    print(json.dumps({'kernels': summary}), flush=True)
+    print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,
+                                             'count': torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def train_epoch_phase(cfg, dev):
+    """One epoch of the alternating recipe from a seeded init, then validate;
+    returns the kernels' launch counts of the run."""
+    from turboae_tpu_torch.train.trainer import Trainer
+    trainer = Trainer(cfg, dev)
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    enc_losses = [trainer.train_epoch(0, 'encoder', verbose=False)
+                  for _ in range(cfg.num_train_enc)]
+    dec_losses = [trainer.train_epoch(0, 'decoder', verbose=False)
+                  for _ in range(cfg.num_train_dec)]
+    train_s = time.perf_counter() - t0
+    val_bce, val_ber = trainer.validate(verbose=False)
+    sync(dev)
+    counts = read_counts()
+    steps_per_epoch = max(1, cfg.num_block // cfg.batch_size)
+    n_steps = steps_per_epoch * (cfg.num_train_enc + cfg.num_train_dec)
+    forwards = n_steps + max(1, int(cfg.num_block / cfg.batch_size * cfg.test_ratio))
+    emit('train', enc_losses=enc_losses, dec_losses=dec_losses, dec_loss=dec_losses[-1],
+         dec_loss_max=DEC_LOSS_MAX, val_bce=val_bce, val_ber=val_ber, steps=n_steps,
+         forwards=forwards, launches=counts, expected_launches=12 * forwards,
+         train_seconds=train_s, train_blocks_per_s=n_steps * cfg.batch_size / train_s)
+    check(all(math.isfinite(v) for v in enc_losses + dec_losses + [val_bce, val_ber]),
+          'a training loss is not finite')
+    check(counts['conv_stack_bf16'] == 12 * forwards,
+          f"conv_stack_bf16 launched {counts['conv_stack_bf16']} times, "
+          f'expected 12 x {forwards} forwards')
+    check(dec_losses[-1] < DEC_LOSS_MAX, f'decoder loss {dec_losses[-1]} >= {DEC_LOSS_MAX}')
+    return counts
+
+
+def train_times_phase(dev, batch=TRAIN_BATCH, steps=60, **cfg_overrides):
+    """cli/bench_train.py's timed loop, fused on and off, TF32 off."""
+    from turboae_tpu_torch.cli.bench_train import bench
+    from turboae_tpu_torch.kernels import conv_stack as ks
+    out = {}
+    for fused in (True, False):
+        before = ks.conv_stack_bf16.launches
+        r = bench(batch_size=batch, use_fused_conv=fused, steps=steps, device=dev,
+                  **cfg_overrides)
+        check(math.isfinite(r['last_loss']), 'bench_train: non-finite loss')
+        check((ks.conv_stack_bf16.launches > before) == fused, 'bench_train: K2 launches')
+        out['fused' if fused else 'unfused'] = r['value']
+    emit('train_times', train_blocks_per_s=out, batch=batch, steps=steps,
+         schedule='1 encoder : 5 decoder', dtype='bfloat16', allow_tf32=False)
+    return out
+
+
+def conv_stack_bench_phase(dev, argv=()):
+    """cli/bench_conv_stack.py's rows; returns the launch counts of the run."""
+    from turboae_tpu_torch.cli import bench_conv_stack
+    args = bench_conv_stack.parse(['--device', str(dev), *argv])
+    sync(dev)
+    reset_counts()
+    ms, numerics = bench_conv_stack.rows(args)
+    sync(dev)
+    counts = read_counts()
+    emit('conv_stack_bench', ms=ms, check=numerics, launches=counts,
+         shape=[args.B, args.L, args.Cin, args.C, args.K, args.layers])
+    check(counts['conv_stack_f32'] > 0, 'K1 did not launch in its bench')
+    check(counts['conv_stack_bf16'] > 0, 'K2 did not launch in its bench')
+    check(numerics['cuda_f32_max_rel_err'] < F32_REL_TOL, 'K1 bench numerics')
+    check(numerics['cuda_bf16_max_rel_err'] < KERNEL_REL_TOL, 'K2 bench numerics')
+    return counts
+
+
+def sync(dev):
+    if torch.device(dev).type == 'cuda':
+        torch.cuda.synchronize(dev)
+
+
+def reset_counts():
+    from turboae_tpu_torch.kernels import conv_stack as ks
+    ks.conv_stack_bf16.launches = 0
+    ks.conv_stack_f32.launches = 0
+
+
+def read_counts():
+    from turboae_tpu_torch.kernels import conv_stack as ks
+    return {'conv_stack_bf16': ks.conv_stack_bf16.launches,
+            'conv_stack_f32': ks.conv_stack_f32.launches}
+
+
+def time_kernel(wrapper, plain, dtype, shape, layers, gen, dev):
+    """CUDA-event ms of the kernel, its plain version and five cuDNN conv1d +
+    ELU in the kernel's type (TF32 off), with the bound of the same work."""
+    from turboae_tpu_torch.ops.conv1d import stack_init
+    B, L, cin, c, k, nl = shape
+    layers = layers or stack_init(gen, nl, cin, c, k, dev)
     x = torch.randn((B, L, cin), generator=gen).to(dev)
-    ms = cuda_ms(lambda: ks.conv_stack_bf16(layers, x), iters=20)
-    plain_ms = cuda_ms(lambda: ks.conv_stack_bf16_plain(layers, x), iters=10)
-    # yardstick only, never called by the port: five cuDNN bf16 conv1d + ELU
-    xl = x.to(torch.bfloat16).transpose(1, 2).contiguous()
-    lw = [(p['w'].to(torch.bfloat16), p['b'].to(torch.bfloat16)) for p in layers]
+    ms = cuda_ms(lambda: wrapper(layers, x), iters=20)
+    plain_ms = cuda_ms(lambda: plain(layers, x), iters=10)
+    # yardstick only, never called by the port
+    xl = x.to(dtype).transpose(1, 2).contiguous()
+    lw = [(p['w'].to(dtype), p['b'].to(dtype)) for p in layers]
 
     def library_chain():
         h = xl
@@ -220,28 +368,64 @@ def main() -> int:
             h = torch.nn.functional.elu(torch.nn.functional.conv1d(h, w, b, padding=k // 2))
         return h
     library_ms = cuda_ms(library_chain, iters=20)
-    flops, nbytes = conv_stack_work(B, L, cin, c, k, nl)
-    compute_ms = flops / PEAK_BF16_FLOPS * 1e3
+    from turboae_tpu_torch.kernels.conv_stack import conv_stack_work
+    itemsize = torch.finfo(dtype).bits // 8
+    flops, nbytes = conv_stack_work(B, L, cin, c, k, nl, itemsize)
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    compute_ms = flops / peak * 1e3
     memory_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    bound_ms = max(compute_ms, memory_ms)
-    emit('times', kernel='conv_stack_bf16', shape=list(main_shape), ms=ms, plain_ms=plain_ms,
-         library_ms=library_ms, flops=flops, bytes=nbytes, compute_bound_ms=compute_ms,
-         memory_bound_ms=memory_ms, bound_ms=bound_ms, achieved_tflops=flops / ms / 1e9,
-         sweep_blocks_per_s=blocks_per_s, card=smi)
+    return {'shape': list(shape), 'ms': ms, 'plain_ms': plain_ms, 'library_ms': library_ms,
+            'flops': flops, 'bytes': nbytes, 'peak_flops': peak, 'compute_bound_ms': compute_ms,
+            'memory_bound_ms': memory_ms, 'bound_ms': max(compute_ms, memory_ms),
+            'bound_by': 'operations' if compute_ms >= memory_ms else 'bytes',
+            'achieved_tflops': flops / ms / 1e9}
 
-    # ---- summary ----
-    print(smi, flush=True)
-    print(json.dumps({'kernels': [{
-        'name': 'conv_stack_bf16', 'route': 'cuda',
-        'source': 'turboae_tpu_torch/kernels/csrc/conv_stack_bf16.cu',
-        'replaces': 'turboae_tpu/kernels/conv_stack.py:250',
-        'launches': launches, 'max_abs_err': max(max_abs.values()),
-        'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
-        'bound_by': 'operations' if compute_ms >= memory_ms else 'bytes',
-        'library_ms': library_ms}]}), flush=True)
-    print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,
-                                             'count': torch.cuda.device_count()}}), flush=True)
-    return 0
+
+def train_step_parity(crown, crown_cpu, dev, gen, batch=PARITY_BATCH):
+    """One step of each mode in f32, unfused, on the card and on the CPU from
+    the same params, bits and noise (drawn on the host, noise at the
+    decoder's training SNR mix). Tolerances: the loss to 1e-4 relative (f32,
+    summation order only); gradients per leaf to 1e-3 of the leaf's largest;
+    Adam's first step is ~lr * sign(g), so where |g| is below 1e-3 of the
+    leaf's largest the sign is within the gradient tolerance and the update
+    may flip (2 lr); elsewhere updated params agree to 1e-2 * lr."""
+    from turboae_tpu_torch.channels.noise import train_sigma
+    from turboae_tpu_torch.config import Config
+    from turboae_tpu_torch.train.trainer import Trainer
+    bits = (torch.rand((batch, 100, 1), generator=gen) < 0.5).float()
+    noise = train_sigma((batch, 100, 3), -1.5, 2.0, gen, 'cpu') * \
+        torch.randn((batch, 100, 3), generator=gen)
+    for mode, extra in (('decoder', {}), ('encoder', {}), ('joint', {}),
+                        ('encoder', {'train_channel_mode': 'block_norm_ste'})):
+        cfg = Config(batch_size=batch, **extra)
+        out = {}
+        for where, params in (('gpu', crown), ('cpu', crown_cpu)):
+            tr = Trainer(cfg, dev if where == 'gpu' else 'cpu', params=params)
+            loss, grads = tr.loss_and_grads(mode, bits.to(tr.device), noise.to(tr.device))
+            step_loss = tr._train_step(mode, bits.to(tr.device), noise.to(tr.device))
+            out[where] = (loss.item(), step_loss.item(),
+                          {h: [g.cpu() for g in gs] for h, gs in grads.items()},
+                          {h: [p.cpu() for p in tr._leaves[h]] for h in grads})
+        (lg, sg, gg, pg), (lc, sc, gc, pc) = out['gpu'], out['cpu']
+        loss_rel = abs(lg - lc) / abs(lc)
+        grad_rel, firm_dp, max_dp = 0.0, 0.0, 0.0
+        for h in gc:
+            lr = cfg.enc_lr if h == 'enc' else cfg.dec_lr
+            for a, b, p, q in zip(gg[h], gc[h], pg[h], pc[h]):
+                scale = b.abs().max().item()
+                grad_rel = max(grad_rel, (a - b).abs().max().item() / scale)
+                firm = b.abs() > 1e-3 * scale
+                dp = (p - q).abs() / lr
+                firm_dp = max(firm_dp, dp[firm].max().item() if firm.any() else 0.0)
+                max_dp = max(max_dp, dp.max().item())
+        emit('train_step', mode=mode, **extra, batch=batch, loss_gpu=lg, loss_cpu=lc,
+             loss_rel=loss_rel, grad_rel=grad_rel, param_diff_firm_over_lr=firm_dp,
+             param_diff_max_over_lr=max_dp)
+        check(math.isfinite(lg) and abs(sg - lg) <= 1e-6 * abs(lg) and sc == lc,
+              f'{mode}: the step did not see the loss it was given')
+        check(loss_rel < 1e-4, f'{mode}: loss differs from the CPU by {loss_rel}')
+        check(grad_rel < 1e-3, f'{mode}: gradients differ from the CPU by {grad_rel}')
+        check(firm_dp < 1e-2 and max_dp <= 2.002, f'{mode}: updated params differ')
 
 
 if __name__ == '__main__':

@@ -12,6 +12,12 @@ from turboae_tpu.models.channel_ae import init_ae
 from turboae_tpu_torch.config import Config as PortConfig
 from turboae_tpu_torch.train.convert import from_jax
 
+# The suite runs in several pytest-xdist workers on a few cores. PyTorch's
+# default of one intra-op thread per core in each worker oversubscribes the
+# CPU, and the spinning threads slow every worker several-fold; the tests'
+# shapes are small, so one thread per worker is enough.
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CROWN = os.path.join(ROOT, 'artifacts', 'flagship.msgpack')
 CROWN_EVAL = os.path.join(ROOT, 'artifacts', 'eval_crown_r4.json')

@@ -1,0 +1,44 @@
+"""The port's benchmark entry points, driven on the CPU at small sizes: the
+control flow, the rows and the JSON line. Their times mean nothing here; on
+the card chip_smoke.py runs them at full size."""
+import json
+import math
+
+import numpy as np
+
+import _torch_parity  # noqa: F401  (one PyTorch thread per test worker)
+from turboae_tpu_torch.cli import bench_conv_stack, bench_train
+
+NARROW = dict(enc_num_unit=12, dec_num_unit=12, num_iteration=2)
+
+
+def test_bench_conv_stack_rows_on_cpu(capsys):
+    results, check = bench_conv_stack.main(['--device', 'cpu', '--B', '3', '--C', '16',
+                                            '--n', '2'])
+    assert set(results) == {'torch_f32', 'torch_bf16', 'cuda_f32', 'cuda_bf16'}
+    assert all(math.isfinite(v) and v > 0 for v in results.values())
+    # on the CPU the kernel rows run the plain versions: K1's is f32-exact
+    # up to summation order, K2's rounds to bf16 (< 1e-2 relative)
+    assert check['cuda_f32_max_rel_err'] < 2e-5 and check['cuda_bf16_max_rel_err'] < 1e-2
+    out = capsys.readouterr().out
+    assert 'cuda/torch best ratio' in out and out.count('TFLOP/s') == 4
+
+
+def test_bench_conv_stack_defaults_are_the_benchs():
+    a = bench_conv_stack.parse([])
+    assert (a.B, a.L, a.C, a.Cin, a.K, a.layers, a.n) == (500, 100, 100, 7, 5, 5, 100)
+
+
+def test_bench_train_json_line_on_cpu():
+    out = bench_train.bench(batch_size=4, steps=6, device='cpu', use_fused_conv=True, **NARROW)
+    json.dumps(out)
+    assert out['metric'] == 'train_blocks_per_s' and out['value'] > 0
+    assert out['mfu'] is None and out['use_fused_conv'] and not out['allow_tf32']
+    assert np.isfinite(out['last_loss']) and out['device'] == 'cpu'
+
+
+def test_bench_train_defaults_are_bench_py():
+    import inspect
+    sig = inspect.signature(bench_train.bench)
+    assert sig.parameters['batch_size'].default == 500
+    assert sig.parameters['steps'].default == 60

@@ -13,6 +13,9 @@ from turboae_tpu_torch.kernels import conv_stack as ks
 
 # bf16 tolerance of the Pallas kernel tests (tests/test_kernels.py:33-41)
 REL_TOL = 1e-2
+# K1 is exact f32: only the summation order differs from its plain version
+# (tests/test_kernels.py:25-30 hold the Pallas f32 kernel to 2e-5)
+F32_REL_TOL = 2e-5
 
 
 @pytest.fixture
@@ -52,10 +55,58 @@ def test_kernel_matches_plain(cuda_device, B, L, cin, c, k, nl):
 
 @pytest.mark.gpu
 def test_kernel_refuses_too_much_shared_memory(cuda_device):
-    layers = _stack(2, 7, 100, 5, cuda_device)
+    """Long blocks are windowed (below); a stack whose halo alone fills the
+    shared memory a window may use is refused: K=51 at C=1000 holds 66 rows
+    of bf16, and two layers need 50 on each side."""
+    c, k = 1000, 51
+    layers = [{'w': torch.zeros((c, cin, k), device=cuda_device),
+               'b': torch.zeros((c,), device=cuda_device)} for cin in (7, c)]
     x = torch.zeros((1, 1200, 7), device=cuda_device)
     with pytest.raises(ValueError, match='shared'):
         ks.conv_stack_bf16(layers, x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('f32', [False, True], ids=['K2', 'K1'])
+def test_long_block_is_windowed_in_one_launch(cuda_device, f32):
+    """L=1000, C=100, K=5, 5 layers: the buffers of a whole row do not fit in
+    shared memory; the wrapper windows the time axis and launches once."""
+    layers = _stack(5, 7, 100, 5, cuda_device)
+    x = torch.randn((6, 1000, 7), generator=torch.Generator().manual_seed(2)).to(cuda_device)
+    kernel = ks.conv_stack_f32 if f32 else ks.conv_stack_bf16
+    plain = ks.conv_stack_f32_plain if f32 else ks.conv_stack_bf16_plain
+    before = kernel.launches
+    got = kernel(layers, x)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1 and got.shape == (6, 1000, 100)
+    ref = plain(layers, x).float()
+    tol = F32_REL_TOL if f32 else REL_TOL
+    assert ((got.float() - ref).abs().max() / ref.abs().max()).item() < tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('B,L,cin,c,k,nl', [
+    (500, 100, 7, 100, 5, 5), (37, 100, 7, 100, 5, 1), (64, 100, 7, 100, 1, 3),
+    (333, 100, 7, 100, 5, 5), (5, 23, 3, 30, 3, 2), (4, 500, 7, 100, 5, 2)])
+def test_f32_kernel_matches_plain(cuda_device, B, L, cin, c, k, nl):
+    layers = _stack(nl, cin, c, k, cuda_device)
+    x = torch.randn((B, L, cin), generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    before = ks.conv_stack_f32.launches
+    got = ks.conv_stack_f32(layers, x)
+    torch.cuda.synchronize()
+    assert ks.conv_stack_f32.launches == before + 1
+    ref = ks.conv_stack_f32_plain(layers, x)
+    assert got.dtype == torch.float32 and got.shape == (B, L, c)
+    assert ((got - ref).abs().max() / ref.abs().max()).item() < F32_REL_TOL
+
+
+@pytest.mark.gpu
+def test_fused_f32_backward_on_gpu(cuda_device):
+    layers = _stack(2, 7, 16, 5, cuda_device)
+    leaves = [t.requires_grad_(True) for p in layers for t in (p['w'], p['b'])]
+    x = torch.randn((3, 12, 7), device=cuda_device, requires_grad=True)
+    ks.fused_stack_apply(layers, x).sum().backward()
+    assert x.grad is not None and all(t.grad is not None for t in leaves)
 
 
 @pytest.mark.gpu
@@ -66,3 +117,19 @@ def test_fused_backward_on_gpu(cuda_device):
     out = ks.fused_stack_apply_bf16(layers, x)
     out.float().sum().backward()
     assert x.grad is not None and all(t.grad is not None for t in leaves)
+
+
+@pytest.mark.gpu
+def test_trainer_marks_bracket_each_phase(cuda_device):
+    """The CUDA events a step records when `Trainer.marks` is a list, read by
+    cli/profile_train.py: one per phase, in order, with positive times."""
+    from turboae_tpu_torch.cli.profile_train import PHASES, phase_ms
+    from turboae_tpu_torch.config import Config
+    from turboae_tpu_torch.train.trainer import Trainer
+    cfg = Config(batch_size=16, enc_num_unit=12, dec_num_unit=12, num_iteration=2,
+                 dtype='bfloat16', use_fused_conv=True)
+    tr = Trainer(cfg, cuda_device)
+    out = phase_ms(tr, 6)
+    assert out['encoder']['steps'] == 1 and out['decoder']['steps'] == 5
+    assert all(out[m][p] > 0 for m in out for p in PHASES)
+    assert tr.marks is None

@@ -67,3 +67,18 @@ def test_sweep_without_device_raises_without_gpu(no_gpu):
 def test_eval_cli_without_device_raises_without_gpu(no_gpu):
     with pytest.raises(RuntimeError, match='cuda'):
         eval_flagship.main(['--ckpt', CROWN, '--num_block', '10', '--batch_size', '10'])
+
+
+@pytest.mark.parametrize('cli', ['bench_train', 'bench_conv_stack', 'profile_train'])
+def test_bench_clis_raise_without_gpu(no_gpu, cli):
+    from turboae_tpu_torch.cli import bench_conv_stack, bench_train, profile_train
+    main = {'bench_train': bench_train.main, 'bench_conv_stack': bench_conv_stack.main,
+            'profile_train': profile_train.main}[cli]
+    with pytest.raises(RuntimeError, match='cuda'):
+        main([])
+
+
+def test_trainer_without_device_raises_without_gpu(no_gpu):
+    from turboae_tpu_torch.train.trainer import Trainer
+    with pytest.raises(RuntimeError, match='cuda'):
+        Trainer(Config())

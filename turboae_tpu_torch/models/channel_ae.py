@@ -1,4 +1,9 @@
-"""Encoder -> channel -> decoder (JAX: models/channel_ae.py:23-72)."""
+"""Encoder -> channel -> decoder (JAX: models/channel_ae.py:23-72).
+
+`forward_ae(training=True)` is differentiable end to end: the power
+constraint and its STE, the interleavers (index gathers) and the fused
+decoder stacks (whose backward recomputes the unfused f32 stack) all carry
+gradients to both halves of the params."""
 from __future__ import annotations
 
 from typing import Dict
@@ -10,8 +15,14 @@ from numpy.random import mtrand
 from ..channels.apply import apply_channel
 from ..ops.interleave import invert_perm
 from ..ops.ste import rx_quantize
-from .decoders import largecnn_apply
-from .encoders import intercnn_apply
+from .decoders import largecnn_apply, largecnn_init
+from .encoders import intercnn_apply, intercnn_init
+
+
+def init_ae(gen: torch.Generator, cfg, device='cpu'):
+    """{'enc': ..., 'dec': ...} at PyTorch's default init (JAX channel_ae.py:45-49),
+    drawn from `gen` (a CPU generator), encoder first."""
+    return {'enc': intercnn_init(gen, cfg, device), 'dec': largecnn_init(gen, cfg, device)}
 
 
 def make_perms(cfg, device) -> Dict[str, torch.Tensor]:

@@ -21,6 +21,26 @@ from ..ops.interleave import deinterleave, interleave
 from ..utils.device import torch_dtype
 
 
+def largecnn_init(gen: torch.Generator, cfg, device='cpu'):
+    """{'iters': [...]}, one entry per iteration (JAX decoders.py:54-93):
+    two stacks (2 + num_iter_ft) -> dec_num_unit and two heads to
+    num_iter_ft, except the last iteration's dec2 head, which emits 1."""
+    if cfg.encoder != 'TurboAE_rate3_cnn':
+        raise NotImplementedError('dense decoder stacks are not ported yet')
+    n_in = 2 + cfg.num_iter_ft
+    U, nl, K = cfg.dec_num_unit, cfg.dec_num_layer, cfg.dec_kernel_size
+    iters = []
+    for i in range(cfg.num_iteration):
+        last = i == cfg.num_iteration - 1
+        iters.append({
+            'dec1_cnn': cv.stack_init(gen, nl, n_in, U, K, device),
+            'dec2_cnn': cv.stack_init(gen, nl, n_in, U, K, device),
+            'dec1_lin': cv.linear_init(gen, U, cfg.num_iter_ft, device),
+            'dec2_lin': cv.linear_init(gen, U, 1 if last else cfg.num_iter_ft, device),
+        })
+    return {'iters': iters}
+
+
 def largecnn_apply(params, cfg, received, perms) -> torch.Tensor:
     """received (B, L, 3) -> (B, L, 1) sigmoid bit estimates.
 

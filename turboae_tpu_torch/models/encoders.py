@@ -15,6 +15,20 @@ from ..ops.power import power_constraint
 from ..utils.device import torch_dtype
 
 
+def _branch_init(gen, cfg, device):
+    """One branch: a conv stack code_rate_k -> enc_num_unit and a head to 1."""
+    return {'cnn': cv.stack_init(gen, cfg.enc_num_layer, cfg.code_rate_k,
+                                 cfg.enc_num_unit, cfg.enc_kernel_size, device),
+            'lin': cv.linear_init(gen, cfg.enc_num_unit, 1, device)}
+
+
+def intercnn_init(gen: torch.Generator, cfg, device='cpu'):
+    """Params of the three branches b1, b2, b3 (JAX encoders.py:62-67)."""
+    if cfg.encoder != 'TurboAE_rate3_cnn':
+        raise NotImplementedError(f'encoder {cfg.encoder!r} is not ported yet')
+    return {name: _branch_init(gen, cfg, device) for name in ('b1', 'b2', 'b3')}
+
+
 def _branch_apply(p, cfg, x):
     dt = torch_dtype(cfg.dtype)
     h = cv.stack_apply(p['cnn'], x, compute_dtype=dt)

@@ -1,10 +1,15 @@
-"""Same-length Conv1d stacks and linear heads (JAX: ops/conv1d.py:43-84,119-122).
+"""Same-length Conv1d stacks and linear heads (JAX: ops/conv1d.py:28-84,109-122).
 
 Tensors are (B, L, C) channels last at this module's interface, as in the JAX
 package; `F.conv1d` sees (B, C, L) through a transpose inside.
 
 Parameters are plain dicts in PyTorch's layout: a conv layer is
 {'w': (Cout, Cin, K), 'b': (Cout,)}, a linear head {'w': (out, in), 'b': (out,)}.
+
+Init is PyTorch's default for Conv1d and Linear, as in the JAX package (:28-41,
+66-74, 109-117): weight and bias both U(-1/sqrt(fan_in), 1/sqrt(fan_in)),
+drawn in f32 from an explicit CPU torch.Generator and then moved to `device`,
+so an init does not depend on the device it lands on.
 
 Dtype policy, as in the JAX package:
   - a conv layer computes in `compute_dtype`; under bf16 its output and the bias
@@ -15,12 +20,40 @@ Dtype policy, as in the JAX package:
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, List
 
 import torch
 import torch.nn.functional as F
 
 Layer = Dict[str, torch.Tensor]
+
+
+def _uniform(gen: torch.Generator, shape, bound: float, device) -> torch.Tensor:
+    return ((torch.rand(shape, generator=gen) * 2.0 - 1.0) * bound).to(device)
+
+
+def conv1d_init(gen: torch.Generator, in_channels: int, out_channels: int,
+                kernel_size: int, device='cpu') -> Layer:
+    """One Conv1d layer: w (Cout, Cin, K), b (Cout,), fan_in = Cin * K."""
+    bound = 1.0 / math.sqrt(in_channels * kernel_size)
+    return {'w': _uniform(gen, (out_channels, in_channels, kernel_size), bound, device),
+            'b': _uniform(gen, (out_channels,), bound, device)}
+
+
+def stack_init(gen: torch.Generator, num_layer: int, in_channels: int,
+               out_channels: int, kernel_size: int, device='cpu') -> List[Layer]:
+    """SameShapeConv1d: the first layer Cin -> Cout, the rest Cout -> Cout."""
+    return [conv1d_init(gen, in_channels if i == 0 else out_channels, out_channels,
+                        kernel_size, device) for i in range(num_layer)]
+
+
+def linear_init(gen: torch.Generator, in_features: int, out_features: int,
+                device='cpu') -> Layer:
+    """Linear head: w (out, in), b (out,), fan_in = in."""
+    bound = 1.0 / math.sqrt(in_features)
+    return {'w': _uniform(gen, (out_features, in_features), bound, device),
+            'b': _uniform(gen, (out_features,), bound, device)}
 
 
 def conv1d_apply(p: Layer, x: torch.Tensor, compute_dtype=torch.float32) -> torch.Tensor:

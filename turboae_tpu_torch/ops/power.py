@@ -49,7 +49,8 @@ def power_constraint(x: torch.Tensor, cfg, training: bool = True,
     if not training and cfg.test_channel_mode != 'block_norm':
         mode = cfg.test_channel_mode
     if mode == 'block_norm_ste':
-        x_norm = ste_quantize(x_norm, cfg.enc_value_limit, cfg.enc_quantize_level)
+        x_norm = ste_quantize(x_norm, cfg.enc_value_limit, cfg.enc_quantize_level,
+                              cfg.enc_grad_limit, cfg.enc_clipping)
 
     if cfg.enc_truncate_limit > 0:
         x_norm = torch.clamp(x_norm, -cfg.enc_truncate_limit, cfg.enc_truncate_limit)

@@ -1,0 +1,72 @@
+"""Optimizers (JAX: train/optimizers.py:51-56): Adam and SGD with momentum,
+with optax's arithmetic.
+
+Each optimizer owns a list of parameter tensors and updates them IN PLACE
+(the JAX package returns new arrays; in place here saves a copy of the
+params per step). `step(grads)` takes the gradients in the same order.
+
+  - Adam (optax.adam defaults): b1 0.9, b2 0.999, eps 1e-8 added OUTSIDE the
+    square root, bias-corrected moments:
+        mu = b1 mu + (1 - b1) g,  nu = b2 nu + (1 - b2) g^2,
+        p -= lr * (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps);
+  - SGD (optax.sgd with momentum, not Nesterov): t = g + momentum t, p -= lr t.
+
+The updates use torch._foreach_* ops: one launch per op over all tensors.
+Lookahead is not ported yet (ROADMAP M8).
+"""
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+import torch
+
+
+def _bias_correction(decay: float, count: int) -> float:
+    """1 - decay^count in f32, as optax computes it: in f64 it would differ
+    by ~1e-5 relative at b2 = 0.999, since f32(0.999) is not 0.999."""
+    return float(np.float32(1.0) - np.float32(decay) ** np.float32(count))
+
+
+class Adam:
+    def __init__(self, params: List[torch.Tensor], lr: float, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8):
+        self.params, self.lr, self.b1, self.b2, self.eps = list(params), lr, b1, b2, eps
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self, grads: List[torch.Tensor]):
+        self.count += 1
+        torch._foreach_mul_(self.mu, self.b1)
+        torch._foreach_add_(self.mu, grads, alpha=1.0 - self.b1)
+        torch._foreach_mul_(self.nu, self.b2)
+        torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - self.b2)
+        denom = torch._foreach_div(self.nu, _bias_correction(self.b2, self.count))
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        upd = torch._foreach_div(self.mu, _bias_correction(self.b1, self.count))
+        torch._foreach_div_(upd, denom)
+        torch._foreach_add_(self.params, upd, alpha=-self.lr)
+
+
+class SGD:
+    def __init__(self, params: List[torch.Tensor], lr: float, momentum: float = 0.0):
+        self.params, self.lr, self.momentum = list(params), lr, momentum
+        self.trace = [torch.zeros_like(p) for p in self.params]
+
+    @torch.no_grad()
+    def step(self, grads: List[torch.Tensor]):
+        torch._foreach_mul_(self.trace, self.momentum)
+        torch._foreach_add_(self.trace, grads)
+        torch._foreach_add_(self.params, self.trace, alpha=-self.lr)
+
+
+def make_optimizer(cfg, lr: float, params: List[torch.Tensor]):
+    """SGD for 'sgd', Adam for any other name, as the JAX package chooses."""
+    if cfg.optimizer == 'lookahead':
+        raise NotImplementedError('optimizer lookahead is not ported yet (ROADMAP M8)')
+    if cfg.optimizer == 'sgd':
+        return SGD(params, lr, momentum=cfg.momentum)
+    return Adam(params, lr)

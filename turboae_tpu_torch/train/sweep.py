@@ -16,15 +16,12 @@ from ..channels.noise import sample_noise
 from ..models.channel_ae import forward_ae, make_perms
 from ..utils.device import resolve_device
 from ..utils.metrics import error_counts, snr_db2sigma
+from ..utils.tree import tree_map
 
 
 def params_to(params, device):
     """The param tree with every tensor moved to `device`."""
-    if isinstance(params, dict):
-        return {k: params_to(v, device) for k, v in params.items()}
-    if isinstance(params, list):
-        return [params_to(v, device) for v in params]
-    return params.to(device)
+    return tree_map(lambda t: t.to(device), params)
 
 
 @torch.inference_mode()

@@ -17,6 +17,13 @@ def resolve_device(device='cuda') -> torch.device:
     return dev
 
 
+def no_tf32():
+    """Full f32 on the card: no TF32 in matmuls or cuDNN convolutions (cuDNN
+    allows it by default). The port's f32 references and benches run so."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def torch_dtype(name: str) -> torch.dtype:
     """Config.dtype -> torch dtype (float32 | bfloat16)."""
     return torch.bfloat16 if name == 'bfloat16' else torch.float32

@@ -45,3 +45,10 @@ def two_proportion_z(e1: int, n1: int, e2: int, n2: int) -> float:
     p = (e1 + e2) / (n1 + n2)
     se = math.sqrt(max(p * (1 - p) * (1 / n1 + 1 / n2), 1e-300))
     return (e1 / n1 - e2 / n2) / se
+
+
+def errors_ber(bits: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """Mean disagreement of the rounded bits, a scalar tensor (JAX utils/metrics.py:13-17)."""
+    t = torch.round(bits.reshape(bits.shape[0], -1))
+    p = torch.round(out.float().reshape(out.shape[0], -1))
+    return (t != p).float().mean()
