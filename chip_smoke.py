@@ -6,10 +6,14 @@
 Phases, each printing one JSON line:
   device       the card (nvidia-smi name and power limit, torch's name);
   build        nvcc build of every CUDA source of the port, all in parallel
-               (seconds; ~0 if cached);
+               (seconds; ~0 if cached); per kernel, ptxas's registers, shared
+               memory and spills and the HMMA/HGMMA count of `cuobjdump -sass`
+               (cuobjdump from beside nvcc); K2 must show tensor-core
+               instructions and no spills;
   kernel_check each kernel against its plain PyTorch version on the card, at
                its path's shape and at edge shapes (one or two layers, K=1, odd
-               B, C and L that are no multiple of the kernel's tile) and at the
+               B, C and L that are no multiple of the kernel's tile; for K2 also
+               odd C, C=128 and 256, a partly filled last block) and at the
                long-block shape L=1000 that the wrappers window;
   forward      the crown checkpoint's forward on the card against the port's
                own forward on the CPU, on the same small input;
@@ -122,11 +126,19 @@ def main() -> int:
     # ---- build ----
     t0 = time.perf_counter()
     built = build.build(list(ks.LIBRARIES))
-    regs = [ln.strip() for b in built.values() for ln in b.log.splitlines()
-            if 'registers' in ln or 'spill' in ln]
-    emit('build', seconds=time.perf_counter() - t0,
-         libraries={n: {'seconds': b.seconds, 'cached': b.seconds == 0.0} for n, b in built.items()},
-         ptxas=regs)
+    libraries = {}
+    for name, lib in built.items():
+        ptxas = build.ptxas_report(lib.log)
+        tensor_core = build.tensor_core_counts(build.sass(lib.path))
+        libraries[name] = {'seconds': lib.seconds, 'cached': lib.seconds == 0.0,
+                           'kernels': {k: {**ptxas.get(k, {}), 'hmma_hgmma': n}
+                                       for k, n in tensor_core.items()}}
+    emit('build', seconds=time.perf_counter() - t0, libraries=libraries)
+    k2 = libraries['conv_stack_bf16']['kernels']
+    check(bool(k2) and all(v['hmma_hgmma'] > 0 for v in k2.values()),
+          'K2 has no tensor-core instruction (HMMA/HGMMA) in its SASS')
+    check(all('spill_stores' in v and v['spill_stores'] == v['spill_loads'] == 0
+              for v in k2.values()), 'ptxas reports spills (or nothing) for K2')
 
     # ---- kernel_check: each kernel against its plain version on the card ----
     crown = load_flagship(os.path.join(ROOT, 'artifacts', 'flagship.msgpack'), dev)
@@ -136,10 +148,14 @@ def main() -> int:
     edge = [('one_layer', (2000, 100, 7, 100, 5, 1)), ('two_layers', (500, 100, 7, 100, 5, 2)),
             ('k1', (256, 100, 7, 100, 1, 3)), ('odd_b', (333, 100, 7, 100, 5, 5)),
             ('ragged', (5, 23, 3, 30, 3, 2)), ('long_block_l1000', (16, 1000, 7, 100, 5, 5))]
+    # K2 only: odd C, one and several column groups of warps, a last block
+    # that holds one of its three rows
+    k2_edge = [('odd_c', (500, 100, 7, 25, 5, 5)), ('c128', (500, 100, 7, 128, 5, 5)),
+               ('c256', (500, 100, 7, 256, 5, 5)), ('partial_block', (334, 100, 7, 100, 5, 5))]
     kernels = {  # name: (wrapper, plain, tolerance, cases)
         'conv_stack_bf16': (ks.conv_stack_bf16, ks.conv_stack_bf16_plain, KERNEL_REL_TOL,
                             [('main_path', main_shape, crown['dec']['iters'][0]['dec1_cnn'])]
-                            + [(n, sh, None) for n, sh in edge if n != 'two_layers']),
+                            + [(n, sh, None) for n, sh in edge + k2_edge if n != 'two_layers']),
         'conv_stack_f32': (ks.conv_stack_f32, ks.conv_stack_f32_plain, F32_REL_TOL,
                            [('bench', bench_shape, None)] + [(n, sh, None) for n, sh in edge]),
     }

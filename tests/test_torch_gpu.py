@@ -40,8 +40,13 @@ def _stack(nl, cin, c, k, device, seed=0):
 @pytest.mark.gpu
 @pytest.mark.parametrize('B,L,cin,c,k,nl', [
     (2000, 100, 7, 100, 5, 5), (37, 100, 7, 100, 5, 1), (64, 100, 7, 100, 1, 3),
-    (333, 100, 7, 100, 5, 5), (5, 23, 3, 30, 3, 2), (4, 500, 7, 100, 5, 2)])
+    (333, 100, 7, 100, 5, 5), (5, 23, 3, 30, 3, 2), (4, 500, 7, 100, 5, 2),
+    (500, 100, 7, 25, 5, 5), (250, 100, 7, 128, 5, 5), (100, 100, 7, 256, 5, 5),
+    (334, 100, 7, 100, 5, 5)])
 def test_kernel_matches_plain(cuda_device, B, L, cin, c, k, nl):
+    """K2 against its plain version; the last four cases: odd C, two and three
+    column groups of warps (C=128, 256), and B=334 with three rows a block,
+    which leaves the last block holding one."""
     layers = _stack(nl, cin, c, k, cuda_device)
     x = torch.randn((B, L, cin), generator=torch.Generator().manual_seed(1)).to(cuda_device)
     before = ks.conv_stack_bf16.launches

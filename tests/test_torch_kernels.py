@@ -57,24 +57,105 @@ def test_wrapper_refuses_other_devices():
 
 
 def test_pack_weights_layout():
-    """The kernel reads w0[k*Cin + ci, c] == W[c, ci, k], zero beyond C."""
+    """K2 reads W'[k*S + ci, c] == W[c, ci, k] (S0 for layer 0), zero where
+    ci or c >= C and in the rows from K*S up to Kc, over the SW = 104
+    columns that one group of 13 n8 tiles covers; K1's packer gives no
+    hidden-layer weights for one layer."""
     _, tl, _ = _mk(3, 5, c=10)
-    w0, b0, wr, br, cp = ks.pack_weights(tl)
-    assert cp == 12 and w0.shape == (35, 12) and wr.shape == (2, 50, 12)
+    plan = ks.k2_layout(20, 7, 10, 5, 3, R=2)
+    assert (plan.S, plan.S0, plan.SW, plan.Kc, plan.Kc0) == (24, 8, 104, 128, 48)
+    w0, b0, wr, br = ks.pack_weights_bf16(tl, plan)
+    assert w0.shape == (48, 104) and b0.shape == (104,)
+    assert wr.shape == (2, 128, 104) and br.shape == (2, 104)
     assert w0.dtype == wr.dtype == torch.bfloat16 and b0.dtype == br.dtype == torch.float32
     w = tl[0]['w'].to(torch.bfloat16)
     for k in range(5):
         for ci in range(7):
-            assert torch.equal(w0[k * 7 + ci, :10], w[:, ci, k])
-    assert torch.equal(wr[1, 3 * 10 + 4, :10], tl[2]['w'].to(torch.bfloat16)[:, 4, 3])
-    assert not w0[:, 10:].any() and not b0[10:].any() and not br[:, 10:].any()
+            assert torch.equal(w0[k * 8 + ci, :10], w[:, ci, k])
+        assert not w0[k * 8 + 7].any()
+    assert torch.equal(wr[1, 3 * 24 + 4, :10], tl[2]['w'].to(torch.bfloat16)[:, 4, 3])
+    assert torch.equal(br[0, :10], tl[1]['b'].float())
+    pad_rows = torch.tensor([k * 24 + ci for k in range(5) for ci in range(10, 24)]
+                            + list(range(120, 128)))
+    assert not wr[:, pad_rows].any() and not w0[40:].any()
+    assert not w0[:, 10:].any() and not wr[:, :, 10:].any()
+    assert not b0[10:].any() and not br[:, 10:].any()
+    assert ks.pack_weights_bf16(tl[:1], plan)[2] is None
     assert ks.pack_weights(tl[:1])[2] is None
 
 
 def test_smem_bytes_and_limit():
-    assert ks.smem_bytes(100, 100, 5, 5) == 2 * 104 * 100 * 2
+    """K1: two f32 (L+K-1, C) buffers. K2 at the decoder's shape: three batch
+    rows a block, ten warps of 2 x 13 tiles, two bf16 buffers of 325 rows of
+    stride 104, x's buffer of 325 rows of stride 8, a ring of 3 x 64 weight
+    rows and five f32 biases."""
+    assert ks.smem_bytes(100, 100, 5, 5) == 2 * 104 * 100 * 4
     assert ks.smem_bytes(100, 100, 5, 1) == 0
-    assert ks.smem_bytes(100, 100, 5, 5) < ks.SMEM_LIMIT < ks.smem_bytes(1100, 100, 5, 2)
+    assert ks.smem_bytes(100, 100, 5, 5) < ks.SMEM_LIMIT < ks.smem_bytes(300, 100, 5, 2)
+    plan = ks.k2_plan(2000, 100, 7, 100, 5, 5, n_sm=132)
+    assert (plan.R, plan.mtiles, plan.nwarps, plan.kch) == (3, 20, 10, 4)
+    assert (plan.rows_alloc, plan.rows_alloc0) == (325, 325)
+    assert plan.smem == 2 * (2 * 325 * 104 + 325 * 8 + 3 * 64 * 104) + 4 * 5 * 104
+    assert plan.smem < ks.SMEM_LIMIT
+    wide = ks.k2_layout(100, 7, 128, 5, 5, R=1)     # 17 n8 tiles: two column groups
+    assert (wide.S, wide.ngroups, wide.SW, wide.mtiles, wide.nwarps) == (136, 2, 216, 8, 8)
+    assert not ks.k2_layout(100, 7, 100, 5, 5, R=4).fits()      # 13 warps
+    assert ks.k2_plan(2, 100, 7, 100, 5, 5, n_sm=1).R == 2       # never more rows than B
+    # on 132 SMs: the fewest rows that keep the fewest rounds of blocks
+    assert [ks.k2_plan(B, 100, 7, 100, 5, 5, n_sm=132).R
+            for B in (2000, 500, 334, 64)] == [3, 2, 3, 1]
+    assert ks.k2_plan(1, 400, 7, 100, 5, 5, n_sm=132) is None    # windowed
+    assert [ks.k2_stride(c) for c in (7, 25, 30, 100, 128, 256)] == [8, 40, 40, 104, 136, 264]
+
+
+def _k2_model(layers, x, plan):
+    """K2's arithmetic in K2's own layout, on the CPU: per block, the R batch
+    rows in one flat, zeroed, halo-padded buffer of stride S0 (then S); each
+    layer the product of the strided A view (row m = [m*S, m*S + Kc)) with
+    W' in f32, bias, ELU and bf16, written to the rows the kernel's epilogue
+    writes (valid rows, shifted by K//2); the output read back from them.
+    The contraction is cut at the taps (and at K*S, before the tail rows),
+    which sums in the plain version's order."""
+    w0, b0, wr, br = ks.pack_weights_bf16(layers, plan)
+    B, L, Cin = x.shape
+    R, P, pad, S = plan.R, plan.P, plan.K // 2, plan.S
+    m = torch.arange(16 * plan.mtiles)
+    outs = []
+    for r0 in range(0, B, R):
+        Rv = min(R, B - r0)
+        valid = (m // P < Rv) & (m % P < L)
+        src = torch.zeros(plan.rows_alloc0 * plan.S0, dtype=torch.bfloat16)
+        for r in range(Rv):
+            src.view(-1, plan.S0)[r * P + pad:r * P + pad + L, :Cin] = x[r0 + r].to(torch.bfloat16)
+        for i in range(plan.num_layer):
+            Ss, Kc = (plan.S0, plan.Kc0) if i == 0 else (S, plan.Kc)
+            W, b = (w0, b0) if i == 0 else (wr[i - 1], br[i - 1])
+            A = torch.as_strided(src, (16 * plan.mtiles, Kc), (Ss, 1))
+            cuts = [k * Ss for k in range(plan.K + 1)] + [Kc]
+            v = sum(A[:, a:e].float() @ W[a:e].float() for a, e in zip(cuts, cuts[1:]) if e > a)
+            y = torch.nn.functional.elu(v + b).to(torch.bfloat16)[:, :S]
+            src = torch.zeros(plan.rows_alloc * S, dtype=torch.bfloat16)
+            src.view(-1, S)[m[valid] + pad] = y[valid]
+        res = src.view(-1, S)
+        outs += [res[r * P + pad:r * P + pad + L, :plan.C] for r in range(Rv)]
+    return torch.stack(outs)
+
+
+@pytest.mark.parametrize('num_layer', [1, 2, 5])
+@pytest.mark.parametrize('k', [1, 3, 5])
+@pytest.mark.parametrize('c', [30, 25, 100, 128])
+def test_k2_layout_model_equals_plain(c, k, num_layer):
+    """The kernel's layout, packer and row mask, run on the CPU, give the
+    plain version's output (1e-5 relative): B = 2R + 1 leaves the last block
+    partly filled wherever the plan holds more than one row."""
+    _, tl, _ = _mk(num_layer, k, c=c)
+    plan = ks.k2_plan(1000, 100, 7, c, k, num_layer, n_sm=132)
+    B = 2 * plan.R + 1
+    x = torch.from_numpy(np.random.RandomState(3).standard_normal((B, 100, 7)).astype(np.float32))
+    got = _k2_model(tl, x, plan)
+    ref = ks.conv_stack_bf16_plain(tl, x)
+    assert got.shape == ref.shape == (B, 100, c) and got.dtype == torch.bfloat16
+    assert rel_err(got, ref.float().numpy()) < 1e-5
 
 
 def test_backward_recomputes_unfused_f32():
@@ -121,7 +202,7 @@ def test_f32_wrapper_on_cpu_is_the_plain_version():
 
 def test_f32_pack_weights_layout():
     _, tl, _ = _mk(2, 3, c=10)
-    w0, b0, wr, br, cp = ks.pack_weights(tl, torch.float32)
+    w0, b0, wr, br, cp = ks.pack_weights(tl)
     assert cp == 12 and w0.shape == (21, 12) and wr.shape == (1, 30, 12)
     assert w0.dtype == wr.dtype == torch.float32
     assert torch.equal(w0[2 * 7 + 4, :10], tl[0]['w'][:, 4, 2])
@@ -196,19 +277,24 @@ def test_windowed_stack_equals_the_whole_stack(num_layer, k):
 
 
 def test_long_block_window_at_the_k1000_shape():
-    """At L=1000, C=100, K=5 and 5 layers neither kernel's buffers fit in
-    shared memory, so the wrappers window: K1 into 4 windows of 270 rows, K2
-    into 2 windows of 520; the main path's L=100 fits in one."""
-    assert ks.smem_bytes(100, 100, 5, 5, 4) <= ks.SMEM_LIMIT
-    for itemsize, n_win, rows in ((4, 4, 270), (2, 2, 520)):
-        assert ks.smem_bytes(1000, 100, 5, 5, itemsize) > ks.SMEM_LIMIT
-        idx_in, _, r = ks.window_plan(1000, ks.max_rows(100, 5, itemsize), 10)
-        assert (idx_in.numel() // r, r) == (n_win, rows)
-        assert ks.smem_bytes(r, 100, 5, 5, itemsize) <= ks.SMEM_LIMIT
+    """At L=1000, C=100, K=5 and 5 layers no block holds a whole row, so the
+    wrappers window: K1 (shared memory) into 4 windows of 270 rows, K2 (the
+    rows 12 warps of 32 rows cover) into 3 windows of 354; the main path's
+    L=100 fits in one."""
+    assert ks.smem_bytes(100, 100, 5, 5) <= ks.SMEM_LIMIT
+    assert ks.smem_bytes(1000, 100, 5, 5) > ks.SMEM_LIMIT
+    idx_in, _, r = ks.window_plan(1000, ks.max_rows(100, 5), 10)
+    assert (idx_in.numel() // r, r) == (4, 270)
+    assert ks.smem_bytes(r, 100, 5, 5) <= ks.SMEM_LIMIT
+    assert ks.k2_plan(16, 1000, 7, 100, 5, 5, n_sm=132) is None
+    assert ks.k2_max_rows(7, 100, 5, 5) == 384
+    idx_in, _, r = ks.window_plan(1000, ks.k2_max_rows(7, 100, 5, 5), 10)
+    assert (idx_in.numel() // r, r) == (3, 354)
+    assert ks.k2_plan(16 * 3, r, 7, 100, 5, 5, n_sm=132).R == 1
     _, tl, x = _mk(5, 5, c=100, B=2, L=1000)
     xt = torch.from_numpy(x)
     np.testing.assert_allclose(
-        ks.run_windowed(ks.conv_stack_f32_plain, tl, xt, ks.max_rows(100, 5, 4)).numpy(),
+        ks.run_windowed(ks.conv_stack_f32_plain, tl, xt, ks.max_rows(100, 5)).numpy(),
         ks.conv_stack_f32_plain(tl, xt).numpy(), atol=1e-6, rtol=1e-6)
 
 
@@ -217,3 +303,32 @@ def test_conv_stack_work_counts():
     assert flops == 2 * 500 * 100 * 5 * 100 * (7 + 4 * 100) == 20350000000
     assert nbytes == (500 * 100 * 7 + 5 * 7 * 100 + 4 * 5 * 100 * 100 + 500 * 100 * 100) * 4 \
         + 5 * 100 * 4
+
+
+def test_build_reports_parse_ptxas_and_sass():
+    """What chip_smoke.py's build phase reads: ptxas's per-kernel registers,
+    shared memory and spills, and the HMMA/HGMMA count per kernel of SASS."""
+    from turboae_tpu_torch.kernels import build
+    log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z3fooPf' for 'sm_90a'
+ptxas info    : Function properties for _Z3fooPf
+    0 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 16 bytes smem, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z3barv' for 'sm_90a'
+ptxas info    : Function properties for _Z3barv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers, used 0 barriers, 360 bytes cmem[0]
+"""
+    assert build.ptxas_report(log) == {
+        '_Z3fooPf': {'spill_stores': 8, 'spill_loads': 12, 'registers': 168, 'smem': 16},
+        '_Z3barv': {'spill_stores': 0, 'spill_loads': 0, 'registers': 32, 'smem': 0}}
+    sass = """\tcode for sm_90a
+\t\tFunction : _Z3fooPf
+        /*0a50*/                   HMMA.16816.F32.BF16 R24, R12, R20, R24 ;
+        /*0a60*/                   LDSM.16.MT88.4 R8, [R2] ;
+        /*0a70*/               @P0 HMMA.16816.F32.BF16 R28, R12, R22, R28 ;
+\t\tFunction : _Z3barv
+        /*0010*/                   FFMA R1, R2, R3, R1 ;
+        /*0020*/                   HGMMA.64x104x16.F32.BF16 R24, gdesc[UR4], R24 ;
+"""
+    assert build.tensor_core_counts(sass) == {'_Z3fooPf': 2, '_Z3barv': 1}

@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -33,7 +34,8 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 class Built:
     path: Path
     seconds: float      # wall time of this build; 0.0 when the library was cached
-    log: str            # nvcc's output (ptxas register and shared-memory report)
+    log: str            # nvcc's output (ptxas register and shared-memory report),
+                        # kept beside the library for a cached build
 
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
@@ -66,7 +68,8 @@ def build(names: List[str]) -> Dict[str, Built]:
             continue
         out = _target(name)
         if out.exists():
-            _BUILT[name] = Built(out, 0.0, '')
+            log = out.with_suffix('.log')
+            _BUILT[name] = Built(out, 0.0, log.read_text() if log.exists() else '')
             continue
         tmp = out.with_suffix(f'.{os.getpid()}.tmp')
         cmd = [find_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(CSRC / f'{name}.cu')]
@@ -82,6 +85,7 @@ def build(names: List[str]) -> Dict[str, Built]:
             failed.append(f'nvcc failed on {name}.cu (exit {proc.returncode}):\n'
                           f'{stderr}{stdout}')
             continue
+        out.with_suffix('.log').write_text(stdout + stderr)
         os.replace(tmp, out)   # atomic: another process sees all or nothing
         _BUILT[name] = Built(out, seconds, stdout + stderr)
     if failed:
@@ -95,3 +99,53 @@ def load(name: str) -> ctypes.CDLL:
         built = build([name])[name]
         _LOADED[name] = ctypes.CDLL(str(built.path))
     return _LOADED[name]
+
+
+def find_cuobjdump() -> str:
+    """cuobjdump from the toolkit that holds nvcc."""
+    path = os.path.join(os.path.dirname(find_nvcc()), 'cuobjdump')
+    if not (os.path.isfile(path) and os.access(path, os.X_OK)):
+        raise RuntimeError(f'cuobjdump not found beside nvcc ({path})')
+    return path
+
+
+def ptxas_report(log: str) -> Dict[str, Dict[str, int]]:
+    """Per kernel, from nvcc's `-Xptxas -v` output: registers, static shared
+    memory bytes and spill store and load bytes."""
+    out: Dict[str, Dict[str, int]] = {}
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads', line)
+        if m:
+            out[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r'Used (\d+) registers(?:.*?(\d+) bytes smem)?', line)
+        if m:
+            out[name].update(registers=int(m.group(1)), smem=int(m.group(2) or 0))
+    return out
+
+
+def tensor_core_counts(sass: str) -> Dict[str, int]:
+    """Per kernel in `cuobjdump -sass` output, its HMMA and HGMMA instructions."""
+    out: Dict[str, int] = {}
+    name = None
+    for line in sass.splitlines():
+        m = re.match(r'\s*Function : (\S+)', line)
+        if m:
+            name = m.group(1)
+            out[name] = 0
+        elif name is not None and re.search(r'\bHG?MMA\b', line):
+            out[name] += 1
+    return out
+
+
+def sass(path: Path) -> str:
+    """`cuobjdump -sass` of a built library."""
+    return subprocess.run([find_cuobjdump(), '-sass', str(path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout

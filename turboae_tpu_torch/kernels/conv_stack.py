@@ -9,6 +9,9 @@
     `_stack_kernel_im2col`, exposed as `fused_stack_apply_bf16`). CUDA source
     `csrc/conv_stack_bf16.cu`. x is rounded to bf16; bf16 operands, f32
     accumulation, f32 bias and ELU, bf16 between layers and at the output.
+    It runs on the tensor cores (mma.sync m16n8k16) over a block of several
+    batch rows laid out as one flat buffer (`K2Plan`, `k2_plan`), with its
+    weights packed by `pack_weights_bf16`.
 
 `build.py` compiles each source with nvcc for sm_90a; it is called through
 ctypes. For each kernel:
@@ -24,17 +27,20 @@ ctypes. For each kernel:
     package's `_bwd` and `_bwd_bf16` do. Neither Pallas kernel has a backward
     kernel, so neither port has one.
 
-Long blocks: a kernel keeps a batch row's activations in shared memory, two
-(L+K-1, C) buffers. Where those exceed what one thread block may use, the
-wrapper cuts the time axis into overlapping windows (`run_windowed`) and
-launches once over all of them; the output is the same.
+Long blocks: a kernel keeps a batch row's activations on chip, two buffers
+of L+K-1 rows. Where one row does not fit in a block (K1: shared memory; K2:
+shared memory and the registers of at most 12 warps), the wrapper cuts the
+time axis into overlapping windows (`run_windowed`) and launches once over
+all of them; the output is the same.
 
 `layers` is a list of {'w': (C, Cin, K), 'b': (C,)} in PyTorch's layout.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Dict, List
+import functools
+from dataclasses import dataclass, fields
+from typing import Callable, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -50,24 +56,148 @@ SMEM_LIMIT = 232448
 Layers = List[Dict[str, torch.Tensor]]
 
 
+# each launcher's arguments after the six tensor pointers: K1 takes
+# (B, L, Cin, C, Cp, K, num_layer, stream), K2 (B, plan, n_plan, stream)
+_ARGTYPES = {
+    'conv_stack_f32': [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    'conv_stack_bf16': [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p,
+                                                ctypes.c_int, ctypes.c_void_p],
+}
+
+
 def _library(name: str) -> ctypes.CDLL:
     lib = build.load(name)
     fn = getattr(lib, f'{name}_launch')
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
     return lib
 
 
-def smem_bytes(L: int, C: int, K: int, num_layer: int, itemsize: int = 2) -> int:
-    """Dynamic shared memory of one thread block: two (L+K-1, C) buffers of
-    `itemsize`-byte values (2 for K2, 4 for K1); none for one layer."""
-    return 2 * (L + K - 1) * C * itemsize if num_layer > 1 else 0
+def smem_bytes(L: int, C: int, K: int, num_layer: int) -> int:
+    """K1's dynamic shared memory per thread block: two (L+K-1, C) f32
+    buffers; none for one layer."""
+    return 2 * (L + K - 1) * C * 4 if num_layer > 1 else 0
 
 
-def max_rows(C: int, K: int, itemsize: int) -> int:
-    """The longest time axis whose two buffers fit in SMEM_LIMIT."""
-    return SMEM_LIMIT // (2 * C * itemsize) - (K - 1)
+def max_rows(C: int, K: int) -> int:
+    """K1's longest time axis whose two buffers fit in SMEM_LIMIT."""
+    return SMEM_LIMIT // (2 * C * 4) - (K - 1)
+
+
+# ---------------------------------------------------------------- K2's layout
+K2_WM = 2            # m16 tiles per warp        (csrc/conv_stack_bf16.cu WM)
+K2_WN = 13           # n8 tiles per warp         (WN)
+K2_MAX_WARPS = 12    # warps per block; bounds the registers (MAX_WARPS)
+K2_STAGES = 3        # stages of the weight ring (STAGES)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def k2_stride(c: int) -> int:
+    """Row stride of a bf16 activation buffer: c rounded up to an odd
+    multiple of 8, so rows are 16-byte aligned for ldmatrix and the eight
+    rows one ldmatrix reads fall in distinct shared-memory banks."""
+    s = _cdiv(c, 8) * 8
+    return s + 8 if (s // 8) % 2 == 0 else s
+
+
+@dataclass(frozen=True)
+class K2Plan:
+    """One thread block's layout in K2 (struct Plan in conv_stack_bf16.cu,
+    field for field). R batch rows of P = L+K-1 rows each (K//2 zero halo
+    rows on each side) lie one after another in a flat buffer of row stride
+    S (S0 for x); output row m reads the span [m*S, m*S + Kc) of it, so a
+    layer is one (M, Kc) x (Kc, S) product with M = R*P - (K-1), padded to
+    `mtiles` m16 tiles (even). Warps: mtiles/2 row groups x `ngroups` column
+    groups of 13 n8 tiles, which cover the weights' columns; a weight row
+    has stride SW >= 104 * ngroups. Weights stream through a ring of three
+    chunks of 16*kch rows."""
+    L: int
+    Cin: int
+    C: int
+    K: int
+    num_layer: int
+    R: int
+    P: int
+    S: int
+    S0: int
+    SW: int
+    Kc: int
+    Kc0: int
+    mtiles: int
+    ngroups: int
+    kch: int
+    rows_alloc: int
+    rows_alloc0: int
+
+    @property
+    def nwarps(self) -> int:
+        return self.mtiles // K2_WM * self.ngroups
+
+    @property
+    def smem(self) -> int:
+        """Bytes of dynamic shared memory: two activation buffers, x's
+        buffer and the weight ring in bf16, every layer's bias in f32."""
+        return 2 * (2 * self.rows_alloc * self.S + self.rows_alloc0 * self.S0
+                    + K2_STAGES * 16 * self.kch * self.SW) + 4 * self.num_layer * self.SW
+
+    def fits(self) -> bool:
+        return self.nwarps <= K2_MAX_WARPS and self.smem <= SMEM_LIMIT
+
+    def as_ints(self):
+        return [getattr(self, f.name) for f in fields(self)]
+
+
+def k2_layout(L: int, Cin: int, C: int, K: int, num_layer: int, R: int) -> K2Plan:
+    """K2's block layout for R batch rows of length L (it may not fit)."""
+    S, S0, P = k2_stride(C), k2_stride(Cin), L + K - 1
+    Kc, Kc0 = _cdiv(K * S, 16) * 16, _cdiv(K * S0, 16) * 16
+    mtiles = _cdiv(R * P - (K - 1), 16 * K2_WM) * K2_WM
+    ngroups = _cdiv(S // 8, K2_WN)
+    SW = k2_stride(ngroups * K2_WN * 8)
+    # the last A row starts at (16*mtiles - 1)*S and spans Kc values
+    rows_alloc = 16 * mtiles - 1 + _cdiv(Kc, S)
+    rows_alloc0 = 16 * mtiles - 1 + _cdiv(Kc0, S0)
+    # the longest weight chunk whose ring takes at most a quarter of smem
+    kch = next((k for k in (4, 2) if K2_STAGES * 2 * 16 * k * SW <= SMEM_LIMIT // 4), 1)
+    return K2Plan(L, Cin, C, K, num_layer, R, P, S, S0, SW, Kc, Kc0, mtiles, ngroups,
+                  kch, rows_alloc, rows_alloc0)
+
+
+@functools.lru_cache(maxsize=256)
+def k2_plan(B: int, L: int, Cin: int, C: int, K: int, num_layer: int,
+            n_sm: int) -> Optional[K2Plan]:
+    """K2's layout for a call on a card of `n_sm` SMs, or None when not even
+    one row of length L fits in the registers and shared memory of a block:
+    then the wrapper windows the time axis.
+
+    Of the layouts that fit (at most B rows a block), it takes those that
+    need the fewest rounds of blocks over the SMs (one block on an SM at a
+    time), and of these the one with the fewest rows: the same rounds of
+    smaller blocks, which finish sooner. At the decoder's shape on 132 SMs:
+    three rows for B=2000 and 334, two for B=500, one for B=64."""
+    plans = []
+    for R in range(1, max(B, 1) + 1):
+        plan = k2_layout(L, Cin, C, K, num_layer, R)
+        if not plan.fits():
+            break
+        plans.append(plan)
+    if not plans:
+        return None
+    rounds = [_cdiv(_cdiv(B, p.R), n_sm) for p in plans]
+    return plans[rounds.index(min(rounds))]
+
+
+def k2_max_rows(Cin: int, C: int, K: int, num_layer: int) -> int:
+    """K2's longest time axis that one block holds (one batch row); 0 if none."""
+    ngroups = _cdiv(k2_stride(C) // 8, K2_WN)
+    L = 16 * K2_WM * (K2_MAX_WARPS // ngroups)   # as many rows as the warps cover
+    while L > 0 and not k2_layout(L, Cin, C, K, num_layer, 1).fits():
+        L -= 1
+    return L
 
 
 def window_plan(L: int, rows: int, halo: int, device='cpu'):
@@ -124,17 +254,17 @@ def _check_layers(layers: Layers, cin: int):
     return C, K
 
 
-def pack_weights(layers: Layers, dtype=torch.bfloat16):
-    """Weights in the kernels' layout, taps folded into the contraction.
+def pack_weights(layers: Layers):
+    """Weights in K1's layout, taps folded into the contraction.
 
-    Returns (w0, b0, wr, br, Cp): w0 (K*Cin, Cp) in `dtype`, b0 (Cp,) f32,
-    wr (nl-1, K*C, Cp) in `dtype` and br (nl-1, Cp) f32 (None for one layer),
-    with Cp = C rounded up to 4 and the extra columns zero."""
+    Returns (w0, b0, wr, br, Cp): w0 (K*Cin, Cp) f32, b0 (Cp,) f32, wr
+    (nl-1, K*C, Cp) f32 and br (nl-1, Cp) f32 (None for one layer), with
+    Cp = C rounded up to 4 and the extra columns zero."""
     C, _, K = layers[0]['w'].shape
     Cp = (C + 3) // 4 * 4
 
     def w_packed(w):   # (C, Cin, K) -> (K*Cin, Cp), row k*Cin + ci
-        wt = w.permute(2, 1, 0).reshape(-1, C).to(dtype)
+        wt = w.permute(2, 1, 0).reshape(-1, C).float()
         return F.pad(wt, (0, Cp - C))
 
     def b_packed(b):
@@ -147,6 +277,32 @@ def pack_weights(layers: Layers, dtype=torch.bfloat16):
     wr = torch.stack([w_packed(p['w']) for p in layers[1:]]).contiguous()
     br = torch.stack([b_packed(p['b']) for p in layers[1:]]).contiguous()
     return w0, b0, wr, br, Cp
+
+
+def pack_weights_bf16(layers: Layers, plan: K2Plan):
+    """Weights in K2's layout: W'[k*S + ci, c] = W[c, ci, k] in bf16, zero
+    where ci >= C or c >= C and in the rows from K*S up to Kc (S0 and Kc0
+    for layer 0); biases f32, zero beyond C. Eight copies in all, whatever
+    the depth: each is a launch on the host's clock.
+
+    Returns (w0 (Kc0, SW), b0 (SW,), wr (nl-1, Kc, SW), br (nl-1, SW)); wr
+    and br are None for one layer."""
+    C, Cin, K = layers[0]['w'].shape
+    SW, nl, dev = plan.SW, len(layers), layers[0]['w'].device
+
+    def packed(ws, stride, rows, cin):   # n x (C, cin, K) -> (n, rows, SW)
+        out = torch.zeros((len(ws), rows, SW), dtype=torch.bfloat16, device=dev)
+        taps = out[:, :K * stride].view(len(ws), K, stride, SW)
+        taps[:, :, :cin, :C] = torch.stack(ws).permute(0, 3, 2, 1)
+        return out
+
+    b = torch.zeros((nl, SW), dtype=torch.float32, device=dev)
+    b[:, :C] = torch.stack([p['b'] for p in layers])
+    w0 = packed([layers[0]['w']], plan.S0, plan.Kc0, Cin)[0]
+    if nl == 1:
+        return w0, b[0], None, None
+    wr = packed([p['w'] for p in layers[1:]], plan.S, plan.Kc, C)
+    return w0, b[0], wr, b[1:]
 
 
 def _elu_exp(v: torch.Tensor) -> torch.Tensor:
@@ -179,10 +335,8 @@ def conv_stack_bf16_plain(layers: Layers, x: torch.Tensor) -> torch.Tensor:
     return h.to(torch.bfloat16)
 
 
-def _launch(wrapper, dtype: torch.dtype, layers: Layers, x: torch.Tensor) -> torch.Tensor:
-    """Checks, packs and launches one kernel on x's CUDA device; windows the
-    time axis first when a block's buffers would not fit in shared memory."""
-    name = wrapper.__name__          # also the name of its library
+def _checked(name: str, layers: Layers, x: torch.Tensor):
+    """(B, L, Cin, C, K) of a call on x's CUDA device, or ValueError."""
     if x.device.type != 'cuda':
         raise ValueError(f'{name} runs on cuda or cpu, got {x.device}')
     if x.dim() != 3:
@@ -192,29 +346,63 @@ def _launch(wrapper, dtype: torch.dtype, layers: Layers, x: torch.Tensor) -> tor
     for p in layers:
         if p['w'].device != x.device or p['b'].device != x.device:
             raise ValueError('weights and x must be on the same device')
-    itemsize = torch.finfo(dtype).bits // 8
-    if smem_bytes(L, C, K, len(layers), itemsize) > SMEM_LIMIT:
-        return run_windowed(wrapper, layers, x, max_rows(C, K, itemsize))
-    w0, b0, wr, br, Cp = pack_weights(layers, dtype)
-    xc = x.to(dtype).contiguous()
-    out = torch.empty((B, L, C), dtype=dtype, device=x.device)
-    if B == 0 or L == 0:
-        return out
-    align = 4 * itemsize   # the kernels read weights 4 values at a time
-    for t in (w0, wr):
-        if t is not None and t.data_ptr() % align:
-            raise ValueError(f'{name} needs {align}-byte aligned weights')
+    return B, L, Cin, C, K
+
+
+def _run(name: str, x: torch.Tensor, *args):
+    """Calls <name>_launch on x's current stream and raises on its error code."""
     lib = _library(name)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = getattr(lib, f'{name}_launch')(
-            xc.data_ptr(), w0.data_ptr(), b0.data_ptr(),
-            None if wr is None else wr.data_ptr(),
-            None if br is None else br.data_ptr(), out.data_ptr(),
-            B, L, Cin, C, Cp, K, len(layers), stream)
+        rc = getattr(lib, f'{name}_launch')(*args, stream)
     if rc != 0:
         raise RuntimeError(f'{name} kernel launch failed: CUDA error {rc}')
-    wrapper.launches += 1
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_f32(layers: Layers, x: torch.Tensor) -> torch.Tensor:
+    """Checks, packs and launches K1; windows the time axis first when a
+    block's buffers would not fit in shared memory."""
+    B, L, Cin, C, K = _checked('conv_stack_f32', layers, x)
+    if smem_bytes(L, C, K, len(layers)) > SMEM_LIMIT:
+        return run_windowed(conv_stack_f32, layers, x, max_rows(C, K))
+    w0, b0, wr, br, Cp = pack_weights(layers)
+    xc = x.float().contiguous()
+    out = torch.empty((B, L, C), dtype=torch.float32, device=x.device)
+    if B == 0 or L == 0:
+        return out
+    for t in (w0, wr):   # the kernel reads weights 4 values at a time
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError('conv_stack_f32 needs 16-byte aligned weights')
+    _run('conv_stack_f32', x, xc.data_ptr(), w0.data_ptr(), b0.data_ptr(), _ptr(wr),
+         _ptr(br), out.data_ptr(), B, L, Cin, C, Cp, K, len(layers))
+    conv_stack_f32.launches += 1
+    return out
+
+
+def _launch_bf16(layers: Layers, x: torch.Tensor) -> torch.Tensor:
+    """Checks, plans, packs and launches K2; windows the time axis first when
+    one batch row does not fit in a block."""
+    B, L, Cin, C, K = _checked('conv_stack_bf16', layers, x)
+    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = k2_plan(B, L, Cin, C, K, len(layers), n_sm)
+    if plan is None:
+        return run_windowed(conv_stack_bf16, layers, x, k2_max_rows(Cin, C, K, len(layers)))
+    w0, b0, wr, br = pack_weights_bf16(layers, plan)
+    xc = x.to(torch.bfloat16).contiguous()
+    out = torch.empty((B, L, C), dtype=torch.bfloat16, device=x.device)
+    if B == 0 or L == 0:
+        return out
+    for t in (w0, wr):   # cp.async copies the weights 16 bytes at a time
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError('conv_stack_bf16 needs 16-byte aligned weights')
+    ints = plan.as_ints()
+    _run('conv_stack_bf16', x, xc.data_ptr(), w0.data_ptr(), b0.data_ptr(), _ptr(wr),
+         _ptr(br), out.data_ptr(), B, (ctypes.c_int * len(ints))(*ints), len(ints))
+    conv_stack_bf16.launches += 1
     return out
 
 
@@ -222,14 +410,14 @@ def conv_stack_f32(layers: Layers, x: torch.Tensor) -> torch.Tensor:
     """K1's wrapper: (B, L, Cin) -> (B, L, C) f32."""
     if x.device.type == 'cpu':
         return conv_stack_f32_plain(layers, x)
-    return _launch(conv_stack_f32, torch.float32, layers, x)
+    return _launch_f32(layers, x)
 
 
 def conv_stack_bf16(layers: Layers, x: torch.Tensor) -> torch.Tensor:
     """K2's wrapper: (B, L, Cin) -> (B, L, C) bf16."""
     if x.device.type == 'cpu':
         return conv_stack_bf16_plain(layers, x)
-    return _launch(conv_stack_bf16, torch.bfloat16, layers, x)
+    return _launch_bf16(layers, x)
 
 
 conv_stack_f32.launches = 0
