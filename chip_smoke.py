@@ -8,12 +8,12 @@ Phases, each printing one JSON line:
   build        nvcc build of every CUDA source of the port, all in parallel
                (seconds; ~0 if cached); per kernel, ptxas's registers, shared
                memory and spills and the HMMA/HGMMA count of `cuobjdump -sass`
-               (cuobjdump from beside nvcc); K2 must show tensor-core
-               instructions and no spills;
+               (cuobjdump from beside nvcc); both kernels must show
+               tensor-core instructions and no spills;
   kernel_check each kernel against its plain PyTorch version on the card, at
                its path's shape and at edge shapes (one or two layers, K=1, odd
-               B, C and L that are no multiple of the kernel's tile; for K2 also
-               odd C, C=128 and 256, a partly filled last block) and at the
+               B, C and L that are no multiple of the kernel's tile, odd C,
+               C=128 and 256, a partly filled last block) and at the
                long-block shape L=1000 that the wrappers window;
   forward      the crown checkpoint's forward on the card against the port's
                own forward on the CPU, on the same small input;
@@ -52,7 +52,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # Published dense peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12       # tensor cores, bf16
-PEAK_F32_FLOPS = 67e12         # CUDA cores, f32 (exact f32 has no tensor-core path)
+PEAK_TF32_FLOPS = 495e12       # tensor cores, TF32: K1 does three TF32 products a product (3xTF32)
+PEAK_F32_FLOPS = 67e12         # CUDA cores, f32 FFMA: the bound of exact f32 without the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 
 SWEEP_POINTS = (-1.0, 0.0)
@@ -134,11 +135,12 @@ def main() -> int:
                            'kernels': {k: {**ptxas.get(k, {}), 'hmma_hgmma': n}
                                        for k, n in tensor_core.items()}}
     emit('build', seconds=time.perf_counter() - t0, libraries=libraries)
-    k2 = libraries['conv_stack_bf16']['kernels']
-    check(bool(k2) and all(v['hmma_hgmma'] > 0 for v in k2.values()),
-          'K2 has no tensor-core instruction (HMMA/HGMMA) in its SASS')
-    check(all('spill_stores' in v and v['spill_stores'] == v['spill_loads'] == 0
-              for v in k2.values()), 'ptxas reports spills (or nothing) for K2')
+    for name, lib in libraries.items():
+        found = lib['kernels']
+        check(bool(found) and all(v['hmma_hgmma'] > 0 for v in found.values()),
+              f'{name} has no tensor-core instruction (HMMA/HGMMA) in its SASS')
+        check(all('spill_stores' in v and v['spill_stores'] == v['spill_loads'] == 0
+                  for v in found.values()), f'ptxas reports spills (or nothing) for {name}')
 
     # ---- kernel_check: each kernel against its plain version on the card ----
     crown = load_flagship(os.path.join(ROOT, 'artifacts', 'flagship.msgpack'), dev)
@@ -148,16 +150,17 @@ def main() -> int:
     edge = [('one_layer', (2000, 100, 7, 100, 5, 1)), ('two_layers', (500, 100, 7, 100, 5, 2)),
             ('k1', (256, 100, 7, 100, 1, 3)), ('odd_b', (333, 100, 7, 100, 5, 5)),
             ('ragged', (5, 23, 3, 30, 3, 2)), ('long_block_l1000', (16, 1000, 7, 100, 5, 5))]
-    # K2 only: odd C, one and several column groups of warps, a last block
-    # that holds one of its three rows
-    k2_edge = [('odd_c', (500, 100, 7, 25, 5, 5)), ('c128', (500, 100, 7, 128, 5, 5)),
-               ('c256', (500, 100, 7, 256, 5, 5)), ('partial_block', (334, 100, 7, 100, 5, 5))]
+    # the tensor-core block layout of both kernels: odd C, one and several
+    # column groups of warps, a last block that holds one of its three rows
+    block_edge = [('odd_c', (500, 100, 7, 25, 5, 5)), ('c128', (500, 100, 7, 128, 5, 5)),
+                  ('c256', (500, 100, 7, 256, 5, 5)), ('partial_block', (334, 100, 7, 100, 5, 5))]
     kernels = {  # name: (wrapper, plain, tolerance, cases)
         'conv_stack_bf16': (ks.conv_stack_bf16, ks.conv_stack_bf16_plain, KERNEL_REL_TOL,
                             [('main_path', main_shape, crown['dec']['iters'][0]['dec1_cnn'])]
-                            + [(n, sh, None) for n, sh in edge + k2_edge if n != 'two_layers']),
+                            + [(n, sh, None) for n, sh in edge + block_edge if n != 'two_layers']),
         'conv_stack_f32': (ks.conv_stack_f32, ks.conv_stack_f32_plain, F32_REL_TOL,
-                           [('bench', bench_shape, None)] + [(n, sh, None) for n, sh in edge]),
+                           [('bench', bench_shape, None)]
+                           + [(n, sh, None) for n, sh in edge + block_edge]),
     }
     max_abs = {}
     for kname, (wrapper, plain, tol, cases) in kernels.items():
@@ -367,7 +370,10 @@ def read_counts():
 
 def time_kernel(wrapper, plain, dtype, shape, layers, gen, dev):
     """CUDA-event ms of the kernel, its plain version and five cuDNN conv1d +
-    ELU in the kernel's type (TF32 off), with the bound of the same work."""
+    ELU in the kernel's type (TF32 off), with the bound of the same work: for
+    bf16 its FLOP at the bf16 tensor-core peak; for f32 three TF32 products
+    a product (K1's 3xTF32) at the TF32 peak, with exact f32 at the FFMA
+    peak beside it."""
     from turboae_tpu_torch.ops.conv1d import stack_init
     B, L, cin, c, k, nl = shape
     layers = layers or stack_init(gen, nl, cin, c, k, dev)
@@ -387,12 +393,17 @@ def time_kernel(wrapper, plain, dtype, shape, layers, gen, dev):
     from turboae_tpu_torch.kernels.conv_stack import conv_stack_work
     itemsize = torch.finfo(dtype).bits // 8
     flops, nbytes = conv_stack_work(B, L, cin, c, k, nl, itemsize)
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
-    compute_ms = flops / peak * 1e3
+    if dtype == torch.bfloat16:
+        peak, products, extra = PEAK_BF16_FLOPS, flops, {}
+    else:
+        peak, products = PEAK_TF32_FLOPS, 3 * flops
+        extra = {'ffma_bound_ms': flops / PEAK_F32_FLOPS * 1e3}
+    compute_ms = products / peak * 1e3
     memory_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     return {'shape': list(shape), 'ms': ms, 'plain_ms': plain_ms, 'library_ms': library_ms,
-            'flops': flops, 'bytes': nbytes, 'peak_flops': peak, 'compute_bound_ms': compute_ms,
-            'memory_bound_ms': memory_ms, 'bound_ms': max(compute_ms, memory_ms),
+            'flops': flops, 'tensor_core_flops': products, 'bytes': nbytes, 'peak_flops': peak,
+            'compute_bound_ms': compute_ms, **extra, 'memory_bound_ms': memory_ms,
+            'bound_ms': max(compute_ms, memory_ms),
             'bound_by': 'operations' if compute_ms >= memory_ms else 'bytes',
             'achieved_tflops': flops / ms / 1e9}
 

@@ -42,3 +42,28 @@ def test_bench_train_defaults_are_bench_py():
     sig = inspect.signature(bench_train.bench)
     assert sig.parameters['batch_size'].default == 500
     assert sig.parameters['steps'].default == 60
+
+
+def test_k1_variants_apply_to_the_source():
+    """cli/k1_variants.py times K1 against variants of its own source: each
+    substitution must still find its text in the shipped kernel, once."""
+    from turboae_tpu_torch.cli import k1_variants
+    src = k1_variants.SOURCE.read_text()
+    texts = k1_variants.variant_sources(src)
+    assert set(texts) == {'regs168', 'no_fold', 'cvt_rna', 'presplit', 'unroll2'}
+    assert len({src, *texts.values()}) == 6
+    assert 'cvt.rna.tf32.f32 %0' in texts['cvt_rna'] and 'cvt.rna.tf32.f32 %0' not in src
+
+
+def test_k1_variants_tf32_planes():
+    """The presplit variant's weight planes: TF32 big and small parts, low 13
+    bits zero, whose sum is the weight to 2^-22 relative."""
+    import torch
+    from turboae_tpu_torch.cli import k1_variants
+    w = torch.from_numpy(np.random.RandomState(0).standard_normal((2, 16, 40)).astype(np.float32))
+    planes = k1_variants.tf32_planes(w)
+    assert planes.shape == (2, 32, 40)
+    assert not (planes.view(torch.int32) & 0x1FFF).any()
+    big, small = planes[:, :16], planes[:, 16:]
+    assert ((big + small - w).abs() <= 2.0 ** -22 * w.abs()).all()
+    assert (big != w).any()

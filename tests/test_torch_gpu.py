@@ -13,8 +13,9 @@ from turboae_tpu_torch.kernels import conv_stack as ks
 
 # bf16 tolerance of the Pallas kernel tests (tests/test_kernels.py:33-41)
 REL_TOL = 1e-2
-# K1 is exact f32: only the summation order differs from its plain version
-# (tests/test_kernels.py:25-30 hold the Pallas f32 kernel to 2e-5)
+# K1 is f32 by 3xTF32, ~1e-6 from its exact f32 plain version (the dropped
+# small*small products, the tensor cores' rounding and the summation order);
+# tests/test_kernels.py:25-30 hold the Pallas f32 kernel to 2e-5
 F32_REL_TOL = 2e-5
 
 
@@ -74,8 +75,9 @@ def test_kernel_refuses_too_much_shared_memory(cuda_device):
 @pytest.mark.gpu
 @pytest.mark.parametrize('f32', [False, True], ids=['K2', 'K1'])
 def test_long_block_is_windowed_in_one_launch(cuda_device, f32):
-    """L=1000, C=100, K=5, 5 layers: the buffers of a whole row do not fit in
-    shared memory; the wrapper windows the time axis and launches once."""
+    """L=1000, C=100, K=5, 5 layers: a whole row does not fit in one block
+    (the rows 12 warps cover); the wrapper windows the time axis and
+    launches once."""
     layers = _stack(5, 7, 100, 5, cuda_device)
     x = torch.randn((6, 1000, 7), generator=torch.Generator().manual_seed(2)).to(cuda_device)
     kernel = ks.conv_stack_f32 if f32 else ks.conv_stack_bf16
@@ -92,8 +94,13 @@ def test_long_block_is_windowed_in_one_launch(cuda_device, f32):
 @pytest.mark.gpu
 @pytest.mark.parametrize('B,L,cin,c,k,nl', [
     (500, 100, 7, 100, 5, 5), (37, 100, 7, 100, 5, 1), (64, 100, 7, 100, 1, 3),
-    (333, 100, 7, 100, 5, 5), (5, 23, 3, 30, 3, 2), (4, 500, 7, 100, 5, 2)])
+    (333, 100, 7, 100, 5, 5), (5, 23, 3, 30, 3, 2), (4, 500, 7, 100, 5, 2),
+    (500, 100, 7, 25, 5, 5), (250, 100, 7, 128, 5, 5), (100, 100, 7, 256, 5, 5),
+    (334, 100, 7, 100, 5, 5)])
 def test_f32_kernel_matches_plain(cuda_device, B, L, cin, c, k, nl):
+    """K1 against its plain version; the last four cases as K2's: odd C, two
+    and three column groups of warps (C=128, 256), and B=334 with three rows
+    a block, which leaves the last block holding one."""
     layers = _stack(nl, cin, c, k, cuda_device)
     x = torch.randn((B, L, cin), generator=torch.Generator().manual_seed(1)).to(cuda_device)
     before = ks.conv_stack_f32.launches

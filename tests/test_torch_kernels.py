@@ -59,8 +59,8 @@ def test_wrapper_refuses_other_devices():
 def test_pack_weights_layout():
     """K2 reads W'[k*S + ci, c] == W[c, ci, k] (S0 for layer 0), zero where
     ci or c >= C and in the rows from K*S up to Kc, over the SW = 104
-    columns that one group of 13 n8 tiles covers; K1's packer gives no
-    hidden-layer weights for one layer."""
+    columns that one group of 13 n8 tiles covers; K1's packer, like K2's,
+    gives no hidden-layer weights for one layer."""
     _, tl, _ = _mk(3, 5, c=10)
     plan = ks.k2_layout(20, 7, 10, 5, 3, R=2)
     assert (plan.S, plan.S0, plan.SW, plan.Kc, plan.Kc0) == (24, 8, 104, 128, 48)
@@ -81,17 +81,27 @@ def test_pack_weights_layout():
     assert not w0[:, 10:].any() and not wr[:, :, 10:].any()
     assert not b0[10:].any() and not br[:, 10:].any()
     assert ks.pack_weights_bf16(tl[:1], plan)[2] is None
-    assert ks.pack_weights(tl[:1])[2] is None
+    assert ks.pack_weights(tl[:1], ks.k1_layout(20, 7, 10, 5, 1, R=2))[2] is None
 
 
 def test_smem_bytes_and_limit():
-    """K1: two f32 (L+K-1, C) buffers. K2 at the decoder's shape: three batch
-    rows a block, ten warps of 2 x 13 tiles, two bf16 buffers of 325 rows of
-    stride 104, x's buffer of 325 rows of stride 8, a ring of 3 x 64 weight
-    rows and five f32 biases."""
-    assert ks.smem_bytes(100, 100, 5, 5) == 2 * 104 * 100 * 4
-    assert ks.smem_bytes(100, 100, 5, 1) == 0
-    assert ks.smem_bytes(100, 100, 5, 5) < ks.SMEM_LIMIT < ks.smem_bytes(300, 100, 5, 2)
+    """K1 at the bench's shape: two batch rows a block, seven warps of 2 x 13
+    tiles, one f32 buffer of 229 rows of stride 100, x's buffer of 229 rows
+    of stride 12, a ring of 3 x 104 weight rows of 64 columns at stride 68,
+    and five f32 biases; three rows at B=2000 (ten warps, a ring of 32
+    columns: 64 would not fit); four rows take 13 warps. K2 at the
+    decoder's shape: three batch rows a block, ten warps of 2 x 13 tiles,
+    two bf16 buffers of 325 rows of stride 104, x's buffer of 325 rows of
+    stride 8, a ring of 3 x 64 weight rows and five f32 biases."""
+    k1 = ks.k1_plan(500, 100, 7, 100, 5, 5, n_sm=132)
+    assert (k1.R, k1.mtiles, k1.nwarps, k1.kch, k1.SK) == (2, 14, 7, 64, 68)
+    assert (k1.rows_alloc, k1.rows_alloc0) == (229, 229)
+    assert k1.smem == 4 * (229 * 100 + 229 * 12 + 3 * 104 * 68 + 5 * 104)
+    big = ks.k1_plan(2000, 100, 7, 100, 5, 5, n_sm=132)
+    assert (big.R, big.nwarps, big.kch) == (3, 10, 32)
+    assert big.smem == 4 * (325 * 112 + 3 * 104 * 36 + 520)
+    assert big.smem <= ks.SMEM_LIMIT
+    assert not ks.k1_layout(100, 7, 100, 5, 5, R=4).fits()      # 13 warps
     plan = ks.k2_plan(2000, 100, 7, 100, 5, 5, n_sm=132)
     assert (plan.R, plan.mtiles, plan.nwarps, plan.kch) == (3, 20, 10, 4)
     assert (plan.rows_alloc, plan.rows_alloc0) == (325, 325)
@@ -201,12 +211,107 @@ def test_f32_wrapper_on_cpu_is_the_plain_version():
 
 
 def test_f32_pack_weights_layout():
+    """K1 reads W'[c, k*S + ci] == W[c, ci, k] (S0 for layer 0): n-major, the
+    contraction contiguous, zero where ci or c >= C and in the columns from
+    K*S up to Kc, over the NW = 104 rows that one group of 13 n8 tiles
+    covers; biases f32, zero beyond C."""
     _, tl, _ = _mk(2, 3, c=10)
-    w0, b0, wr, br, cp = ks.pack_weights(tl)
-    assert cp == 12 and w0.shape == (21, 12) and wr.shape == (1, 30, 12)
-    assert w0.dtype == wr.dtype == torch.float32
-    assert torch.equal(w0[2 * 7 + 4, :10], tl[0]['w'][:, 4, 2])
-    assert torch.equal(wr[0, 1 * 10 + 9, :10], tl[1]['w'][:, 9, 1])
+    plan = ks.k1_layout(20, 7, 10, 3, 2, R=2)
+    assert (plan.S, plan.S0, plan.NW, plan.Kc, plan.Kc0) == (12, 12, 104, 40, 40)
+    w0, b0, wr, br = ks.pack_weights(tl, plan)
+    assert w0.shape == (104, 40) and b0.shape == (104,)
+    assert wr.shape == (1, 104, 40) and br.shape == (1, 104)
+    assert w0.dtype == wr.dtype == b0.dtype == br.dtype == torch.float32
+    for k in range(3):
+        for ci in range(7):
+            assert torch.equal(w0[:10, k * 12 + ci], tl[0]['w'][:, ci, k])
+    assert torch.equal(wr[0, :10, 1 * 12 + 9], tl[1]['w'][:, 9, 1])
+    assert torch.equal(b0[:10], tl[0]['b']) and torch.equal(br[0, :10], tl[1]['b'])
+    pad0 = torch.tensor([k * 12 + ci for k in range(3) for ci in range(7, 12)] + [36, 37, 38, 39])
+    padr = torch.tensor([k * 12 + ci for k in range(3) for ci in range(10, 12)] + [36, 37, 38, 39])
+    assert not w0[:, pad0].any() and not wr[:, :, padr].any()
+    assert not w0[10:].any() and not wr[:, 10:].any()
+    assert not b0[10:].any() and not br[:, 10:].any()
+
+
+def test_k1_plan_at_the_bench_shape():
+    """K1 at the conv-stack bench's shape (B=500, L=100, Cin=7, C=100, K=5,
+    5 layers) on 132 SMs: strides 100 and 12 (odd multiples of 4), Kc 504
+    and 64 (multiples of 8), one column group of 13 n8 tiles, two rows a
+    block (250 blocks, 2 rounds; three rows also take 2 rounds), within the
+    warp cap and the shared memory of a block."""
+    plan = ks.k1_plan(500, 100, 7, 100, 5, 5, n_sm=132)
+    assert (plan.S, plan.S0, plan.Kc, plan.Kc0) == (100, 12, 504, 64)
+    assert (plan.NW, plan.ngroups, plan.R, plan.P) == (104, 1, 2, 104)
+    assert plan.nwarps <= ks.K1_MAX_WARPS and plan.smem <= 232448 == ks.SMEM_LIMIT
+    assert len(plan.as_ints()) == 18
+    # on 132 SMs: the fewest rows that keep the fewest rounds of blocks
+    assert [ks.k1_plan(B, 100, 7, 100, 5, 5, n_sm=132).R
+            for B in (2000, 500, 334, 64)] == [3, 2, 3, 1]
+    assert [ks.k1_stride(c) for c in (3, 7, 25, 30, 100, 128, 256)] == [4, 12, 28, 36, 100, 132, 260]
+    # C=128 and 256: two and three column groups; the ring's chunk shrinks
+    wide = [ks.k1_plan(250, 100, 7, c, 5, 5, n_sm=132) for c in (128, 256)]
+    assert [(p.ngroups, p.NW, p.kch, p.R, p.nwarps) for p in wide] == [(2, 208, 32, 1, 8),
+                                                                        (3, 312, 16, 1, 12)]
+    assert all(p.smem <= ks.SMEM_LIMIT for p in wide)
+
+
+def _tf32(t):
+    """t rounded to TF32 on its int32 view: to nearest, ties away from zero,
+    as cvt.rna.tf32.f32; the low 13 bits come out zero."""
+    return ((t.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _k1_model(layers, x, plan):
+    """K1's arithmetic in K1's own layout, on the CPU: per block, the R batch
+    rows in one flat, zeroed, halo-padded buffer of stride S0 (then S); each
+    layer the strided A view (row m = [m*S, m*S + Kc)) times the n-major W'
+    (its transpose), both split into TF32 big and small parts and summed in
+    f32 as small*big + big*small + big*big; bias and ELU; then the valid
+    rows' C channels written back in place, shifted by K//2; the last
+    layer's read from the product's rows."""
+    w0, b0, wr, br = ks.pack_weights(layers, plan)
+    B, L, Cin = x.shape
+    R, P, pad, S, C = plan.R, plan.P, plan.K // 2, plan.S, plan.C
+    m = torch.arange(16 * plan.mtiles)
+    outs = []
+    for r0 in range(0, B, R):
+        Rv = min(R, B - r0)
+        valid = (m // P < Rv) & (m % P < L)
+        src = torch.zeros(plan.rows_alloc0 * plan.S0)
+        for r in range(Rv):
+            src.view(-1, plan.S0)[r * P + pad:r * P + pad + L, :Cin] = x[r0 + r]
+        buf = torch.zeros(plan.rows_alloc * S)
+        for i in range(plan.num_layer):
+            Ss, Kc = (plan.S0, plan.Kc0) if i == 0 else (S, plan.Kc)
+            W, b = (w0, b0) if i == 0 else (wr[i - 1], br[i - 1])
+            A = torch.as_strided(src, (16 * plan.mtiles, Kc), (Ss, 1))
+            a_big, w_big = _tf32(A), _tf32(W.t())
+            a_small, w_small = _tf32(A - a_big), _tf32(W.t() - w_big)
+            v = a_small @ w_big + a_big @ w_small + a_big @ w_big
+            y = ks._elu_exp(v + b)[:, :C]
+            buf.view(-1, S)[m[valid] + pad, :C] = y[valid]
+            src = buf
+        outs += [y[r * P:r * P + L] for r in range(Rv)]
+    return torch.stack(outs)
+
+
+@pytest.mark.parametrize('num_layer', [1, 2, 5])
+@pytest.mark.parametrize('k', [1, 3, 5])
+@pytest.mark.parametrize('c', [30, 100, 128])
+def test_k1_layout_model_equals_plain(c, k, num_layer):
+    """K1's layout, packer, row mask and 3xTF32 split, run on the CPU, give
+    the exact f32 plain version's output within 2e-5 relative, the Pallas
+    f32 tolerance (tests/test_kernels.py:25-30); B = 2R + 1 leaves the last
+    block partly filled wherever the plan holds more than one row."""
+    _, tl, _ = _mk(num_layer, k, c=c)
+    plan = ks.k1_plan(1000, 100, 7, c, k, num_layer, n_sm=132)
+    B = 2 * plan.R + 1
+    x = torch.from_numpy(np.random.RandomState(3).standard_normal((B, 100, 7)).astype(np.float32))
+    got = _k1_model(tl, x, plan)
+    ref = ks.conv_stack_f32_plain(tl, x)
+    assert got.shape == ref.shape == (B, 100, c) and got.dtype == torch.float32
+    assert rel_err(got, ref.numpy()) < 2e-5
 
 
 def test_fused_f32_grads_match_jax():
@@ -278,14 +383,15 @@ def test_windowed_stack_equals_the_whole_stack(num_layer, k):
 
 def test_long_block_window_at_the_k1000_shape():
     """At L=1000, C=100, K=5 and 5 layers no block holds a whole row, so the
-    wrappers window: K1 (shared memory) into 4 windows of 270 rows, K2 (the
-    rows 12 warps of 32 rows cover) into 3 windows of 354; the main path's
-    L=100 fits in one."""
-    assert ks.smem_bytes(100, 100, 5, 5) <= ks.SMEM_LIMIT
-    assert ks.smem_bytes(1000, 100, 5, 5) > ks.SMEM_LIMIT
-    idx_in, _, r = ks.window_plan(1000, ks.max_rows(100, 5), 10)
-    assert (idx_in.numel() // r, r) == (4, 270)
-    assert ks.smem_bytes(r, 100, 5, 5) <= ks.SMEM_LIMIT
+    wrappers window: K1 and K2 alike (the rows 12 warps of 32 rows cover)
+    into 3 windows of 354; the main path's L=100 fits in one."""
+    assert ks.k1_plan(16, 100, 7, 100, 5, 5, n_sm=132) is not None
+    assert ks.k1_plan(16, 1000, 7, 100, 5, 5, n_sm=132) is None
+    assert ks.k1_max_rows(7, 100, 5, 5) == 384
+    idx_in, _, r = ks.window_plan(1000, ks.k1_max_rows(7, 100, 5, 5), 10)
+    assert (idx_in.numel() // r, r) == (3, 354)
+    plan = ks.k1_plan(16 * 3, r, 7, 100, 5, 5, n_sm=132)
+    assert plan.R == 1 and plan.smem <= ks.SMEM_LIMIT
     assert ks.k2_plan(16, 1000, 7, 100, 5, 5, n_sm=132) is None
     assert ks.k2_max_rows(7, 100, 5, 5) == 384
     idx_in, _, r = ks.window_plan(1000, ks.k2_max_rows(7, 100, 5, 5), 10)
@@ -294,7 +400,7 @@ def test_long_block_window_at_the_k1000_shape():
     _, tl, x = _mk(5, 5, c=100, B=2, L=1000)
     xt = torch.from_numpy(x)
     np.testing.assert_allclose(
-        ks.run_windowed(ks.conv_stack_f32_plain, tl, xt, ks.max_rows(100, 5)).numpy(),
+        ks.run_windowed(ks.conv_stack_f32_plain, tl, xt, ks.k1_max_rows(7, 100, 5, 5)).numpy(),
         ks.conv_stack_f32_plain(tl, xt).numpy(), atol=1e-6, rtol=1e-6)
 
 

@@ -3,8 +3,12 @@
   - K1, `conv_stack_f32`, replaces `turboae_tpu/kernels/conv_stack.py::
     _fused_forward` (Pallas body `_stack_kernel`, exposed as
     `fused_stack_apply`). CUDA source `csrc/conv_stack_f32.cu`. Every layer is
-    ELU(sum_k h[l + k - K//2] @ W[k] + b) with zero padding, in f32 throughout:
-    no bf16 rounding and no TF32 anywhere.
+    ELU(sum_k h[l + k - K//2] @ W[k] + b) with zero padding, f32 in and out,
+    f32 bias and ELU. It runs on the tensor cores by 3xTF32 (mma.sync m16n8k8:
+    each operand split into two TF32 parts, three products per product, ~1e-6
+    from exact f32) over a block of several batch rows laid out as one flat
+    buffer (`K1Plan`, `k1_plan`), with its weights packed n-major by
+    `pack_weights`.
   - K2, `conv_stack_bf16`, replaces `_fused_forward_im2col` (Pallas body
     `_stack_kernel_im2col`, exposed as `fused_stack_apply_bf16`). CUDA source
     `csrc/conv_stack_bf16.cu`. x is rounded to bf16; bf16 operands, f32
@@ -19,19 +23,18 @@ ctypes. For each kernel:
     the kernel or raises; on a CPU tensor it runs the plain version.
     `conv_stack_<t>.launches` counts the kernel's launches.
   - `conv_stack_<t>_plain(layers, x)` is the plain PyTorch version: K shifted
-    matmuls per layer. K2's multiplies bf16-rounded operands in f32 and rounds
-    to bf16 after every layer; it never uses a bf16 matmul, which would round
-    the sum before the bias add.
+    matmuls per layer. K1's is exact f32. K2's multiplies bf16-rounded
+    operands in f32 and rounds to bf16 after every layer; it never uses a
+    bf16 matmul, which would round the sum before the bias add.
   - `fused_stack_apply[_bf16](layers, x)` is the differentiable entry point:
     its backward recomputes through the unfused f32 stack, as the JAX
     package's `_bwd` and `_bwd_bf16` do. Neither Pallas kernel has a backward
     kernel, so neither port has one.
 
-Long blocks: a kernel keeps a batch row's activations on chip, two buffers
-of L+K-1 rows. Where one row does not fit in a block (K1: shared memory; K2:
-shared memory and the registers of at most 12 warps), the wrapper cuts the
-time axis into overlapping windows (`run_windowed`) and launches once over
-all of them; the output is the same.
+Long blocks: a kernel keeps a block's activations on chip. Where not even one
+batch row fits in a block (the registers of at most 12 warps, and shared
+memory), the wrapper cuts the time axis into overlapping windows
+(`run_windowed`) and launches once over all of them; the output is the same.
 
 `layers` is a list of {'w': (C, Cin, K), 'b': (C,)} in PyTorch's layout.
 """
@@ -56,33 +59,18 @@ SMEM_LIMIT = 232448
 Layers = List[Dict[str, torch.Tensor]]
 
 
-# each launcher's arguments after the six tensor pointers: K1 takes
-# (B, L, Cin, C, Cp, K, num_layer, stream), K2 (B, plan, n_plan, stream)
-_ARGTYPES = {
-    'conv_stack_f32': [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
-    'conv_stack_bf16': [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p,
-                                                ctypes.c_int, ctypes.c_void_p],
-}
+# every launcher takes six tensor pointers, then (B, plan, n_plan, stream)
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                                     ctypes.c_void_p]
 
 
 def _library(name: str) -> ctypes.CDLL:
     lib = build.load(name)
     fn = getattr(lib, f'{name}_launch')
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES[name]
+        fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
     return lib
-
-
-def smem_bytes(L: int, C: int, K: int, num_layer: int) -> int:
-    """K1's dynamic shared memory per thread block: two (L+K-1, C) f32
-    buffers; none for one layer."""
-    return 2 * (L + K - 1) * C * 4 if num_layer > 1 else 0
-
-
-def max_rows(C: int, K: int) -> int:
-    """K1's longest time axis whose two buffers fit in SMEM_LIMIT."""
-    return SMEM_LIMIT // (2 * C * 4) - (K - 1)
 
 
 # ---------------------------------------------------------------- K2's layout
@@ -200,6 +188,120 @@ def k2_max_rows(Cin: int, C: int, K: int, num_layer: int) -> int:
     return L
 
 
+# ---------------------------------------------------------------- K1's layout
+K1_WM = 2            # m16 tiles per warp        (csrc/conv_stack_f32.cu WM)
+K1_WN = 13           # n8 tiles per warp         (WN)
+K1_MAX_WARPS = 12    # warps per block; bounds the registers (MAX_WARPS)
+K1_STAGES = 3        # stages of the weight ring (STAGES)
+
+
+def k1_stride(c: int) -> int:
+    """Row stride of an f32 activation buffer: c rounded up to an odd
+    multiple of 4, so rows are 16-byte aligned for ldmatrix and the eight
+    rows one ldmatrix reads fall in distinct shared-memory banks."""
+    s = _cdiv(c, 4) * 4
+    return s + 4 if (s // 4) % 2 == 0 else s
+
+
+@dataclass(frozen=True)
+class K1Plan:
+    """One thread block's layout in K1 (struct Plan in conv_stack_f32.cu,
+    field for field). K2's flat layout in f32: R batch rows of P = L+K-1
+    rows each lie one after another in one buffer of row stride S (S0 for
+    x); output row m reads the span [m*S, m*S + Kc) of it, so a layer is one
+    (M, Kc) x (Kc, NW) product with M = R*P - (K-1), padded to `mtiles` m16
+    tiles (even). Warps: mtiles/2 row groups x `ngroups` column groups of 13
+    n8 tiles, which cover the C output channels; the weights are n-major,
+    NW = 104 * ngroups rows of Kc (Kc0) values. They stream through a ring
+    of three chunks of kch columns, each row kept at stride SK = kch + 4."""
+    L: int
+    Cin: int
+    C: int
+    K: int
+    num_layer: int
+    R: int
+    P: int
+    S: int
+    S0: int
+    NW: int
+    SK: int
+    Kc: int
+    Kc0: int
+    mtiles: int
+    ngroups: int
+    kch: int
+    rows_alloc: int
+    rows_alloc0: int
+
+    @property
+    def nwarps(self) -> int:
+        return self.mtiles // K1_WM * self.ngroups
+
+    @property
+    def smem(self) -> int:
+        """Bytes of dynamic shared memory, all f32: one activation buffer
+        (overwritten in place), x's buffer, the weight ring and every
+        layer's bias."""
+        return 4 * (self.rows_alloc * self.S + self.rows_alloc0 * self.S0
+                    + K1_STAGES * self.NW * self.SK + self.num_layer * self.NW)
+
+    def fits(self) -> bool:
+        return self.nwarps <= K1_MAX_WARPS and self.smem <= SMEM_LIMIT
+
+    def as_ints(self):
+        return [getattr(self, f.name) for f in fields(self)]
+
+
+def k1_layout(L: int, Cin: int, C: int, K: int, num_layer: int, R: int) -> K1Plan:
+    """K1's block layout for R batch rows of length L (it may not fit)."""
+    S, S0, P = k1_stride(C), k1_stride(Cin), L + K - 1
+    Kc, Kc0 = _cdiv(K * S, 8) * 8, _cdiv(K * S0, 8) * 8
+    mtiles = _cdiv(R * P - (K - 1), 16 * K1_WM) * K1_WM
+    ngroups = _cdiv(_cdiv(C, 8), K1_WN)
+    NW = ngroups * K1_WN * 8
+    # the last A row starts at (16*mtiles - 1)*S and spans Kc values
+    rows_alloc = 16 * mtiles - 1 + _cdiv(Kc, S)
+    rows_alloc0 = 16 * mtiles - 1 + _cdiv(Kc0, S0)
+    # the longest weight chunk whose ring fits beside the buffers and biases:
+    # fewer barriers (at the bench's shape 64 columns took 2-5 % less time than
+    # 32 on an NVIDIA H100 80GB HBM3 at 700.00 W, cli/k1_variants.py)
+    fixed = 4 * (rows_alloc * S + rows_alloc0 * S0 + num_layer * NW)
+    kch = next((k for k in (64, 32, 16)
+                if fixed + 4 * K1_STAGES * NW * (k + 4) <= SMEM_LIMIT), 8)
+    return K1Plan(L, Cin, C, K, num_layer, R, P, S, S0, NW, kch + 4, Kc, Kc0, mtiles,
+                  ngroups, kch, rows_alloc, rows_alloc0)
+
+
+@functools.lru_cache(maxsize=256)
+def k1_plan(B: int, L: int, Cin: int, C: int, K: int, num_layer: int,
+            n_sm: int) -> Optional[K1Plan]:
+    """K1's layout for a call on a card of `n_sm` SMs, or None when not even
+    one row of length L fits in a block: then the wrapper windows the time
+    axis. K2's rule: of the layouts that fit (at most B rows a block), those
+    that need the fewest rounds of blocks over the SMs (one block on an SM at
+    a time), and of these the one with the fewest rows. At the bench's shape
+    on 132 SMs: two rows for B=500, three for B=2000 and 334, one for B=64."""
+    plans = []
+    for R in range(1, max(B, 1) + 1):
+        plan = k1_layout(L, Cin, C, K, num_layer, R)
+        if not plan.fits():
+            break
+        plans.append(plan)
+    if not plans:
+        return None
+    rounds = [_cdiv(_cdiv(B, p.R), n_sm) for p in plans]
+    return plans[rounds.index(min(rounds))]
+
+
+def k1_max_rows(Cin: int, C: int, K: int, num_layer: int) -> int:
+    """K1's longest time axis that one block holds (one batch row); 0 if none."""
+    ngroups = _cdiv(_cdiv(C, 8), K1_WN)
+    L = 16 * K1_WM * (K1_MAX_WARPS // ngroups)   # as many rows as the warps cover
+    while L > 0 and not k1_layout(L, Cin, C, K, num_layer, 1).fits():
+        L -= 1
+    return L
+
+
 def window_plan(L: int, rows: int, halo: int, device='cpu'):
     """Overlapping windows of at most `rows` rows that cover [0, L).
 
@@ -254,29 +356,29 @@ def _check_layers(layers: Layers, cin: int):
     return C, K
 
 
-def pack_weights(layers: Layers):
-    """Weights in K1's layout, taps folded into the contraction.
+def pack_weights(layers: Layers, plan: K1Plan):
+    """Weights in K1's layout, n-major: W'[c, k*S + ci] = W[c, ci, k] in f32,
+    zero where ci >= C or c >= C and in the columns from K*S up to Kc (S0 and
+    Kc0 for layer 0); biases f32, zero beyond C.
 
-    Returns (w0, b0, wr, br, Cp): w0 (K*Cin, Cp) f32, b0 (Cp,) f32, wr
-    (nl-1, K*C, Cp) f32 and br (nl-1, Cp) f32 (None for one layer), with
-    Cp = C rounded up to 4 and the extra columns zero."""
-    C, _, K = layers[0]['w'].shape
-    Cp = (C + 3) // 4 * 4
+    Returns (w0 (NW, Kc0), b0 (NW,), wr (nl-1, NW, Kc), br (nl-1, NW)); wr
+    and br are None for one layer."""
+    C, Cin, K = layers[0]['w'].shape
+    NW, nl, dev = plan.NW, len(layers), layers[0]['w'].device
 
-    def w_packed(w):   # (C, Cin, K) -> (K*Cin, Cp), row k*Cin + ci
-        wt = w.permute(2, 1, 0).reshape(-1, C).float()
-        return F.pad(wt, (0, Cp - C))
+    def packed(ws, stride, cols, cin):   # n x (C, cin, K) -> (n, NW, cols)
+        out = torch.zeros((len(ws), NW, cols), dtype=torch.float32, device=dev)
+        taps = out[:, :, :K * stride].view(len(ws), NW, K, stride)
+        taps[:, :C, :, :cin] = torch.stack(ws).permute(0, 1, 3, 2)
+        return out
 
-    def b_packed(b):
-        return F.pad(b.float(), (0, Cp - C))
-
-    w0 = w_packed(layers[0]['w']).contiguous()
-    b0 = b_packed(layers[0]['b']).contiguous()
-    if len(layers) == 1:
-        return w0, b0, None, None, Cp
-    wr = torch.stack([w_packed(p['w']) for p in layers[1:]]).contiguous()
-    br = torch.stack([b_packed(p['b']) for p in layers[1:]]).contiguous()
-    return w0, b0, wr, br, Cp
+    b = torch.zeros((nl, NW), dtype=torch.float32, device=dev)
+    b[:, :C] = torch.stack([p['b'] for p in layers])
+    w0 = packed([layers[0]['w']], plan.S0, plan.Kc0, Cin)[0]
+    if nl == 1:
+        return w0, b[0], None, None
+    wr = packed([p['w'] for p in layers[1:]], plan.S, plan.Kc, C)
+    return w0, b[0], wr, b[1:]
 
 
 def pack_weights_bf16(layers: Layers, plan: K2Plan):
@@ -364,21 +466,24 @@ def _ptr(t):
 
 
 def _launch_f32(layers: Layers, x: torch.Tensor) -> torch.Tensor:
-    """Checks, packs and launches K1; windows the time axis first when a
-    block's buffers would not fit in shared memory."""
+    """Checks, plans, packs and launches K1; windows the time axis first when
+    one batch row does not fit in a block."""
     B, L, Cin, C, K = _checked('conv_stack_f32', layers, x)
-    if smem_bytes(L, C, K, len(layers)) > SMEM_LIMIT:
-        return run_windowed(conv_stack_f32, layers, x, max_rows(C, K))
-    w0, b0, wr, br, Cp = pack_weights(layers)
+    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = k1_plan(B, L, Cin, C, K, len(layers), n_sm)
+    if plan is None:
+        return run_windowed(conv_stack_f32, layers, x, k1_max_rows(Cin, C, K, len(layers)))
+    w0, b0, wr, br = pack_weights(layers, plan)
     xc = x.float().contiguous()
     out = torch.empty((B, L, C), dtype=torch.float32, device=x.device)
     if B == 0 or L == 0:
         return out
-    for t in (w0, wr):   # the kernel reads weights 4 values at a time
+    for t in (w0, wr):   # cp.async copies the weights 16 bytes at a time
         if t is not None and t.data_ptr() % 16:
             raise ValueError('conv_stack_f32 needs 16-byte aligned weights')
+    ints = plan.as_ints()
     _run('conv_stack_f32', x, xc.data_ptr(), w0.data_ptr(), b0.data_ptr(), _ptr(wr),
-         _ptr(br), out.data_ptr(), B, L, Cin, C, Cp, K, len(layers))
+         _ptr(br), out.data_ptr(), B, (ctypes.c_int * len(ints))(*ints), len(ints))
     conv_stack_f32.launches += 1
     return out
 
