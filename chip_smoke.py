@@ -28,8 +28,29 @@ Phases, each printing one JSON line:
                init at full width, bf16, fused (50 encoder steps, 5 decoder
                epochs of 50 steps, batch 500), then validate; launches read
                around it;
+  channels     every channel's sampler and the fading gain on the card, drawn
+               from a CUDA generator (1e7 samples each), against the moments
+               the CPU tests hold (tests/test_torch_channels.py);
+  fading_curve path 3: artifacts/flagship_fading.msgpack through
+               cli/eval_flagship.evaluate (--channel fading, bf16, fused,
+               batch 2000, -1 and 0 dB, 20,000 blocks each), held to
+               artifacts/eval_fading.json by the BLER z test;
+  legacy_curve path 4: the crown under --legacy_noise at -1 and 0 dB,
+               20,000 blocks each, held to artifacts/eval_crown_legacy.json
+               with n = 2000 (one noise realization) on both sides; the
+               sweep must draw its noise once;
+  test_pass    path 5: Trainer.test on the crown (bf16, fused, -1 and 0 dB,
+               10,000 blocks, with the punctured second pass): main-pass
+               BLER against eval_crown_r4.json, encoder power 1 +- 1e-2;
+  resume       path 6: flagship_fading.msgpack with its Adam state: one f32
+               decoder step on the card against the CPU from the same state,
+               batch and gain; then one epoch of the fading leg-2 recipe
+               through cli/train_flagship.main (--resume, bf16, fused,
+               num_block 5,000) into a temporary directory, reloaded: the
+               epoch and the Adam counts carried on, the last decoder
+               epoch's mean loss below RESUME_DEC_LOSS_MAX;
   train_times  the port of bench.py (cli/bench_train.py), fused on and off;
-  conv_stack_bench  path 3: the port of scripts/bench_conv_stack.py, the only
+  conv_stack_bench  path 7: the port of scripts/bench_conv_stack.py, the only
                path of K1, with its launches read around it;
   times        CUDA-event times of each kernel, its plain version and a
                PyTorch library yardstick, beside the card's bound;
@@ -42,7 +63,6 @@ from __future__ import annotations
 import json
 import math
 import os
-import subprocess
 import sys
 import time
 
@@ -71,6 +91,18 @@ TRAIN_NUM_BLOCK = 25000     # scripts/train_flagship.py defaults: 50 steps per e
 # (logs/flagship.jsonl:1), an untrained decoder ~0.69.
 DEC_LOSS_MAX = 0.25
 PARITY_BATCH = 64
+
+CHANNEL_SAMPLES = 10_000_000
+TEST_PASS_BLOCKS = 10000
+LEGACY_N = SWEEP_BATCH       # independent noise blocks under legacy noise, each side
+RESUME_NUM_BLOCK = 5000
+RESUME_BATCH = 500          # scripts/train_flagship.py's default: 10 steps an epoch
+# After one epoch of the fading leg-2 recipe resumed from
+# artifacts/flagship_fading.msgpack, the last decoder epoch's mean loss must
+# lie below this. Fixed before the first run on the card: the JAX leg logged
+# 0.095 at its epoch 150 (artifacts/flagship_fading2.jsonl); a fresh init
+# gives ~0.69.
+RESUME_DEC_LOSS_MAX = 0.15
 
 
 def emit(phase: str, **fields):
@@ -109,7 +141,7 @@ def main() -> int:
     from turboae_tpu_torch.models.channel_ae import forward_ae, make_perms
     from turboae_tpu_torch.ops.conv1d import stack_init
     from turboae_tpu_torch.train.sweep import params_to, sweep
-    from turboae_tpu_torch.utils.device import no_tf32
+    from turboae_tpu_torch.utils.device import no_tf32, nvidia_smi
     from turboae_tpu_torch.utils.metrics import snr_db2sigma, two_proportion_z
 
     # f32 references in full f32: no TF32 in matmuls or cuDNN convolutions
@@ -117,9 +149,8 @@ def main() -> int:
     dev = torch.device('cuda', 0)
 
     # ---- device ----
-    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                          '--format=csv,noheader'], capture_output=True, text=True,
-                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    smi = nvidia_smi()
+    check(not smi.startswith('nvidia-smi failed'), smi)
     kind = torch.cuda.get_device_name(0)
     emit('device', nvidia_smi=smi, torch_name=kind, count=torch.cuda.device_count(),
          torch=torch.__version__, cuda=torch.version.cuda, python=sys.version.split()[0])
@@ -244,6 +275,21 @@ def main() -> int:
         Config(batch_size=TRAIN_BATCH, num_block=TRAIN_NUM_BLOCK, dtype='bfloat16',
                use_fused_conv=True), dev)
 
+    # ---- channels: every sampler on the card, from a CUDA generator ----
+    channels_phase(dev)
+
+    # ---- fading_curve, legacy_curve: paths 3 and 4, the eval CLI ----
+    paths['fading_curve'] = curve_phase(
+        'fading_curve', dev, 'flagship_fading.msgpack', 'eval_fading.json', ['--channel', 'fading'])
+    paths['legacy_curve'] = curve_phase(
+        'legacy_curve', dev, 'flagship.msgpack', 'eval_crown_legacy.json', ['--legacy_noise'])
+
+    # ---- test_pass: path 5, Trainer.test with its punctured pass ----
+    paths['test_pass'] = test_pass_phase(crown, dev)
+
+    # ---- resume: path 6, a committed run resumed with its Adam state ----
+    paths['resume'] = resume_phase(dev, gen)
+
     # ---- train_times: the port of bench.py, fused on and off ----
     train_times_phase(dev)
 
@@ -313,6 +359,211 @@ def train_epoch_phase(cfg, dev):
           f"conv_stack_bf16 launched {counts['conv_stack_bf16']} times, "
           f'expected 12 x {forwards} forwards')
     check(dec_losses[-1] < DEC_LOSS_MAX, f'decoder loss {dec_losses[-1]} >= {DEC_LOSS_MAX}')
+    return counts
+
+
+def channels_phase(dev):
+    """Each channel's statistic of tests/test_torch_channels.py, with its
+    bound, from 1e7 draws of a CUDA generator."""
+    from turboae_tpu_torch.channels import apply as ap
+    from turboae_tpu_torch.channels import noise as nz
+    from turboae_tpu_torch.config import Config
+    from turboae_tpu_torch.utils.metrics import snr_db2sigma
+    g = torch.Generator(device=dev).manual_seed(0)
+    shape = (CHANNEL_SAMPLES // 300, 100, 3)
+    chain = (CHANNEL_SAMPLES // 500, 500, 1)
+
+    def sample(sigma, shp=shape, **spec):
+        out = nz.sample_noise(shp, nz.NoiseSpec(**spec), sigma, g, dev)
+        check(out.device == dev and out.shape == shp, f'{spec}: device or shape')
+        return out
+
+    stats = {}
+    stats['awgn_std'] = (sample(0.5, channel='awgn').std().item(), 0.5, 0.01)
+    ts = nz.train_sigma(shape, -1.5, 2.0, g, dev)
+    stats['train_sigma_min'] = (ts.min().item(), snr_db2sigma(2.0), 1e-6)
+    stats['train_sigma_max'] = (ts.max().item(), snr_db2sigma(-1.5), 1e-6)
+    stats['t_dist_std'] = (sample(1.0, channel='t-dist', vv=5.0).std().item(), 1.0, 0.05)
+    radar = sample(0.1, channel='radar', radar_prob=0.05, radar_power=10.0)
+    stats['radar_burst_share'] = ((radar.abs() > 1.0).float().mean().item(), 0.05, 0.03)
+    stats['bsc_keep'] = (sample(0.1, channel='bsc').mean().item(), 0.9, 0.01)
+    ge_awgn = nz.generate_noise(shape, Config(channel='ge_awgn'), g, dev, test_sigma=0.0)
+    lo, hi = snr_db2sigma(1.0), snr_db2sigma(-1.0)
+    stats['ge_awgn_std'] = (ge_awgn.std().item(), (lo + hi) / 2, (hi - lo) / 2)
+    ge = sample(0.0, chain, channel='ge')[:, :, 0]
+    stats['ge_keep'] = (ge.mean().item(), 0.8, 0.03)
+    stats['ge_agree'] = ((ge[:, :-1] == ge[:, 1:]).float().mean().item(), 0.68, 0.04)
+    h = ap.apply_channel(torch.ones(shape, device=dev), torch.zeros(shape, device=dev),
+                         'fading', g)
+    stats['fading_gain_mean'] = (h.mean().item(), math.sqrt(math.pi / 2) / math.sqrt(3.14 / 2), 0.01)
+    stats['fading_gain_m2'] = ((h ** 2).mean().item(), 2.0 / (3.14 / 2), 0.02)
+    emit('channels', samples=CHANNEL_SAMPLES, generator=str(g.device),
+         stats={k: {'got': v, 'want': w, 'tol': t} for k, (v, w, t) in stats.items()})
+    for k, (v, w, t) in stats.items():
+        check(abs(v - w) <= t, f'channels {k}: {v} against {w} +- {t}')
+
+
+def curve_phase(phase, dev, ckpt, ref_name, flags):
+    """Two points of a committed curve through cli/eval_flagship.evaluate at
+    the sweep's settings; returns the kernels' launch counts of the run."""
+    from turboae_tpu_torch.cli import eval_flagship
+    from turboae_tpu_torch.train import sweep as sweep_mod
+    args = eval_flagship.parse([
+        '--ckpt', os.path.join(ROOT, 'artifacts', ckpt), '--device', str(dev),
+        '--batch_size', str(SWEEP_BATCH), '--num_block', str(SWEEP_BLOCKS),
+        '--snr_points', str(len(SWEEP_POINTS)), '--snr_test_start', str(SWEEP_POINTS[0]),
+        '--snr_test_end', str(SWEEP_POINTS[-1]), '--dtype', 'bfloat16',
+        '--ref', os.path.join(ROOT, 'artifacts', ref_name), *flags])
+    draws = []
+    inner = sweep_mod.sample_noise
+
+    def counted(*a, **kw):
+        draws.append(1)
+        return inner(*a, **kw)
+    sweep_mod.sample_noise = counted
+    try:
+        sync(dev)
+        reset_counts()
+        out = eval_flagship.evaluate(args)
+        sync(dev)
+        counts = read_counts()
+    finally:
+        sweep_mod.sample_noise = inner
+    n_batches = SWEEP_BLOCKS // SWEEP_BATCH
+    expected = 12 * n_batches * len(SWEEP_POINTS)
+    with open(args.ref) as f:
+        ref = json.load(f)
+    points = [{'snr': s, 'blk_errors': out['blk_errors'][i], 'n_blocks': out['n_blocks'][i],
+               'bler': out['bler'][i], 'ber': out['ber'][i],
+               'ref_bler': ref['bler'][ref['snr'].index(s)], 'z_bler': out['z_bler_vs_ref'][i]}
+              for i, s in enumerate(out['snr'])]
+    emit(phase, ckpt=ckpt, flags=flags, points=points, legacy_noise=out['legacy_noise'],
+         z_n=LEGACY_N if out['legacy_noise'] else 'n_blocks', noise_draws=len(draws),
+         launches=counts, expected_launches=expected, blocks_per_s=out['eval_blocks_per_s'],
+         device=out['device'])
+    check(out['snr'] == list(SWEEP_POINTS), f'{phase}: points {out["snr"]}')
+    check(counts['conv_stack_bf16'] == expected,
+          f"{phase}: conv_stack_bf16 launched {counts['conv_stack_bf16']} times, not {expected}")
+    if out['legacy_noise']:
+        check(len(draws) == 1, f'{phase}: the sweep drew its noise {len(draws)} times')
+    for p in points:
+        check(abs(p['z_bler']) < MAX_Z, f"{phase}: BLER at {p['snr']} dB: z = {p['z_bler']}")
+    return counts
+
+
+def test_pass_phase(crown, dev):
+    """Trainer.test on the crown: both passes at -1 and 0 dB; the main pass
+    held to the crown's counts, the encoder power to block_norm's 1."""
+    from turboae_tpu_torch.config import Config
+    from turboae_tpu_torch.train.trainer import Trainer
+    from turboae_tpu_torch.utils.metrics import two_proportion_z
+    cfg = Config(batch_size=SWEEP_BATCH, num_block=TEST_PASS_BLOCKS, dtype='bfloat16',
+                 use_fused_conv=True, snr_points=len(SWEEP_POINTS),
+                 snr_test_start=SWEEP_POINTS[0], snr_test_end=SWEEP_POINTS[-1])
+    trainer = Trainer(cfg, dev, params=crown)
+    with open(os.path.join(ROOT, 'artifacts', 'eval_crown_r4.json')) as f:
+        ref = json.load(f)
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    snrs, ber, bler = trainer.test(verbose=True)
+    sync(dev)
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    n = TEST_PASS_BLOCKS // SWEEP_BATCH * SWEEP_BATCH
+    z = [two_proportion_z(b * n, n, ref['blk_errors'][ref['snr'].index(s)],
+                          ref['n_blocks'][ref['snr'].index(s)]) for s, b in zip(snrs, bler)]
+    rep = trainer.last_test
+    expected = 12 * 2 * (TEST_PASS_BLOCKS // SWEEP_BATCH) * len(SWEEP_POINTS)
+    decoded = 2 * n * len(SWEEP_POINTS)
+    emit('test_pass', snrs=snrs, ber=ber, bler=bler, z_bler=z, ber_punc=rep['ber_punc'],
+         bler_punc=rep['bler_punc'], encoder_power=rep['encoder_power'], blocks=n,
+         launches=counts, expected_launches=expected, seconds=seconds,
+         decoded_blocks_per_s=decoded / seconds)
+    check(counts['conv_stack_bf16'] == expected,
+          f"test_pass: conv_stack_bf16 launched {counts['conv_stack_bf16']} times, not {expected}")
+    check(all(abs(v) < MAX_Z for v in z), f'test_pass: BLER z {z}')
+    check(abs(rep['encoder_power'] - 1.0) < 1e-2, f"encoder power {rep['encoder_power']}")
+    return counts
+
+
+def resume_phase(dev, gen):
+    """A committed run resumed on the card: a step's parity with the CPU,
+    then one epoch of the recipe through the training CLI."""
+    import tempfile
+    from turboae_tpu_torch.channels.noise import train_sigma
+    from turboae_tpu_torch.cli import train_flagship
+    from turboae_tpu_torch.config import Config
+    from turboae_tpu_torch.train.checkpoint import load_checkpoint
+    from turboae_tpu_torch.train.msgpack_io import load_msgpack
+    from turboae_tpu_torch.train.trainer import Trainer
+    path = os.path.join(ROOT, 'artifacts', 'flagship_fading.msgpack')
+    saved = load_msgpack(path)
+    counts0 = {h: int(saved['opt_state'][h]['0']['count']) for h in ('enc', 'dec')}
+
+    # one f32 decoder step from the file's params and Adam state, the same
+    # host-drawn batch on both sides and the fading gain from two CPU
+    # generators of one seed
+    batch = PARITY_BATCH
+    bits = (torch.rand((batch, 100, 1), generator=gen) < 0.5).float()
+    noise = train_sigma((batch, 100, 3), -2.5, 2.5, gen, 'cpu') * torch.randn((batch, 100, 3),
+                                                                           generator=gen)
+    cfg = Config(batch_size=batch, channel='fading')
+    side = {}
+    for where in ('gpu', 'cpu'):
+        tr = Trainer(cfg, dev if where == 'gpu' else 'cpu')
+        tr.params, tr.opt_state, step = load_checkpoint(path, tr.params, tr.opt_state)
+        tr.generator = torch.Generator().manual_seed(11)
+        loss = tr._train_step('decoder', bits.to(tr.device), noise.to(tr.device)).item()
+        side[where] = (loss, tr.opt['dec'].count, tr.opt['enc'].count,
+                       [p.cpu() for p in tr._leaves['dec']])
+    (lg, cg, eg, pg), (lc, cc, ec, pc) = side['gpu'], side['cpu']
+    loss_rel = abs(lg - lc) / abs(lc)
+    dp = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(pg, pc))
+
+    # one epoch of the fading leg-2 recipe through the CLI
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, metrics = os.path.join(tmp, 'fading.msgpack'), os.path.join(tmp, 'metrics.jsonl')
+        argv = ['--resume', path, '--channel', 'fading', '--train_enc_channel_low', '0.5',
+                '--train_enc_channel_high', '0.5', '--train_dec_channel_low', '-2.5',
+                '--train_dec_channel_high', '2.5', '--enc_lr', '5e-5', '--dec_lr', '5e-5',
+                '--dtype', 'bfloat16', '--use_fused_conv', '--num_block', str(RESUME_NUM_BLOCK),
+                '--batch_size', str(RESUME_BATCH), '--epochs', str(step + 1), '--val_every', '1',
+                '--ckpt', ckpt, '--metrics', metrics, '--device', str(dev)]
+        sync(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer = train_flagship.main(argv)
+        sync(dev)
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        after = load_msgpack(ckpt)
+        with open(metrics) as f:
+            records = [json.loads(line) for line in f]
+    epoch = [r for r in records if r['event'] == 'epoch']
+    steps = RESUME_NUM_BLOCK // RESUME_BATCH
+    grew = {h: int(after['opt_state'][h]['0']['count']) - counts0[h] for h in ('enc', 'dec')}
+    # the epoch's 6 x steps training forwards, the validation's steps and
+    # the final test's two passes over 12 points
+    forwards = 7 * steps + 2 * 12 * (min(10000, RESUME_NUM_BLOCK) // RESUME_BATCH)
+    emit('resume', step_loss_gpu=lg, step_loss_cpu=lc, step_loss_rel=loss_rel,
+         step_param_diff_rel=dp, step_counts={'gpu': [eg, cg], 'cpu': [ec, cc]},
+         file_step=step, file_counts=counts0, saved_step=after['step'], counts_grew=grew,
+         epoch=epoch, dec_loss=epoch[-1]['dec_loss'] if epoch else None,
+         dec_loss_max=RESUME_DEC_LOSS_MAX, launches=counts, expected_launches=12 * forwards,
+         seconds=seconds, test_bler=trainer.last_test['bler'])
+    check(loss_rel < 1e-4, f'resume step: loss differs from the CPU by {loss_rel}')
+    check(cg == cc == counts0['dec'] + 1 and eg == ec == counts0['enc'],
+          'resume step: the Adam counts did not carry on')
+    check(dp < 1e-3, f'resume step: updated params differ from the CPU by {dp}')
+    check(len(epoch) == 1 and epoch[0]['epoch'] == step + 1 and after['step'] == step + 1,
+          'resume: the epoch counter did not carry on')
+    check(any(r['event'] == 'validate' for r in records), 'resume: no validation')
+    check(grew == {'enc': steps, 'dec': 5 * steps}, f'resume: Adam counts grew by {grew}')
+    check(math.isfinite(epoch[0]['dec_loss']) and epoch[0]['dec_loss'] < RESUME_DEC_LOSS_MAX,
+          f"resume: decoder loss {epoch[0]['dec_loss']} >= {RESUME_DEC_LOSS_MAX}")
+    check(counts['conv_stack_bf16'] == 12 * forwards,
+          f"resume: conv_stack_bf16 launched {counts['conv_stack_bf16']} times, not 12 x {forwards}")
     return counts
 
 

@@ -53,3 +53,16 @@ def bits_noise(rng, B, L, sigma=1.0):
     bits = (rng.random_sample((B, L, 1)) < 0.5).astype(np.float32)
     noise = (sigma * rng.standard_normal((B, L, 3))).astype(np.float32)
     return bits, noise
+
+
+def eval_point(ckpt, ref, snr, num_block, *flags):
+    """One SNR point of a committed checkpoint through the port's eval CLI on
+    the CPU (bf16, the fused decoder's plain version), with the BLER z
+    statistic against the committed curve `ref` (artifacts/<ref>.json)."""
+    from turboae_tpu_torch.cli import eval_flagship
+    args = eval_flagship.parse([
+        '--ckpt', os.path.join(ROOT, 'artifacts', ckpt), '--device', 'cpu',
+        '--num_block', str(num_block), '--batch_size', str(min(num_block, 500)),
+        '--snr_points', '1', '--snr_test_start', str(snr), '--snr_test_end', str(snr),
+        '--ref', os.path.join(ROOT, 'artifacts', ref), *flags])
+    return eval_flagship.evaluate(args)

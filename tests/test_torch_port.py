@@ -78,6 +78,40 @@ def test_bench_clis_raise_without_gpu(no_gpu, cli):
         main([])
 
 
+@pytest.mark.parametrize('cli', ['main', 'train_flagship'])
+def test_training_clis_raise_without_gpu(no_gpu, cli, tmp_path, monkeypatch):
+    from turboae_tpu_torch.cli import main, train_flagship
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match='cuda'):
+        {'main': main.main, 'train_flagship': train_flagship.main}[cli](['-num_epoch', '0']
+                                                                       if cli == 'main' else [])
+    assert not list(tmp_path.iterdir())          # nothing was started on the CPU
+
+
+TINY = {'main': ['-num_epoch', '1', '-num_block', '8', '-batch_size', '8', '-block_len', '12',
+                 '-enc_num_unit', '8', '-dec_num_unit', '8', '-dec_num_layer', '2',
+                 '-num_iteration', '2', '-snr_points', '1'],
+        'train_flagship': ['--epochs', '1', '--num_block', '8', '--batch_size', '8',
+                           '--block_len', '12', '--enc_num_unit', '8', '--dec_num_unit', '8',
+                           '--dec_num_layer', '2', '--num_iteration', '2', '--snr_points', '1',
+                           '--ckpt', 'c.msgpack', '--metrics', 'm.jsonl'],
+        'eval_flagship': ['--ckpt', CROWN, '--num_block', '4', '--batch_size', '4',
+                          '--snr_points', '1']}
+
+
+@pytest.mark.parametrize('cli', list(TINY))
+def test_every_cli_turns_tf32_off(cli, tmp_path, monkeypatch):
+    """Each CLI turns TF32 off (cuDNN and matmuls) before it computes; the
+    JAX package has no switch to turn it on, nor has the port."""
+    from turboae_tpu_torch.cli import eval_flagship, main, train_flagship
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(torch.backends.cudnn, 'allow_tf32', True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, 'allow_tf32', True)
+    mod = {'main': main, 'train_flagship': train_flagship, 'eval_flagship': eval_flagship}[cli]
+    mod.main([*TINY[cli], '--device', 'cpu'])
+    assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
+
+
 def test_trainer_without_device_raises_without_gpu(no_gpu):
     from turboae_tpu_torch.train.trainer import Trainer
     with pytest.raises(RuntimeError, match='cuda'):

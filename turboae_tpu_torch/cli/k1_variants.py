@@ -42,7 +42,7 @@ import torch
 from ..kernels import build
 from ..kernels import conv_stack as ks
 from ..ops.conv1d import stack_init
-from ..utils.device import no_tf32, resolve_device
+from ..utils.device import no_tf32, nvidia_smi, resolve_device
 
 SOURCE = build.CSRC / 'conv_stack_f32.cu'
 
@@ -175,9 +175,7 @@ def main(argv=None):
     if dev.type != 'cuda':
         raise RuntimeError('k1_variants builds CUDA kernels: it needs a GPU')
     no_tf32()
-    print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
-                         capture_output=True, text=True, timeout=60, check=True).stdout.strip(),
-          flush=True)
+    print(nvidia_smi(), flush=True)
     src = SOURCE.read_text()
     libs = _build({'shipped': src, **variant_sources(src)})
     for name, (_, report) in libs.items():

@@ -19,7 +19,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from ..config import Config
 from ..train.sweep import sweep
-from ..utils.device import resolve_device
+from ..utils.device import no_tf32, resolve_device
 from .eval_flagship import load_flagship
 
 
@@ -41,6 +41,7 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     dev = resolve_device('cuda')
+    no_tf32()
     params = load_flagship(args.ckpt, dev)
     cfg = Config(batch_size=args.batch_size, dtype='bfloat16', use_fused_conv=True)
     gen = torch.Generator(device=dev).manual_seed(0)

@@ -8,10 +8,17 @@ Port meanings of the accelerator fields:
   - dtype='bfloat16' maps to torch.bfloat16 (conv stacks in bf16, heads f32);
   - use_fused_conv routes the decoder's conv stacks through the hand-written
     CUDA kernel `kernels/conv_stack.py::conv_stack_bf16`;
-  - mesh_shape, shard_axis, steps_per_call and scan_unroll are inert here.
+  - shard_axis and scan_unroll are inert here; a non-empty mesh_shape
+    (ROADMAP M16) and steps_per_call > 1 (M14) are refused by the CLIs and
+    the trainer.
+
+`get_args` parses the reference's flag surface into a `Config`, as the JAX
+package's does: booleans are `--flag` (store_true), every other field is
+`-flag value`, and `-mesh_shape` takes a list of ints.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 from dataclasses import dataclass
 from typing import Tuple
@@ -184,13 +191,13 @@ class Config:
 
     # ---- additions of the JAX package (not in the reference) ----
     dtype: str = 'float32'            # compute dtype for conv stacks: float32 | bfloat16
-    mesh_shape: Tuple[int, ...] = ()  # (inert in the port) device mesh of the JAX package
+    mesh_shape: Tuple[int, ...] = ()  # device mesh of the JAX package; cli/main.py refuses it (M16)
     shard_axis: str = 'batch'         # (inert in the port) batch | time sharding
     seed: int = 0                     # master PRNG seed
     legacy_noise: bool = False        # reproduce pre-2022 test-noise bug (README.md:2)
     use_fused_conv: bool = False      # decoder conv stacks through the CUDA bf16
                                       # conv-stack kernel (kernels/conv_stack.py)
-    steps_per_call: int = 1           # (inert in the port) optimizer steps per dispatch
+    steps_per_call: int = 1           # optimizer steps per dispatch; the trainer refuses > 1 (M14)
     scan_unroll: int = 1              # (inert in the port) decoder-iteration unroll
     log_jsonl: str = ''               # if set, structured metrics written here
 
@@ -200,3 +207,32 @@ class Config:
     @property
     def interleaver_seed(self) -> int:
         return 0
+
+
+def _add_args(parser: argparse.ArgumentParser) -> None:
+    """Every Config field as a flag under the reference's spelling."""
+    for f in dataclasses.fields(Config):
+        default = f.default
+        if isinstance(default, bool):
+            parser.add_argument(f'--{f.name}', action='store_true', default=default)
+        elif isinstance(default, tuple):
+            parser.add_argument(f'-{f.name}', type=int, nargs='*', default=list(default))
+        elif isinstance(default, (int, float)):
+            parser.add_argument(f'-{f.name}', type=type(default), default=default)
+        else:
+            parser.add_argument(f'-{f.name}', type=str, default=default)
+
+
+def config_from_args(ns: argparse.Namespace) -> Config:
+    """The Config of a namespace parsed with _add_args's flags (other
+    attributes of the namespace are ignored)."""
+    kw = {f.name: getattr(ns, f.name) for f in dataclasses.fields(Config)}
+    kw['mesh_shape'] = tuple(kw['mesh_shape'] or ())
+    return Config(**kw)
+
+
+def get_args(argv=None) -> Config:
+    """Parse CLI flags into a Config (reference: get_args.py:4-231)."""
+    parser = argparse.ArgumentParser('turboae-tpu-torch')
+    _add_args(parser)
+    return config_from_args(parser.parse_args(argv))

@@ -3,10 +3,13 @@
 `forward_ae(training=True)` is differentiable end to end: the power
 constraint and its STE, the interleavers (index gathers) and the fused
 decoder stacks (whose backward recomputes the unfused f32 stack) all carry
-gradients to both halves of the params."""
+gradients to both halves of the params.
+
+`generator` drives only the fading channel's gain, as the JAX forward's key
+does (channel_ae.py:53-72); the other channels ignore it."""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -43,11 +46,11 @@ def make_perms(cfg, device) -> Dict[str, torch.Tensor]:
 
 
 def forward_ae(params, cfg, bits, fwd_noise, perms, training: bool = True,
-               stats=None):
+               stats=None, generator: Optional[torch.Generator] = None):
     """Returns (bit_estimates, codes, stats)."""
     codes, stats = intercnn_apply(params['enc'], cfg, bits, perms,
                                   training=training, stats=stats)
-    received = apply_channel(codes, fwd_noise, cfg.channel)
+    received = apply_channel(codes, fwd_noise, cfg.channel, generator)
     if cfg.rec_quantize:
         # the reference passes rec_quantize_level as BOTH limit and level
         received = rx_quantize(received, cfg.rec_quantize_level, cfg.rec_quantize_level)

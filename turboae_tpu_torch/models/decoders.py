@@ -21,12 +21,19 @@ from ..ops.interleave import deinterleave, interleave
 from ..utils.device import torch_dtype
 
 
+def _check_ported(cfg):
+    if cfg.decoder != 'TurboAE_rate3_cnn':
+        raise NotImplementedError(f'decoder {cfg.decoder!r} is not ported yet (ROADMAP M9/M11)')
+    if cfg.encoder != 'TurboAE_rate3_cnn':
+        # the reference keys the dense conv flavour off the ENCODER name
+        raise NotImplementedError('dense decoder stacks are not ported yet (ROADMAP M9)')
+
+
 def largecnn_init(gen: torch.Generator, cfg, device='cpu'):
     """{'iters': [...]}, one entry per iteration (JAX decoders.py:54-93):
     two stacks (2 + num_iter_ft) -> dec_num_unit and two heads to
     num_iter_ft, except the last iteration's dec2 head, which emits 1."""
-    if cfg.encoder != 'TurboAE_rate3_cnn':
-        raise NotImplementedError('dense decoder stacks are not ported yet')
+    _check_ported(cfg)
     n_in = 2 + cfg.num_iter_ft
     U, nl, K = cfg.dec_num_unit, cfg.dec_num_layer, cfg.dec_kernel_size
     iters = []
@@ -45,9 +52,7 @@ def largecnn_apply(params, cfg, received, perms) -> torch.Tensor:
     """received (B, L, 3) -> (B, L, 1) sigmoid bit estimates.
 
     perms holds 'p1' and its inverse 'p1_inv' as int64 tensors."""
-    if cfg.encoder != 'TurboAE_rate3_cnn':
-        # the reference keys the dense conv flavour off the ENCODER name
-        raise NotImplementedError('dense decoder stacks are not ported yet')
+    _check_ported(cfg)
     dt = torch_dtype(cfg.dtype)
     if cfg.use_fused_conv:
         def stackf(layers, x):

@@ -25,7 +25,7 @@ def _branch_init(gen, cfg, device):
 def intercnn_init(gen: torch.Generator, cfg, device='cpu'):
     """Params of the three branches b1, b2, b3 (JAX encoders.py:62-67)."""
     if cfg.encoder != 'TurboAE_rate3_cnn':
-        raise NotImplementedError(f'encoder {cfg.encoder!r} is not ported yet')
+        raise NotImplementedError(f'encoder {cfg.encoder!r} is not ported yet (ROADMAP M9/M11)')
     return {name: _branch_init(gen, cfg, device) for name in ('b1', 'b2', 'b3')}
 
 
@@ -38,7 +38,7 @@ def _branch_apply(p, cfg, x):
 def intercnn_apply(params, cfg, x, perms, training=True, stats=None):
     """Returns (codes, stats). perms['p1'] is the forward interleaver."""
     if cfg.encoder != 'TurboAE_rate3_cnn':
-        raise NotImplementedError(f'encoder {cfg.encoder!r} is not ported yet')
+        raise NotImplementedError(f'encoder {cfg.encoder!r} is not ported yet (ROADMAP M9/M11)')
     x = 2.0 * x - 1.0                       # BPSK map (JAX encoders.py:71)
     x_sys = _branch_apply(params['b1'], cfg, x)
     x_p1 = _branch_apply(params['b2'], cfg, x)

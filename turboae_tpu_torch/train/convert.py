@@ -8,6 +8,8 @@ checkpoint holds them, where lists appear as dicts keyed '0', '1', ...):
 Port params: the same tree with conv weights (Cout, Cin, K), linear weights
 (out, in), lists as lists, and the decoder as dec/iters/[it_0 .. it_{n-1}].
 `from_jax` and `to_jax` are exact inverses: a round trip is bit-identical.
+`half_from_jax` and `half_to_jax` convert one half, as an optimizer state
+of one phase (a tree of moments shaped like that half's params) needs.
 """
 from __future__ import annotations
 
@@ -56,18 +58,24 @@ def _iter_from(tree, device, i=None) -> Dict[str, Any]:
     }
 
 
-def from_jax(params, device='cpu') -> Dict[str, Any]:
-    """JAX param tree -> port param tree of f32 tensors on `device`."""
-    enc = {name: {'cnn': [_conv_from(l, device) for l in _as_list(br['cnn'])],
-                  'lin': _lin_from(br['lin'], device)}
-           for name, br in params['enc'].items()}
-    scan = params['dec']['scan']
+def half_from_jax(half: str, tree, device='cpu'):
+    """One half ('enc' or 'dec') of a JAX param tree in the port's layout."""
+    if half == 'enc':
+        return {name: {'cnn': [_conv_from(l, device) for l in _as_list(br['cnn'])],
+                       'lin': _lin_from(br['lin'], device)}
+                for name, br in tree.items()}
+    scan = tree['scan']
     n_scan = 0
     if scan is not None and scan.get('dec1_lin') is not None:
         n_scan = np.asarray(scan['dec1_lin']['w']).shape[0]
     iters = [_iter_from(scan, device, i) for i in range(n_scan)]
-    iters.append(_iter_from(params['dec']['final'], device))
-    return {'enc': enc, 'dec': {'iters': iters}}
+    iters.append(_iter_from(tree['final'], device))
+    return {'iters': iters}
+
+
+def from_jax(params, device='cpu') -> Dict[str, Any]:
+    """JAX param tree -> port param tree of f32 tensors on `device`."""
+    return {h: half_from_jax(h, params[h], device) for h in ('enc', 'dec')}
 
 
 def _conv_to(layer):
@@ -93,10 +101,16 @@ def _stack(trees):
     return np.stack(trees)
 
 
+def half_to_jax(half: str, tree):
+    """One half ('enc' or 'dec') of a port param tree in the JAX layout."""
+    if half == 'enc':
+        return {name: {'cnn': [_conv_to(l) for l in br['cnn']], 'lin': _lin_to(br['lin'])}
+                for name, br in tree.items()}
+    *scan_iters, final = [_iter_to(it) for it in tree['iters']]
+    scan = _stack(scan_iters) if scan_iters else {k: None for k in _DEC_KEYS}
+    return {'scan': scan, 'final': final}
+
+
 def to_jax(params) -> Dict[str, Any]:
     """Port param tree -> JAX param tree of numpy arrays (lists as lists)."""
-    enc = {name: {'cnn': [_conv_to(l) for l in br['cnn']], 'lin': _lin_to(br['lin'])}
-           for name, br in params['enc'].items()}
-    *scan_iters, final = [_iter_to(it) for it in params['dec']['iters']]
-    scan = _stack(scan_iters) if scan_iters else {k: None for k in _DEC_KEYS}
-    return {'enc': enc, 'dec': {'scan': scan, 'final': final}}
+    return {h: half_to_jax(h, params[h]) for h in ('enc', 'dec')}

@@ -12,7 +12,10 @@ params per step). `step(grads)` takes the gradients in the same order.
   - SGD (optax.sgd with momentum, not Nesterov): t = g + momentum t, p -= lr t.
 
 The updates use torch._foreach_* ops: one launch per op over all tensors.
-Lookahead is not ported yet (ROADMAP M8).
+`state()` gives an optimizer's state as plain data, with its per-leaf lists
+in the params' order, and `load_state(state)` copies such state in;
+train/checkpoint.py maps it to and from optax's layout. Lookahead is not
+ported yet (ROADMAP M8).
 """
 from __future__ import annotations
 
@@ -50,6 +53,17 @@ class Adam:
         torch._foreach_div_(upd, denom)
         torch._foreach_add_(self.params, upd, alpha=-self.lr)
 
+    def state(self) -> dict:
+        """{'count': steps taken, 'mu': [...], 'nu': [...]}, optax's
+        ScaleByAdamState."""
+        return {'count': self.count, 'mu': self.mu, 'nu': self.nu}
+
+    @torch.no_grad()
+    def load_state(self, state: dict):
+        self.count = int(state['count'])
+        _copy_into(self.mu, state['mu'])
+        _copy_into(self.nu, state['nu'])
+
 
 class SGD:
     def __init__(self, params: List[torch.Tensor], lr: float, momentum: float = 0.0):
@@ -61,6 +75,24 @@ class SGD:
         torch._foreach_mul_(self.trace, self.momentum)
         torch._foreach_add_(self.trace, grads)
         torch._foreach_add_(self.params, self.trace, alpha=-self.lr)
+
+    def state(self) -> dict:
+        """{'trace': [...]}, optax's TraceState."""
+        return {'trace': self.trace}
+
+    @torch.no_grad()
+    def load_state(self, state: dict):
+        _copy_into(self.trace, state['trace'])
+
+
+def _copy_into(dst: List[torch.Tensor], src) -> None:
+    """Copy src's tensors into dst's, which keep their device and dtype."""
+    src = list(src)
+    if len(src) != len(dst) or any(tuple(a.shape) != tuple(b.shape) for a, b in zip(dst, src)):
+        raise ValueError('optimizer state does not match the params: '
+                         f'{[tuple(t.shape) for t in src]} vs {[tuple(t.shape) for t in dst]}')
+    for a, b in zip(dst, src):
+        a.copy_(torch.as_tensor(b))
 
 
 def make_optimizer(cfg, lr: float, params: List[torch.Tensor]):

@@ -1,10 +1,20 @@
 """SNR sweep with exact error counts (JAX: Trainer._sweep_chunk and
 Trainer.sweep, train/trainer.py:368-482).
 
-Each batch draws fresh Bernoulli(0.5) bits and fresh noise at
-sigma = snr_db2sigma(snr) from one torch.Generator on the device, runs the
-forward in cfg.dtype, rounds the decisions and adds exact integer bit, block
-and positional error counts. Counts stay on the device until a point ends.
+Each batch draws fresh Bernoulli(0.5) bits and fresh noise of cfg.channel at
+the point's sigma (sigma(snr dB), or the raw probability snr for bec, bsc and
+ge) from one torch.Generator on the device, runs the forward in cfg.dtype
+(the fading gain from the same generator), rounds the decisions and adds
+exact integer bit, block and positional error counts. Counts stay on the
+device until a point ends.
+
+cfg.legacy_noise reproduces the pre-2022 reference test bug (README.md:2):
+one unit noise realization of shape (batch, L, n) is drawn at the start of
+the sweep and scaled by each point's sigma for every batch of every point;
+only the bits resample. It is defined for awgn and t-dist only.
+
+The caller decides TF32: library code sets no global flag (the CLIs turn it
+off, utils/device.py:no_tf32).
 """
 from __future__ import annotations
 
@@ -12,10 +22,10 @@ from typing import Optional
 
 import torch
 
-from ..channels.noise import sample_noise
+from ..channels.noise import check_legacy_noise_channel, point_sigma, sample_noise, spec_from_cfg
 from ..models.channel_ae import forward_ae, make_perms
 from ..utils.device import resolve_device
-from ..utils.metrics import error_counts, snr_db2sigma
+from ..utils.metrics import error_counts
 from ..utils.tree import tree_map
 
 
@@ -25,12 +35,15 @@ def params_to(params, device):
 
 
 @torch.inference_mode()
-def sweep_counts(params, cfg, bits: torch.Tensor, noise: torch.Tensor, perms=None):
-    """Deterministic core of one batch: (bit_errors, block_errors, pos_errors)
-    as int64 tensors, for given bits (B, L, k) and noise (B, L, n)."""
+def sweep_counts(params, cfg, bits: torch.Tensor, noise: torch.Tensor, perms=None,
+                 generator: Optional[torch.Generator] = None):
+    """Deterministic core of one batch (given the fading gain's generator):
+    (bit_errors, block_errors, pos_errors) as int64 tensors, for given bits
+    (B, L, k) and noise (B, L, n)."""
     if perms is None:
         perms = make_perms(cfg, bits.device)
-    out, _, _ = forward_ae(params, cfg, bits, noise, perms, training=False)
+    out, _, _ = forward_ae(params, cfg, bits, noise, perms, training=False,
+                           generator=generator)
     return error_counts(bits, out)
 
 
@@ -41,31 +54,37 @@ def sweep(params, cfg, snrs, num_block: Optional[int] = None, device='cuda',
 
     num_block // cfg.batch_size batches per point (at least one). Without a
     generator, one is seeded from cfg.seed on the device."""
-    if cfg.legacy_noise:
-        raise NotImplementedError('legacy_noise is not ported yet')
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev)
         generator.manual_seed(cfg.seed)
     params = params_to(params, dev)
     perms = make_perms(cfg, dev)
+    spec = spec_from_cfg(cfg)
     num_block = num_block or cfg.num_block
     num_batches = max(1, num_block // cfg.batch_size)
     bits_shape = (cfg.batch_size, cfg.block_len, cfg.code_rate_k)
     noise_shape = (cfg.batch_size, cfg.block_len, cfg.code_rate_n)
+    fixed_unit = None
+    if cfg.legacy_noise:
+        check_legacy_noise_channel(cfg.channel)
+        fixed_unit = sample_noise(noise_shape, spec, 1.0, generator, dev)
     res = {'snr': list(snrs), 'ber': [], 'bler': [], 'bit_errors': [],
            'blk_errors': [], 'pos_errors': [],
            'n_bits': num_batches * cfg.batch_size * cfg.block_len * cfg.code_rate_k,
            'n_blocks': num_batches * cfg.batch_size}
     for snr in snrs:
-        sigma = snr_db2sigma(snr)
+        sigma = point_sigma(cfg, snr)
         bit_e = torch.zeros((), dtype=torch.int64, device=dev)
         blk_e = torch.zeros((), dtype=torch.int64, device=dev)
         pos_e = torch.zeros(cfg.block_len * cfg.code_rate_k, dtype=torch.int64, device=dev)
         for _ in range(num_batches):
             bits = (torch.rand(bits_shape, generator=generator, device=dev) < 0.5).float()
-            noise = sample_noise(noise_shape, cfg, sigma, generator, dev)
-            be, ke, pe = sweep_counts(params, cfg, bits, noise, perms)
+            if fixed_unit is None:
+                noise = sample_noise(noise_shape, spec, sigma, generator, dev)
+            else:
+                noise = sigma * fixed_unit
+            be, ke, pe = sweep_counts(params, cfg, bits, noise, perms, generator)
             bit_e += be
             blk_e += ke
             pos_e += pe

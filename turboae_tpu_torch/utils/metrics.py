@@ -1,12 +1,16 @@
-"""Metrics of the evaluation sweep (JAX: turboae_tpu/utils/metrics.py).
+"""Metrics: BER / BLER / positional BER / code power / SNR conversions
+(JAX: turboae_tpu/utils/metrics.py; reference utils.py:6-76).
 
-Error counts are exact integers computed on the device: decisions are the
-rounded probabilities, as in the JAX sweep (train/trainer.py:417-424).
+Decisions are the rounded probabilities. The sweep's error counts are exact
+integers computed on the device (JAX train/trainer.py:417-424); the rate
+helpers return f32 device scalars or vectors, as Trainer.test averages them.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
+import numpy as np
 import torch
 
 
@@ -15,14 +19,33 @@ def snr_db2sigma(snr_db: float) -> float:
     return 10 ** (-snr_db / 20.0)
 
 
+def snr_sigma2db(sigma: float) -> float:
+    """snr = -20 log10(sigma) (JAX utils/metrics.py:71-75)."""
+    return -20.0 * math.log10(sigma)
+
+
+def f32_mean(x: torch.Tensor, dim=None) -> torch.Tensor:
+    """Mean as XLA computes it, the f32 sum times the f32 reciprocal of the
+    count, so the port's rates equal the JAX package's bit for bit where the
+    sums are exact (error counts)."""
+    n = x.numel() if dim is None else x.shape[dim]
+    recip = float(np.float32(1.0) / np.float32(n))
+    return (x.sum() if dim is None else x.sum(dim=dim)) * recip
+
+
+def _decisions(y_true: torch.Tensor, y_pred: torch.Tensor):
+    """(rounded bits, rounded estimates), each (B, L*k)."""
+    return (torch.round(y_true.reshape(y_true.shape[0], -1)),
+            torch.round(y_pred.float().reshape(y_pred.shape[0], -1)))
+
+
 def error_counts(bits: torch.Tensor, out: torch.Tensor):
     """Bit, block and positional error counts of one batch.
 
     bits, out: (B, L, k). Returns (bit_errors, block_errors, pos_errors) as
     int64 tensors on the input's device; pos_errors has length L*k.
     """
-    t = torch.round(bits.reshape(bits.shape[0], -1))
-    p = torch.round(out.float().reshape(out.shape[0], -1))
+    t, p = _decisions(bits, out)
     err = t != p
     pos = err.sum(dim=0)
     return pos.sum(), err.any(dim=1).sum(), pos
@@ -47,8 +70,43 @@ def two_proportion_z(e1: int, n1: int, e2: int, n2: int) -> float:
     return (e1 / n1 - e2 / n2) / se
 
 
-def errors_ber(bits: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+def errors_ber(y_true: torch.Tensor, y_pred: torch.Tensor) -> torch.Tensor:
     """Mean disagreement of the rounded bits, a scalar tensor (JAX utils/metrics.py:13-17)."""
-    t = torch.round(bits.reshape(bits.shape[0], -1))
-    p = torch.round(out.float().reshape(out.shape[0], -1))
-    return (t != p).float().mean()
+    t, p = _decisions(y_true, y_pred)
+    return f32_mean((t != p).float())
+
+
+def errors_ber_pos(y_true: torch.Tensor, y_pred: torch.Tensor) -> torch.Tensor:
+    """Positional BER: the error rate of each position over the batch
+    (JAX utils/metrics.py:41-45)."""
+    t, p = _decisions(y_true, y_pred)
+    return f32_mean((t != p).float(), dim=0)
+
+
+def errors_ber_punctured(y_true: torch.Tensor, y_pred: torch.Tensor,
+                         punc_mask: torch.Tensor) -> torch.Tensor:
+    """BER with the punctured positions (mask 0) zeroed, then averaged over
+    all positions, zeros included (JAX utils/metrics.py:20-30)."""
+    return f32_mean(errors_ber_pos(y_true, y_pred) * punc_mask)
+
+
+def errors_ber_list(y_true: torch.Tensor, y_pred: torch.Tensor) -> torch.Tensor:
+    """Per-block BER (JAX utils/metrics.py:33-38)."""
+    t, p = _decisions(y_true, y_pred)
+    return (t != p).sum(dim=1).float() / y_true.shape[1]
+
+
+def code_power(codes: torch.Tensor) -> torch.Tensor:
+    """Per-position mean |code|^2, over channels then batch (JAX utils/metrics.py:48-51)."""
+    return f32_mean(f32_mean(codes.float().abs() ** 2, dim=2), dim=0)
+
+
+def errors_bler(y_true: torch.Tensor, y_pred: torch.Tensor,
+                punc_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Fraction of blocks with at least one bit error outside the punctured
+    positions (JAX utils/metrics.py:54-61)."""
+    t, p = _decisions(y_true, y_pred)
+    err = (t - p).abs()
+    if punc_mask is not None:
+        err = err * punc_mask[None, :]
+    return f32_mean((err.sum(dim=1) > 0).float())
