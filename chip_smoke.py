@@ -49,6 +49,28 @@ Phases, each printing one JSON line:
                num_block 5,000) into a temporary directory, reloaded: the
                epoch and the Adam counts carried on, the last decoder
                epoch's mean loss below RESUME_DEC_LOSS_MAX;
+  deepturbo_encoder  DeepTurbo's classical turbo encoder (757 and LTE) on
+               the card against the same function on the CPU, bit for bit
+               (B=2000, L=100 and 1000), and its ms per call;
+  deepturbo_forward  artifacts/deepturbo.msgpack (dense decoder stacks)
+               loaded through train/checkpoint.py: the f32 forward on the
+               card against the CPU within 1e-4, bf16 decisions reported;
+  deepturbo_curve  path 8: DeepTurbo through cli/eval_flagship.evaluate
+               (--encoder Turbo_rate3_757, bf16, batch 2000, 20,000 blocks a
+               point at the 8 points -1.5..2.0 dB) held to
+               artifacts/eval_deepturbo.json by the BLER z test; its dense
+               stacks never launch K2;
+  deepturbo_resume  path 9: deepturbo.msgpack with its Adam state: an f32
+               decoder step on the card against the CPU, then one epoch of
+               its last leg's recipe through cli/train_flagship.main
+               (--num_train_enc 0, 6 decoder epochs, lr 2e-5): the epoch to
+               523, the decoder's Adam count +60, the encoder's untouched,
+               the loss below DEEPTURBO_DEC_LOSS_MAX, no K2 launch;
+  losses       path 10: on the flagship, one f32 joint step of each of the
+               nine losses on the card against the CPU; 6 Lookahead(Adam)
+               decoder steps across the syncs at counts 0 and 5, card
+               against CPU; then `-optimizer lookahead -loss maxBCE`
+               through cli/main.main (bf16, fused), its K2 launches counted;
   train_times  the port of bench.py (cli/bench_train.py), fused on and off;
   conv_stack_bench  path 7: the port of scripts/bench_conv_stack.py, the only
                path of K1, with its launches read around it;
@@ -103,6 +125,18 @@ RESUME_BATCH = 500          # scripts/train_flagship.py's default: 10 steps an e
 # 0.095 at its epoch 150 (artifacts/flagship_fading2.jsonl); a fresh init
 # gives ~0.69.
 RESUME_DEC_LOSS_MAX = 0.15
+
+DEEPTURBO_POINTS = (-1.5, -1.0, -0.5, 0.0, 0.5, 1.0, 1.5, 2.0)   # >= 20 block errors at 20,000
+# After one epoch of DeepTurbo's last leg (lr 2e-5, decoder SNR -2.5..2 dB)
+# resumed from artifacts/deepturbo.msgpack, the last decoder epoch's mean
+# loss must lie below this. Fixed before the first run on the card: the JAX
+# leg's last three epochs logged 0.0376-0.0384 (artifacts/deepturbo5.out).
+DEEPTURBO_DEC_LOSS_MAX = 0.05
+LOSSES = ('bce', 'soft_ber', 'bce_rl', 'enc_rl', 'bce_block', 'focal', 'mse', 'maxBCE',
+          'sortBCE')
+LOOKAHEAD_STEPS = 6         # across the syncs at counts 0 and 5
+LOSSES_NUM_BLOCK = 1000     # the cli/main.py run: 2 steps an epoch at batch 500
+LOSSES_BATCH = 500
 
 
 def emit(phase: str, **fields):
@@ -293,8 +327,25 @@ def main() -> int:
     # ---- train_times: the port of bench.py, fused on and off ----
     train_times_phase(dev)
 
-    # ---- conv_stack_bench: path 3, the only path of K1 ----
+    # ---- conv_stack_bench: path 7, the only path of K1 ----
     paths['conv_stack_bench'] = conv_stack_bench_phase(dev)
+
+    # ---- DeepTurbo: its encoder, forward, curve (path 8) and resume (path 9) ----
+    deepturbo_encoder_phase(dev)
+    deepturbo_forward_phase(dev, gen)
+    paths['deepturbo_curve'] = curve_phase(
+        'deepturbo_curve', dev, 'deepturbo.msgpack', 'eval_deepturbo.json',
+        ['--encoder', 'Turbo_rate3_757'], snrs=DEEPTURBO_POINTS, stacks=0)
+    paths['deepturbo_resume'] = resume_phase(
+        dev, gen, phase='deepturbo_resume', ckpt='deepturbo.msgpack',
+        step_cfg={'encoder': 'Turbo_rate3_757', 'dec_lr': 2e-5}, dec_snr=(-2.5, 2.0),
+        recipe=['--encoder', 'Turbo_rate3_757', '--num_train_enc', '0', '--num_train_dec', '6',
+                '--dec_lr', '2e-5', '--train_dec_channel_low', '-2.5',
+                '--train_dec_channel_high', '2.0'],
+        train_enc=0, train_dec=6, dec_loss_max=DEEPTURBO_DEC_LOSS_MAX, stacks=0)
+
+    # ---- losses: path 10, the loss menu and Lookahead ----
+    paths['losses'] = losses_phase(dev, gen)
 
     # ---- times: each kernel, its plain version, a library yardstick, its bound ----
     sweep_layers = crown['dec']['iters'][0]['dec1_cnn']
@@ -315,7 +366,8 @@ def main() -> int:
     for kname, at, src, line in (('conv_stack_bf16', 'sweep', 'conv_stack_bf16.cu', 250),
                                  ('conv_stack_f32', 'bench', 'conv_stack_f32.cu', 137)):
         t = times[(kname, at)]
-        by_path = {p: c[kname] for p, c in paths.items() if c[kname]}
+        # every path, zeros included: DeepTurbo's dense stacks never launch K2
+        by_path = {p: c[kname] for p, c in paths.items()}
         summary.append({
             'name': kname, 'route': 'cuda',
             'source': f'turboae_tpu_torch/kernels/csrc/{src}',
@@ -403,16 +455,18 @@ def channels_phase(dev):
         check(abs(v - w) <= t, f'channels {k}: {v} against {w} +- {t}')
 
 
-def curve_phase(phase, dev, ckpt, ref_name, flags):
-    """Two points of a committed curve through cli/eval_flagship.evaluate at
-    the sweep's settings; returns the kernels' launch counts of the run."""
+def curve_phase(phase, dev, ckpt, ref_name, flags, snrs=SWEEP_POINTS, stacks=12):
+    """Evenly spaced points of a committed curve through
+    cli/eval_flagship.evaluate at the sweep's settings, `stacks` K2 launches
+    a batch; returns the kernels' launch counts of the run."""
     from turboae_tpu_torch.cli import eval_flagship
     from turboae_tpu_torch.train import sweep as sweep_mod
+    from turboae_tpu_torch.utils.device import nvidia_smi
     args = eval_flagship.parse([
         '--ckpt', os.path.join(ROOT, 'artifacts', ckpt), '--device', str(dev),
         '--batch_size', str(SWEEP_BATCH), '--num_block', str(SWEEP_BLOCKS),
-        '--snr_points', str(len(SWEEP_POINTS)), '--snr_test_start', str(SWEEP_POINTS[0]),
-        '--snr_test_end', str(SWEEP_POINTS[-1]), '--dtype', 'bfloat16',
+        '--snr_points', str(len(snrs)), '--snr_test_start', str(snrs[0]),
+        '--snr_test_end', str(snrs[-1]), '--dtype', 'bfloat16',
         '--ref', os.path.join(ROOT, 'artifacts', ref_name), *flags])
     draws = []
     inner = sweep_mod.sample_noise
@@ -430,7 +484,7 @@ def curve_phase(phase, dev, ckpt, ref_name, flags):
     finally:
         sweep_mod.sample_noise = inner
     n_batches = SWEEP_BLOCKS // SWEEP_BATCH
-    expected = 12 * n_batches * len(SWEEP_POINTS)
+    expected = stacks * n_batches * len(snrs)
     with open(args.ref) as f:
         ref = json.load(f)
     points = [{'snr': s, 'blk_errors': out['blk_errors'][i], 'n_blocks': out['n_blocks'][i],
@@ -440,8 +494,8 @@ def curve_phase(phase, dev, ckpt, ref_name, flags):
     emit(phase, ckpt=ckpt, flags=flags, points=points, legacy_noise=out['legacy_noise'],
          z_n=LEGACY_N if out['legacy_noise'] else 'n_blocks', noise_draws=len(draws),
          launches=counts, expected_launches=expected, blocks_per_s=out['eval_blocks_per_s'],
-         device=out['device'])
-    check(out['snr'] == list(SWEEP_POINTS), f'{phase}: points {out["snr"]}')
+         device=out['device'], card=nvidia_smi())
+    check(out['snr'] == list(snrs), f'{phase}: points {out["snr"]}')
     check(counts['conv_stack_bf16'] == expected,
           f"{phase}: conv_stack_bf16 launched {counts['conv_stack_bf16']} times, not {expected}")
     if out['legacy_noise']:
@@ -487,9 +541,17 @@ def test_pass_phase(crown, dev):
     return counts
 
 
-def resume_phase(dev, gen):
+FADING_RECIPE = ['--channel', 'fading', '--train_enc_channel_low', '0.5',
+                 '--train_enc_channel_high', '0.5', '--train_dec_channel_low', '-2.5',
+                 '--train_dec_channel_high', '2.5', '--enc_lr', '5e-5', '--dec_lr', '5e-5']
+
+
+def resume_phase(dev, gen, phase='resume', ckpt='flagship_fading.msgpack',
+                 step_cfg=(('channel', 'fading'),), dec_snr=(-2.5, 2.5), recipe=FADING_RECIPE,
+                 train_enc=1, train_dec=5, dec_loss_max=RESUME_DEC_LOSS_MAX, stacks=12):
     """A committed run resumed on the card: a step's parity with the CPU,
-    then one epoch of the recipe through the training CLI."""
+    then one epoch of the recipe through the training CLI (`stacks` K2
+    launches a forward); returns the kernels' launch counts of the epoch."""
     import tempfile
     from turboae_tpu_torch.channels.noise import train_sigma
     from turboae_tpu_torch.cli import train_flagship
@@ -497,7 +559,8 @@ def resume_phase(dev, gen):
     from turboae_tpu_torch.train.checkpoint import load_checkpoint
     from turboae_tpu_torch.train.msgpack_io import load_msgpack
     from turboae_tpu_torch.train.trainer import Trainer
-    path = os.path.join(ROOT, 'artifacts', 'flagship_fading.msgpack')
+    from turboae_tpu_torch.utils.device import nvidia_smi
+    path = os.path.join(ROOT, 'artifacts', ckpt)
     saved = load_msgpack(path)
     counts0 = {h: int(saved['opt_state'][h]['0']['count']) for h in ('enc', 'dec')}
 
@@ -506,9 +569,9 @@ def resume_phase(dev, gen):
     # generators of one seed
     batch = PARITY_BATCH
     bits = (torch.rand((batch, 100, 1), generator=gen) < 0.5).float()
-    noise = train_sigma((batch, 100, 3), -2.5, 2.5, gen, 'cpu') * torch.randn((batch, 100, 3),
-                                                                           generator=gen)
-    cfg = Config(batch_size=batch, channel='fading')
+    noise = train_sigma((batch, 100, 3), *dec_snr, gen, 'cpu') * torch.randn((batch, 100, 3),
+                                                                          generator=gen)
+    cfg = Config(batch_size=batch, **dict(step_cfg))
     side = {}
     for where in ('gpu', 'cpu'):
         tr = Trainer(cfg, dev if where == 'gpu' else 'cpu')
@@ -521,15 +584,14 @@ def resume_phase(dev, gen):
     loss_rel = abs(lg - lc) / abs(lc)
     dp = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(pg, pc))
 
-    # one epoch of the fading leg-2 recipe through the CLI
+    # one epoch of the recipe through the CLI
     with tempfile.TemporaryDirectory() as tmp:
-        ckpt, metrics = os.path.join(tmp, 'fading.msgpack'), os.path.join(tmp, 'metrics.jsonl')
-        argv = ['--resume', path, '--channel', 'fading', '--train_enc_channel_low', '0.5',
-                '--train_enc_channel_high', '0.5', '--train_dec_channel_low', '-2.5',
-                '--train_dec_channel_high', '2.5', '--enc_lr', '5e-5', '--dec_lr', '5e-5',
+        out_ckpt = os.path.join(tmp, 'resumed.msgpack')
+        metrics = os.path.join(tmp, 'metrics.jsonl')
+        argv = ['--resume', path, *recipe,
                 '--dtype', 'bfloat16', '--use_fused_conv', '--num_block', str(RESUME_NUM_BLOCK),
                 '--batch_size', str(RESUME_BATCH), '--epochs', str(step + 1), '--val_every', '1',
-                '--ckpt', ckpt, '--metrics', metrics, '--device', str(dev)]
+                '--ckpt', out_ckpt, '--metrics', metrics, '--device', str(dev)]
         sync(dev)
         reset_counts()
         t0 = time.perf_counter()
@@ -537,33 +599,208 @@ def resume_phase(dev, gen):
         sync(dev)
         seconds = time.perf_counter() - t0
         counts = read_counts()
-        after = load_msgpack(ckpt)
+        after = load_msgpack(out_ckpt)
         with open(metrics) as f:
             records = [json.loads(line) for line in f]
     epoch = [r for r in records if r['event'] == 'epoch']
     steps = RESUME_NUM_BLOCK // RESUME_BATCH
     grew = {h: int(after['opt_state'][h]['0']['count']) - counts0[h] for h in ('enc', 'dec')}
-    # the epoch's 6 x steps training forwards, the validation's steps and
-    # the final test's two passes over 12 points
-    forwards = 7 * steps + 2 * 12 * (min(10000, RESUME_NUM_BLOCK) // RESUME_BATCH)
-    emit('resume', step_loss_gpu=lg, step_loss_cpu=lc, step_loss_rel=loss_rel,
+    # the epoch's training forwards, the validation's steps and the final
+    # test's two passes over 12 points
+    forwards = (train_enc + train_dec + 1) * steps + \
+        2 * 12 * (min(10000, RESUME_NUM_BLOCK) // RESUME_BATCH)
+    emit(phase, step_loss_gpu=lg, step_loss_cpu=lc, step_loss_rel=loss_rel,
          step_param_diff_rel=dp, step_counts={'gpu': [eg, cg], 'cpu': [ec, cc]},
          file_step=step, file_counts=counts0, saved_step=after['step'], counts_grew=grew,
          epoch=epoch, dec_loss=epoch[-1]['dec_loss'] if epoch else None,
-         dec_loss_max=RESUME_DEC_LOSS_MAX, launches=counts, expected_launches=12 * forwards,
-         seconds=seconds, test_bler=trainer.last_test['bler'])
-    check(loss_rel < 1e-4, f'resume step: loss differs from the CPU by {loss_rel}')
+         dec_loss_max=dec_loss_max, launches=counts, expected_launches=stacks * forwards,
+         seconds=seconds, train_blocks_per_s=RESUME_NUM_BLOCK * (train_enc + train_dec)
+         / epoch[-1]['seconds'] if epoch else None,
+         test_bler=trainer.last_test['bler'], card=nvidia_smi())
+    check(loss_rel < 1e-4, f'{phase} step: loss differs from the CPU by {loss_rel}')
     check(cg == cc == counts0['dec'] + 1 and eg == ec == counts0['enc'],
-          'resume step: the Adam counts did not carry on')
-    check(dp < 1e-3, f'resume step: updated params differ from the CPU by {dp}')
+          f'{phase} step: the Adam counts did not carry on')
+    check(dp < 1e-3, f'{phase} step: updated params differ from the CPU by {dp}')
     check(len(epoch) == 1 and epoch[0]['epoch'] == step + 1 and after['step'] == step + 1,
-          'resume: the epoch counter did not carry on')
-    check(any(r['event'] == 'validate' for r in records), 'resume: no validation')
-    check(grew == {'enc': steps, 'dec': 5 * steps}, f'resume: Adam counts grew by {grew}')
-    check(math.isfinite(epoch[0]['dec_loss']) and epoch[0]['dec_loss'] < RESUME_DEC_LOSS_MAX,
-          f"resume: decoder loss {epoch[0]['dec_loss']} >= {RESUME_DEC_LOSS_MAX}")
+          f'{phase}: the epoch counter did not carry on')
+    check(any(r['event'] == 'validate' for r in records), f'{phase}: no validation')
+    check(grew == {'enc': train_enc * steps, 'dec': train_dec * steps},
+          f'{phase}: Adam counts grew by {grew}')
+    check(math.isfinite(epoch[0]['dec_loss']) and epoch[0]['dec_loss'] < dec_loss_max,
+          f"{phase}: decoder loss {epoch[0]['dec_loss']} >= {dec_loss_max}")
+    check(counts['conv_stack_bf16'] == stacks * forwards,
+          f"{phase}: conv_stack_bf16 launched {counts['conv_stack_bf16']} times, "
+          f'not {stacks} x {forwards}')
+    return counts
+
+
+def deepturbo_encoder_phase(dev):
+    """The turbo encoder on the card against the same function on the CPU,
+    bit for bit, for both trellises at B=2000 and L=100, 1000; the card's
+    ms per call at L=100 (a loop of 2 x L steps of table gathers)."""
+    from turboae_tpu_torch.config import Config
+    from turboae_tpu_torch.models.channel_ae import make_perms
+    from turboae_tpu_torch.models.deepturbo import turbo_enc_apply
+    from turboae_tpu_torch.utils.device import nvidia_smi
+    g = torch.Generator().manual_seed(5)
+    cases = []
+    for encoder in ('Turbo_rate3_757', 'Turbo_rate3_lte'):
+        for L in (100, 1000):
+            cfg = Config(encoder=encoder, block_len=L)
+            bits = (torch.rand((SWEEP_BATCH, L, 1), generator=g) < 0.5).float()
+            ref, _ = turbo_enc_apply({}, cfg, bits, make_perms(cfg, 'cpu'))
+            bits_d, perms_d = bits.to(dev), make_perms(cfg, dev)
+            got, _ = turbo_enc_apply({}, cfg, bits_d, perms_d)
+            got = got.cpu()
+            case = {'encoder': encoder, 'B': SWEEP_BATCH, 'L': L,
+                    'equal': bool(torch.equal(got, ref)),
+                    'mismatches': int((got != ref).sum())}
+            if L == 100:
+                case['ms'] = cuda_ms(lambda: turbo_enc_apply({}, cfg, bits_d, perms_d), iters=20)
+            cases.append(case)
+    emit('deepturbo_encoder', cases=cases, card=nvidia_smi())
+    for c in cases:
+        check(c['equal'], f"turbo encoder {c['encoder']} L={c['L']}: {c['mismatches']} "
+                          'code bits differ between the card and the CPU')
+
+
+def deepturbo_forward_phase(dev, gen, batch=PARITY_BATCH):
+    """artifacts/deepturbo.msgpack through train/checkpoint.py: the f32
+    forward on the card against the CPU on the same host-drawn bits and
+    noise (0 dB), within 1e-4; bf16 decisions reported."""
+    from turboae_tpu_torch.config import Config
+    from turboae_tpu_torch.models.channel_ae import forward_ae, init_ae, make_perms
+    from turboae_tpu_torch.train.checkpoint import load_checkpoint
+    from turboae_tpu_torch.train.sweep import params_to
+    from turboae_tpu_torch.utils.metrics import snr_db2sigma
+    path = os.path.join(ROOT, 'artifacts', 'deepturbo.msgpack')
+    cfg = Config(encoder='Turbo_rate3_757')
+    params = load_checkpoint(path, init_ae(torch.Generator().manual_seed(0), cfg, dev))
+    check(params['enc'] == {} and len(params['dec']['iters']) == 6, 'deepturbo: the params')
+    params_cpu = params_to(params, 'cpu')
+    bits = (torch.rand((batch, 100, 1), generator=gen) < 0.5).float()
+    noise = snr_db2sigma(0.0) * torch.randn((batch, 100, 3), generator=gen)
+    outs = {}
+    for dtype in ('float32', 'bfloat16'):
+        c = cfg.replace(dtype=dtype)
+        with torch.inference_mode():
+            g_out, g_codes, _ = forward_ae(params, c, bits.to(dev), noise.to(dev),
+                                           make_perms(c, dev), training=False)
+            c_out, c_codes, _ = forward_ae(params_cpu, c, bits, noise, make_perms(c, 'cpu'),
+                                           training=False)
+        g_out = g_out.cpu()
+        check(g_out.shape == (batch, 100, 1) and bool(torch.isfinite(g_out).all()),
+              f'deepturbo {dtype} forward: shape or non-finite values')
+        check(torch.equal(g_codes.cpu(), c_codes), f'deepturbo {dtype}: codes differ')
+        outs[dtype] = {'max_abs_diff': (g_out - c_out).abs().max().item(),
+                       'decision_agreement': (g_out.round() == c_out.round()).float().mean().item(),
+                       'ber_gpu': (g_out.round() != bits).float().mean().item()}
+    emit('deepturbo_forward', batch=batch, snr_db=0.0, **outs)
+    check(outs['float32']['max_abs_diff'] < 1e-4, 'deepturbo f32 forward differs from the CPU')
+
+
+def losses_phase(dev, gen, batch=PARITY_BATCH):
+    """The loss menu and Lookahead on the flagship (flagship_fading.msgpack's
+    params and Adam state, so that an update is no longer ~lr * sign(g)),
+    AWGN, f32, unfused: one joint step of each loss and LOOKAHEAD_STEPS
+    Lookahead decoder steps (its inner Adam from the file's state), card
+    against CPU on the same host-drawn batches: the loss to 1e-4 relative,
+    params and slow weights to 1e-3 of each leaf's largest. Then
+    `-optimizer lookahead -loss maxBCE` through cli/main.main, bf16 and
+    fused; returns the kernels' launch counts of that run."""
+    import tempfile
+    from turboae_tpu_torch.channels.noise import train_sigma
+    from turboae_tpu_torch.cli import main as cli_main
+    from turboae_tpu_torch.config import Config
+    from turboae_tpu_torch.train.checkpoint import load_checkpoint
+    from turboae_tpu_torch.train.trainer import Trainer
+    path = os.path.join(ROOT, 'artifacts', 'flagship_fading.msgpack')
+
+    def batch_pair():
+        bits = (torch.rand((batch, 100, 1), generator=gen) < 0.5).float()
+        return bits, train_sigma((batch, 100, 3), -1.5, 2.0, gen, 'cpu') * \
+            torch.randn((batch, 100, 3), generator=gen)
+
+    def rel(a, b):
+        return max(((x - y).abs().max() / y.abs().max()).item() for x, y in zip(a, b))
+
+    bits, noise = batch_pair()
+    steps = {}
+    for loss_name in LOSSES:
+        side = {}
+        for where in ('gpu', 'cpu'):
+            tr = Trainer(Config(batch_size=batch, loss=loss_name), dev if where == 'gpu' else 'cpu')
+            tr.params, tr.opt_state, _ = load_checkpoint(path, tr.params, tr.opt_state)
+            loss = tr._train_step('joint', bits.to(tr.device), noise.to(tr.device)).item()
+            side[where] = (loss, [p.cpu() for h in ('enc', 'dec') for p in tr._leaves[h]])
+        (lg, pg), (lc, pc) = side['gpu'], side['cpu']
+        steps[loss_name] = {'loss_gpu': lg, 'loss_cpu': lc, 'loss_rel': abs(lg - lc) / abs(lc),
+                            'param_diff_rel': rel(pg, pc)}
+
+    batches = [batch_pair() for _ in range(LOOKAHEAD_STEPS)]
+    side = {}
+    for where in ('gpu', 'cpu'):
+        tr = Trainer(Config(batch_size=batch, optimizer='lookahead'),
+                     dev if where == 'gpu' else 'cpu')
+        tr.params, adam, _ = load_checkpoint(path, tr.params,
+                                             {h: o.inner.state() for h, o in tr.opt.items()})
+        tr.opt['dec'] = type(tr.opt['dec'])(tr._leaves['dec'], tr.cfg.dec_lr)  # slow = params
+        tr.opt['dec'].inner.load_state(adam['dec'])
+        losses = [tr._train_step('decoder', b.to(tr.device), n.to(tr.device)).item()
+                  for b, n in batches]
+        o = tr.opt['dec']
+        side[where] = (losses, o.count, o.inner.count, [p.cpu() for p in tr._leaves['dec']],
+                       [p.cpu() for p in o.slow], adam['dec']['count'])
+    (lg, cg, ig, pg, sg, a0), (lc, cc, ic, pc, sc, _) = side['gpu'], side['cpu']
+    look = {'losses_gpu': lg, 'losses_cpu': lc,
+            'loss_rel': max(abs(a - b) / abs(b) for a, b in zip(lg, lc)),
+            'param_diff_rel': rel(pg, pc), 'slow_diff_rel': rel(sg, sc),
+            'counts': {'gpu': [cg, ig], 'cpu': [cc, ic]}, 'inner_count_from_file': a0}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        log = os.path.join(tmp, 'metrics.jsonl')
+        argv = ['-optimizer', 'lookahead', '-loss', 'maxBCE', '-dtype', 'bfloat16',
+                '--use_fused_conv', '-num_epoch', '1', '-num_block', str(LOSSES_NUM_BLOCK),
+                '-batch_size', str(LOSSES_BATCH),
+                '-log_jsonl', log, '--device', str(dev)]
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            sync(dev)
+            reset_counts()
+            t0 = time.perf_counter()
+            trainer = cli_main.main(argv)
+            sync(dev)
+            seconds = time.perf_counter() - t0
+            counts = read_counts()
+        finally:
+            os.chdir(cwd)
+        with open(log) as f:
+            records = [json.loads(line) for line in f]
+    cfg = trainer.cfg
+    n = max(1, cfg.num_block // cfg.batch_size)
+    # training steps, validation batches, Trainer.test's two passes
+    forwards = (cfg.num_train_enc + cfg.num_train_dec) * n + \
+        max(1, int(cfg.num_block / cfg.batch_size * cfg.test_ratio)) + 2 * cfg.snr_points * n
+    epoch = [r for r in records if r['event'] == 'epoch']
+    emit('losses', batch=batch, steps=steps, lookahead=look,
+         cli={'argv': argv[:-4], 'epoch': epoch, 'test_ber': trainer.last_test['ber'],
+              'seconds': seconds, 'opt_counts': {h: o.count for h, o in trainer.opt.items()}},
+         launches=counts, expected_launches=12 * forwards)
+    for name, st in steps.items():
+        check(math.isfinite(st['loss_gpu']) and st['loss_rel'] < 1e-4,
+              f'losses {name}: loss differs from the CPU by {st["loss_rel"]}')
+        check(st['param_diff_rel'] < 1e-3, f'losses {name}: params differ by {st["param_diff_rel"]}')
+    check(cg == cc == LOOKAHEAD_STEPS and ig == ic == a0 + LOOKAHEAD_STEPS,
+          f'lookahead: counts {look["counts"]}')
+    check(look['loss_rel'] < 1e-4 and look['param_diff_rel'] < 1e-3 and
+          look['slow_diff_rel'] < 1e-3, f'lookahead: card and CPU differ {look}')
+    check(len(epoch) == 1 and all(math.isfinite(epoch[0][k]) for k in ('loss', 'val_bce')),
+          'losses: the maxBCE epoch is not finite')
+    check(trainer.opt['dec'].count == cfg.num_train_dec * n and
+          trainer.opt['enc'].count == cfg.num_train_enc * n, 'losses: Lookahead counts')
     check(counts['conv_stack_bf16'] == 12 * forwards,
-          f"resume: conv_stack_bf16 launched {counts['conv_stack_bf16']} times, not 12 x {forwards}")
+          f"losses: conv_stack_bf16 launched {counts['conv_stack_bf16']} times, not 12 x {forwards}")
     return counts
 
 

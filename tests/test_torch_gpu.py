@@ -145,3 +145,19 @@ def test_trainer_marks_bracket_each_phase(cuda_device):
     assert out['encoder']['steps'] == 1 and out['decoder']['steps'] == 5
     assert all(out[m][p] > 0 for m in out for p in PHASES)
     assert tr.marks is None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('encoder', ['Turbo_rate3_757', 'Turbo_rate3_lte'])
+@pytest.mark.parametrize('L', [100, 1000])
+def test_turbo_encoder_on_the_card_equals_the_cpu(cuda_device, encoder, L):
+    """DeepTurbo's classical encoder (a loop of table gathers) on the card,
+    bit for bit against the same function on the CPU."""
+    from turboae_tpu_torch.config import Config
+    from turboae_tpu_torch.models.channel_ae import make_perms
+    from turboae_tpu_torch.models.deepturbo import turbo_enc_apply
+    cfg = Config(encoder=encoder, block_len=L)
+    bits = (torch.rand((257, L, 1), generator=torch.Generator().manual_seed(L)) < 0.5).float()
+    ref, _ = turbo_enc_apply({}, cfg, bits, make_perms(cfg, 'cpu'))
+    got, _ = turbo_enc_apply({}, cfg, bits.to(cuda_device), make_perms(cfg, cuda_device))
+    assert got.device.type == 'cuda' and torch.equal(got.cpu(), ref)

@@ -40,6 +40,18 @@ def test_port_imports_no_jax(path):
     assert not bad, f'{path.name} imports {bad}'
 
 
+def test_import_rule_covers_every_subpackage():
+    """The rule walks the whole package: the classical tables and encoder
+    (a numpy copy of turboae_tpu/classical, which has no JAX in it) and
+    DeepTurbo's encoder are held to it too."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for f in ('turboae_tpu_torch/classical/trellis.py', 'turboae_tpu_torch/classical/convcode.py',
+              'turboae_tpu_torch/models/deepturbo.py', 'chip_smoke.py'):
+        assert f in names
+    subpackages = {p.parent.name for p in PORT_FILES if p.name == '__init__.py'}
+    assert {'classical', 'models', 'train', 'kernels', 'ops', 'cli'} <= subpackages
+
+
 def test_ast_check_catches_forbidden_imports(tmp_path):
     f = tmp_path / 'm.py'
     f.write_text('import os\nfrom turboae_tpu.config import Config\nimport jax.numpy as jnp\n'

@@ -92,9 +92,14 @@ def test_bce_and_its_gradient_at_saturated_outputs():
 
 
 def test_other_losses_are_not_ported():
+    """The whole JAX menu is ported (tests/test_torch_losses.py); a name
+    outside it raises ValueError, as in JAX."""
     _, tcfg = configs(loss='maxBCE')
-    with pytest.raises(NotImplementedError):
-        customized_loss(torch.full((1, 4, 1), 0.5), torch.ones((1, 4, 1)), tcfg)
+    assert torch.isfinite(customized_loss(torch.full((1, 4, 1), 0.5), torch.ones((1, 4, 1)),
+                                          tcfg))
+    with pytest.raises(ValueError, match='unknown loss'):
+        customized_loss(torch.full((1, 4, 1), 0.5), torch.ones((1, 4, 1)),
+                        tcfg.replace(loss='hinge'))
 
 
 # ---------------------------------------------------------------- optimizers
@@ -125,9 +130,12 @@ def test_three_optimizer_steps_match_optax(name):
 
 
 def test_lookahead_is_not_ported():
+    """Lookahead is ported (tests/test_torch_lookahead.py): the name builds
+    Lookahead over Adam with JAX's k 5 and alpha 0.5."""
     _, tcfg = configs(optimizer='lookahead')
-    with pytest.raises(NotImplementedError):
-        topt.make_optimizer(tcfg, 1e-3, [torch.zeros(2)])
+    opt = topt.make_optimizer(tcfg, 1e-3, [torch.zeros(2)])
+    assert isinstance(opt, topt.Lookahead) and isinstance(opt.inner, topt.Adam)
+    assert (opt.k, opt.alpha) == (5, 0.5)
 
 
 # ---------------------------------------------------------------- noise

@@ -1,14 +1,17 @@
-"""BER/BLER evaluation of a flagship checkpoint on the GPU.
+"""BER/BLER evaluation of a checkpoint on the GPU.
 
 The port's counterpart of scripts/eval_flagship.py, with its flags: loads a
 flax msgpack checkpoint with the port's own reader, sweeps the SNR points
-with exact error counts through the fused CUDA conv-stack kernel on any
-channel of the reference, and writes the same JSON schema (counts, BER/BLER,
-Wilson CIs). TF32 is off.
+with exact error counts on any channel of the reference, and writes the same
+JSON schema (counts, BER/BLER, Wilson CIs). TF32 is off. The decoder's plain
+conv stacks run through the fused CUDA kernel; dense ones (every encoder but
+the flagship's, DeepTurbo's included) run unfused, as in JAX.
 
     python -m turboae_tpu_torch.cli.eval_flagship \
         --ckpt artifacts/flagship_fading.msgpack --channel fading \
         --num_block 100000 --out eval.json
+    python -m turboae_tpu_torch.cli.eval_flagship --ckpt artifacts/deepturbo.msgpack \
+        --encoder Turbo_rate3_757 --ref artifacts/eval_deepturbo.json
 
 `--device cpu` runs on the CPU (the kernel's plain version); without it the
 CLI needs a GPU. `--chunk` is accepted so the JAX script's command lines run
@@ -118,7 +121,8 @@ def parse(argv=None) -> argparse.Namespace:
     p.add_argument('--snr_test_start', type=float, default=-1.5)
     p.add_argument('--snr_test_end', type=float, default=4.0)
     p.add_argument('--encoder', default='TurboAE_rate3_cnn',
-                   help='only the flagship is ported (ROADMAP M9/M11)')
+                   help='e.g. Turbo_rate3_757 for DeepTurbo checkpoints, '
+                        'TurboAE_rate3_cnn_dense')
     p.add_argument('--decoder', default='TurboAE_rate3_cnn')
     p.add_argument('--test_channel_mode', default='block_norm',
                    help='block_norm_ste for TurboAE-binary checkpoints')

@@ -1,11 +1,15 @@
-"""Where the crown sweep's time goes on the GPU.
+"""Where an evaluation sweep's time goes on the GPU.
 
-Runs a few batches of the bf16 fused crown sweep under torch.profiler and
+Runs a few batches of the bf16 fused sweep of a checkpoint (the crown's by
+default; `--encoder Turbo_rate3_757` with artifacts/deepturbo.msgpack for
+DeepTurbo, whose dense stacks do not fuse) under torch.profiler and
 prints one JSON line: wall time, the device's busy time (the sum of its
 kernels' and copies' times; one stream, so they do not overlap) and its share
 of the wall time, and the device time of each kernel by name, largest first.
 
     python -m turboae_tpu_torch.cli.profile_sweep --batches 3
+    python -m turboae_tpu_torch.cli.profile_sweep --ckpt artifacts/deepturbo.msgpack \
+        --encoder Turbo_rate3_757
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ def _device_us(evt) -> float:
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     p.add_argument('--ckpt', default='artifacts/flagship.msgpack')
+    p.add_argument('--encoder', default='TurboAE_rate3_cnn')
     p.add_argument('--batches', type=int, default=3)
     p.add_argument('--batch_size', type=int, default=2000)
     p.add_argument('--snr', type=float, default=0.0)
@@ -43,7 +48,8 @@ def main(argv=None):
     dev = resolve_device('cuda')
     no_tf32()
     params = load_flagship(args.ckpt, dev)
-    cfg = Config(batch_size=args.batch_size, dtype='bfloat16', use_fused_conv=True)
+    cfg = Config(batch_size=args.batch_size, encoder=args.encoder, dtype='bfloat16',
+                 use_fused_conv=True)
     gen = torch.Generator(device=dev).manual_seed(0)
     sweep(params, cfg, [args.snr], num_block=args.batch_size, device=dev, generator=gen)
     torch.cuda.synchronize(dev)
@@ -60,7 +66,8 @@ def main(argv=None):
     rows = sorted((r for r in rows if r[2] > 0), key=lambda r: -r[2])
     busy_ms = sum(r[2] for r in rows)
     print(json.dumps({
-        'device': torch.cuda.get_device_name(dev), 'batches': args.batches,
+        'device': torch.cuda.get_device_name(dev), 'encoder': args.encoder,
+        'batches': args.batches,
         'batch_size': args.batch_size, 'wall_ms': wall_ms, 'device_busy_ms': busy_ms,
         'busy_share': busy_ms / wall_ms, 'blocks_per_s': n_blocks / wall_ms * 1e3,
         'kernels': [{'name': k[:120], 'calls': c, 'ms': ms, 'share_of_busy': ms / busy_ms}

@@ -12,6 +12,10 @@ Runs the bench's training config (cli/bench_train.py: batch 500, bf16, the
     each kernel by name, largest first.
 
     python -m turboae_tpu_torch.cli.profile_train --steps 12 [--use_fused_conv]
+
+`--encoder Turbo_rate3_757` profiles DeepTurbo's decoder steps (its encoder
+has no params, and its recipe no encoder phase; its dense stacks never
+fuse).
 """
 from __future__ import annotations
 
@@ -31,14 +35,14 @@ from .profile_sweep import _device_us
 PHASES = ('sampled', 'forward', 'backward', 'optimizer')
 
 
-def _modes(steps: int):
-    return ['encoder' if i % 6 == 0 else 'decoder' for i in range(steps)]
+def _modes(steps: int, encoder_phase: bool = True):
+    return ['encoder' if encoder_phase and i % 6 == 0 else 'decoder' for i in range(steps)]
 
 
-def phase_ms(trainer: Trainer, steps: int) -> dict:
+def phase_ms(trainer: Trainer, steps: int, encoder_phase: bool = True) -> dict:
     """{mode: {phase: device ms summed over that mode's steps, 'steps': n}}."""
     out = {}
-    for mode in _modes(steps):
+    for mode in _modes(steps, encoder_phase):
         trainer.marks = []
         trainer._train_step(mode)
         torch.cuda.synchronize(trainer.device)
@@ -57,6 +61,7 @@ def main(argv=None):
     p.add_argument('--steps', type=int, default=12)
     p.add_argument('--batch_size', type=int, default=500)
     p.add_argument('--use_fused_conv', action='store_true')
+    p.add_argument('--encoder', default='TurboAE_rate3_cnn')
     p.add_argument('--top', type=int, default=15)
     args = p.parse_args(argv)
 
@@ -64,16 +69,17 @@ def main(argv=None):
     no_tf32()
     cfg = Config(batch_size=args.batch_size, block_len=100, num_block=args.batch_size,
                  train_dec_channel_low=-1.5, train_dec_channel_high=2.0,
-                 dtype='bfloat16', use_fused_conv=args.use_fused_conv)
+                 encoder=args.encoder, dtype='bfloat16', use_fused_conv=args.use_fused_conv)
     trainer = Trainer(cfg, dev)
+    encoder_phase = bool(trainer._leaves['enc'])
     for mode in ('decoder', 'encoder'):      # warm up both phases
         trainer._train_step(mode)
     torch.cuda.synchronize(dev)
-    phases = phase_ms(trainer, args.steps)
+    phases = phase_ms(trainer, args.steps, encoder_phase)
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for mode in _modes(args.steps):
+        for mode in _modes(args.steps, encoder_phase):
             trainer._train_step(mode)
         torch.cuda.synchronize(dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -82,7 +88,8 @@ def main(argv=None):
     rows = sorted((r for r in rows if r[2] > 0), key=lambda r: -r[2])
     busy_ms = sum(r[2] for r in rows)
     print(json.dumps({
-        'device': torch.cuda.get_device_name(dev), 'use_fused_conv': args.use_fused_conv,
+        'device': torch.cuda.get_device_name(dev), 'encoder': args.encoder,
+        'use_fused_conv': args.use_fused_conv,
         'allow_tf32': False, 'batch_size': args.batch_size, 'steps': args.steps,
         'phases_ms': phases, 'profiled_wall_ms': wall_ms, 'device_busy_ms': busy_ms,
         'busy_share': busy_ms / wall_ms,

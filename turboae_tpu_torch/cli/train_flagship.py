@@ -1,4 +1,4 @@
-"""Flagship TurboAE training on the GPU (the port of
+"""TurboAE and DeepTurbo training on the GPU (the port of
 scripts/train_flagship.py, with its flags).
 
 Runs the reference's alternating 1-enc/5-dec schedule (main.py:220-233) with
@@ -21,9 +21,18 @@ periodic checkpoints and JSONL metrics, resumable with --resume. TF32 is off.
     unchanged; the port's decoder loop has no scan, so it changes neither
     numerics nor launches.
 
-`--device cpu` runs on the CPU; without it the CLI needs a GPU. Not ported
-yet: --loss other than bce (ROADMAP M8) and encoders other than the
-flagship's, DeepTurbo's included (M9, M11), raise NotImplementedError.
+  - --loss takes the whole menu of train/losses.py; --encoder
+    Turbo_rate3_757 | Turbo_rate3_lte trains DeepTurbo's decoder (with
+    --num_train_enc 0: the encoder has no params), TurboAE_rate3_cnn_dense
+    the dense CNN code.
+
+    python -m turboae_tpu_torch.cli.train_flagship --resume artifacts/deepturbo.msgpack \
+        --encoder Turbo_rate3_757 --num_train_enc 0 --num_train_dec 6 --dec_lr 2e-5 \
+        --train_dec_channel_low -2.5 --dtype bfloat16 --epochs 530
+
+`--device cpu` runs on the CPU; without it the CLI needs a GPU. Encoders
+and decoders that are not ported yet (the RNN zoo, ROADMAP M10; the 2D and
+other CNN codes, M9) raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -43,7 +52,9 @@ def parse(argv=None) -> argparse.Namespace:
     p.add_argument('--metrics', default='logs/flagship.jsonl')
     p.add_argument('--resume', default='')
     p.add_argument('--train_channel_mode', default='block_norm')
-    p.add_argument('--loss', default='bce', help='bce (maxBCE: ROADMAP M8)')
+    p.add_argument('--loss', default='bce',
+                   help='bce | soft_ber | bce_rl | enc_rl | bce_block | focal | mse | '
+                        'maxBCE | sortBCE')
     p.add_argument('--enc_lr', type=float, default=0.001)
     p.add_argument('--dec_lr', type=float, default=0.001)
     p.add_argument('--dtype', default='float32')
@@ -55,7 +66,8 @@ def parse(argv=None) -> argparse.Namespace:
     p.add_argument('--val_every', type=int, default=5)
     p.add_argument('--time_budget_s', type=float, default=0,
                    help='stop cleanly after this many seconds (0 = no limit)')
-    p.add_argument('--encoder', default='TurboAE_rate3_cnn')
+    p.add_argument('--encoder', default='TurboAE_rate3_cnn',
+                   help='e.g. Turbo_rate3_757 for DeepTurbo')
     p.add_argument('--decoder', default='TurboAE_rate3_cnn')
     p.add_argument('--dec_num_layer', type=int, default=5)
     p.add_argument('--enc_num_unit', type=int, default=100)

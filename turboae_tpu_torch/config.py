@@ -6,8 +6,9 @@ copy because it imports nothing of the JAX package.
 
 Port meanings of the accelerator fields:
   - dtype='bfloat16' maps to torch.bfloat16 (conv stacks in bf16, heads f32);
-  - use_fused_conv routes the decoder's conv stacks through the hand-written
-    CUDA kernel `kernels/conv_stack.py::conv_stack_bf16`;
+  - use_fused_conv routes the decoder's plain conv stacks through the
+    hand-written CUDA kernel `kernels/conv_stack.py::conv_stack_bf16`; dense
+    stacks (every encoder but 'TurboAE_rate3_cnn') never fuse, as in JAX;
   - shard_axis and scan_unroll are inert here; a non-empty mesh_shape
     (ROADMAP M16) and steps_per_call > 1 (M14) are refused by the CLIs and
     the trainer.

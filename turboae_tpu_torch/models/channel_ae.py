@@ -18,14 +18,17 @@ from numpy.random import mtrand
 from ..channels.apply import apply_channel
 from ..ops.interleave import invert_perm
 from ..ops.ste import rx_quantize
-from .decoders import largecnn_apply, largecnn_init
-from .encoders import intercnn_apply, intercnn_init
+from .decoders import make_decoder
+from .encoders import make_encoder
 
 
 def init_ae(gen: torch.Generator, cfg, device='cpu'):
     """{'enc': ..., 'dec': ...} at PyTorch's default init (JAX channel_ae.py:45-49),
-    drawn from `gen` (a CPU generator), encoder first."""
-    return {'enc': intercnn_init(gen, cfg, device), 'dec': largecnn_init(gen, cfg, device)}
+    drawn from `gen` (a CPU generator), encoder first. A fixed encoder's
+    half is empty ({})."""
+    enc_init, _ = make_encoder(cfg)
+    dec_init, _ = make_decoder(cfg)
+    return {'enc': enc_init(gen, cfg, device), 'dec': dec_init(gen, cfg, device)}
 
 
 def make_perms(cfg, device) -> Dict[str, torch.Tensor]:
@@ -48,10 +51,11 @@ def make_perms(cfg, device) -> Dict[str, torch.Tensor]:
 def forward_ae(params, cfg, bits, fwd_noise, perms, training: bool = True,
                stats=None, generator: Optional[torch.Generator] = None):
     """Returns (bit_estimates, codes, stats)."""
-    codes, stats = intercnn_apply(params['enc'], cfg, bits, perms,
-                                  training=training, stats=stats)
+    _, enc_apply = make_encoder(cfg)
+    _, dec_apply = make_decoder(cfg)
+    codes, stats = enc_apply(params['enc'], cfg, bits, perms, training=training, stats=stats)
     received = apply_channel(codes, fwd_noise, cfg.channel, generator)
     if cfg.rec_quantize:
         # the reference passes rec_quantize_level as BOTH limit and level
         received = rx_quantize(received, cfg.rec_quantize_level, cfg.rec_quantize_level)
-    return largecnn_apply(params['dec'], cfg, received, perms), codes, stats
+    return dec_apply(params['dec'], cfg, received, perms), codes, stats

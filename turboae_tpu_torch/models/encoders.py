@@ -1,8 +1,15 @@
-"""The flagship encoder ENC_interCNN (JAX: models/encoders.py:37-79).
+"""Encoders and their registry (JAX: models/encoders.py:37-79,349-376).
 
-Params: {'b1' | 'b2' | 'b3': {'cnn': [conv layers], 'lin': linear head}} in
+ENC_interCNN, the flagship's, in both conv flavours: 'TurboAE_rate3_cnn'
+with plain stacks and 'TurboAE_rate3_cnn_dense' with dense ones. Params:
+{'b1' | 'b2' | 'b3': {'cnn': [conv layers], 'lin': linear head}} in
 PyTorch's layout (see ops/conv1d.py). Bits x are (B, L, k) in {0, 1}; codes
 are (B, L, 3). The encoder's conv stacks run unfused, as in the JAX package.
+
+`make_encoder(cfg)` gives (init, apply) for cfg.encoder; DeepTurbo's fixed
+classical encoders come from models/deepturbo.py. A key of the JAX
+registry that is not ported yet raises NotImplementedError naming its
+ROADMAP item; an unknown key raises ValueError, as in JAX.
 """
 from __future__ import annotations
 
@@ -15,33 +22,65 @@ from ..ops.power import power_constraint
 from ..utils.device import torch_dtype
 
 
-def _branch_init(gen, cfg, device):
+def dense(cfg) -> bool:
+    """Whether cfg's CNN stacks are dense: the reference keys the flavour of
+    both the encoder's and DEC_LargeCNN's stacks off the ENCODER's name
+    (decoders.py:172-176); plain only for the flagship's."""
+    return cfg.encoder != 'TurboAE_rate3_cnn'
+
+
+def _branch_init(gen, cfg, device, is_dense: bool):
     """One branch: a conv stack code_rate_k -> enc_num_unit and a head to 1."""
-    return {'cnn': cv.stack_init(gen, cfg.enc_num_layer, cfg.code_rate_k,
-                                 cfg.enc_num_unit, cfg.enc_kernel_size, device),
+    init = cv.dense_stack_init if is_dense else cv.stack_init
+    return {'cnn': init(gen, cfg.enc_num_layer, cfg.code_rate_k, cfg.enc_num_unit,
+                        cfg.enc_kernel_size, device),
             'lin': cv.linear_init(gen, cfg.enc_num_unit, 1, device)}
 
 
 def intercnn_init(gen: torch.Generator, cfg, device='cpu'):
     """Params of the three branches b1, b2, b3 (JAX encoders.py:62-67)."""
-    if cfg.encoder != 'TurboAE_rate3_cnn':
-        raise NotImplementedError(f'encoder {cfg.encoder!r} is not ported yet (ROADMAP M9/M11)')
-    return {name: _branch_init(gen, cfg, device) for name in ('b1', 'b2', 'b3')}
+    return {name: _branch_init(gen, cfg, device, dense(cfg)) for name in ('b1', 'b2', 'b3')}
 
 
-def _branch_apply(p, cfg, x):
+def _branch_apply(p, cfg, x, is_dense: bool):
     dt = torch_dtype(cfg.dtype)
-    h = cv.stack_apply(p['cnn'], x, compute_dtype=dt)
+    stack = cv.dense_stack_apply if is_dense else cv.stack_apply
+    h = stack(p['cnn'], x, compute_dtype=dt)
     return activation(cfg.enc_act)(cv.linear_apply(p['lin'], h, compute_dtype=dt))
 
 
 def intercnn_apply(params, cfg, x, perms, training=True, stats=None):
     """Returns (codes, stats). perms['p1'] is the forward interleaver."""
-    if cfg.encoder != 'TurboAE_rate3_cnn':
-        raise NotImplementedError(f'encoder {cfg.encoder!r} is not ported yet (ROADMAP M9/M11)')
+    is_dense = dense(cfg)
     x = 2.0 * x - 1.0                       # BPSK map (JAX encoders.py:71)
-    x_sys = _branch_apply(params['b1'], cfg, x)
-    x_p1 = _branch_apply(params['b2'], cfg, x)
-    x_p2 = _branch_apply(params['b3'], cfg, interleave(x, perms['p1']))
+    x_sys = _branch_apply(params['b1'], cfg, x, is_dense)
+    x_p1 = _branch_apply(params['b2'], cfg, x, is_dense)
+    x_p2 = _branch_apply(params['b3'], cfg, interleave(x, perms['p1']), is_dense)
     x_tx = torch.cat([x_sys, x_p1, x_p2], dim=2)
     return power_constraint(x_tx, cfg, training, stats)
+
+
+ENC_REGISTRY = {
+    'TurboAE_rate3_cnn': (intercnn_init, intercnn_apply),
+    'TurboAE_rate3_cnn_dense': (intercnn_init, intercnn_apply),
+}
+
+# the JAX registry's other keys, by the ROADMAP item that ports them
+UNPORTED_ENCODERS = {
+    'Turboae_rate3_rnn': 'M10', 'TurboAE_rate3_rnn_sys': 'M10', 'TurboAE_rate2_rnn': 'M10',
+    'TurboAE_rate2_cnn': 'M9', 'rate3_cnn': 'M9', 'rate2_cnn': 'M9', 'turboae_2int': 'M9',
+    'TurboAE_rate3_cnn2d': 'M9', 'TurboAE_rate3_cnn2d_dense': 'M9', 'rate3_cnn2d': 'M9',
+}
+
+
+def make_encoder(cfg):
+    """(init, apply) of cfg.encoder (JAX encoders.py:364-376)."""
+    if cfg.encoder in ('Turbo_rate3_757', 'Turbo_rate3_lte'):
+        from .deepturbo import turbo_enc_apply, turbo_enc_init
+        return turbo_enc_init, turbo_enc_apply
+    if cfg.encoder in UNPORTED_ENCODERS:
+        raise NotImplementedError(f'encoder {cfg.encoder!r} is not ported yet '
+                                  f'(ROADMAP {UNPORTED_ENCODERS[cfg.encoder]})')
+    if cfg.encoder not in ENC_REGISTRY:
+        raise ValueError(f'unknown encoder {cfg.encoder}')
+    return ENC_REGISTRY[cfg.encoder]

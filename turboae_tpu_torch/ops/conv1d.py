@@ -1,4 +1,5 @@
-"""Same-length Conv1d stacks and linear heads (JAX: ops/conv1d.py:28-84,109-122).
+"""Same-length Conv1d stacks, dense stacks and linear heads
+(JAX: ops/conv1d.py:28-122).
 
 Tensors are (B, L, C) channels last at this module's interface, as in the JAX
 package; `F.conv1d` sees (B, C, L) through a transpose inside.
@@ -48,6 +49,13 @@ def stack_init(gen: torch.Generator, num_layer: int, in_channels: int,
                         kernel_size, device) for i in range(num_layer)]
 
 
+def dense_stack_init(gen: torch.Generator, num_layer: int, in_channels: int,
+                     out_channels: int, kernel_size: int, device='cpu') -> List[Layer]:
+    """DenseSameShapeConv1d: layer i takes Cin + i * Cout channels."""
+    return [conv1d_init(gen, in_channels + i * out_channels, out_channels, kernel_size,
+                        device) for i in range(num_layer)]
+
+
 def linear_init(gen: torch.Generator, in_features: int, out_features: int,
                 device='cpu') -> Layer:
     """Linear head: w (out, in), b (out,), fan_in = in."""
@@ -71,6 +79,20 @@ def stack_apply(layers: List[Layer], x: torch.Tensor, act=F.elu,
         if not no_act:
             x = act(x)
     return x
+
+
+def dense_stack_apply(layers: List[Layer], x: torch.Tensor, act=F.elu,
+                      compute_dtype=torch.float32) -> torch.Tensor:
+    """DenseNet-style stack: layer i reads the running concat
+    [x, out_0, ..., out_{i-1}] in that channel order, ELU after every layer.
+    Each layer rounds its input to compute_dtype, so the concat's dtype does
+    not change the result."""
+    inp = x.to(compute_dtype)
+    out = act(conv1d_apply(layers[0], inp, compute_dtype))
+    for p in layers[1:]:
+        inp = torch.cat([inp, out], dim=-1)
+        out = act(conv1d_apply(p, inp, compute_dtype))
+    return out
 
 
 def linear_apply(p: Layer, x: torch.Tensor, compute_dtype=torch.float32) -> torch.Tensor:

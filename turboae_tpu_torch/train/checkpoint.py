@@ -7,9 +7,14 @@ the port's own msgpack_io, so the two packages read each other's files:
    'opt_state': {'enc' | 'dec': {'0': inner state, '1': {}}}}
 where the inner state is optax's: Adam {'count': int32 0-d, 'mu', 'nu'}
 (trees shaped like that half's params), SGD with momentum {'trace'}; '1' is
-the empty state of optax's learning-rate scaling. The JAX training scripts
-store the epoch in 'step' (scripts/train_flagship.py:245); the port's CLIs
-do too.
+the empty state of optax's learning-rate scaling. Lookahead over Adam
+(JAX train/optimizers.py:20-48) stores, in place of that pair,
+  {'inner': {'0': Adam's state, '1': {}}, 'slow': a tree shaped like the
+   half's params, 'count': int32 0-d}.
+A fixed encoder (DeepTurbo's) has the empty half params/enc = {} and the
+state {'0': {'count', 'mu': {}, 'nu': {}}, '1': {}}. The JAX training
+scripts store the epoch in 'step' (scripts/train_flagship.py:245); the
+port's CLIs do too.
 
 Port side, params are the port's param tree and an optimizer state is
 {'enc' | 'dec': optimizer.state()}, lists in tree_leaves order of that half.
@@ -32,6 +37,10 @@ _MOMENTS = ('mu', 'nu', 'trace')
 
 
 def _opt_to_jax(half: str, params_half, state: dict) -> dict:
+    if 'inner' in state:                    # Lookahead
+        return {'inner': _opt_to_jax(half, params_half, state['inner']),
+                'slow': half_to_jax(half, tree_unflatten(params_half, state['slow'])),
+                'count': np.asarray(state['count'], np.int32)}
     inner = {}
     for k, v in state.items():
         if k == 'count':
@@ -79,7 +88,23 @@ def _merge(tpl, got, stats: dict):
     return keep(tpl)
 
 
+def _moments_from_jax(half: str, what: str, tree, params_half, device) -> list:
+    """A tree shaped like the half's params, as a list in tree_leaves order."""
+    out = tree_leaves(half_from_jax(half, tree, device))
+    if [tuple(t.shape) for t in out] != [tuple(t.shape) for t in tree_leaves(params_half)]:
+        raise ValueError(f'{half} {what}: the shapes do not match the params')
+    return out
+
+
 def _opt_from_jax(half: str, saved: dict, params_half, template: dict, device) -> dict:
+    if ('inner' in template) != ('inner' in saved):
+        raise ValueError(f'{half}: the file holds optimizer state {sorted(saved)}, '
+                         f'the optimizer has {sorted(template)}')
+    if 'inner' in template:                 # Lookahead
+        return {'inner': _opt_from_jax(half, saved['inner'], params_half, template['inner'],
+                                       device),
+                'slow': _moments_from_jax(half, 'slow', saved['slow'], params_half, device),
+                'count': int(np.asarray(saved['count']))}
     inner = saved['0']
     if set(inner) != set(template):
         raise ValueError(f'{half}: the file holds optimizer state {sorted(inner)}, '
@@ -89,10 +114,7 @@ def _opt_from_jax(half: str, saved: dict, params_half, template: dict, device) -
         if k == 'count':
             out[k] = int(np.asarray(inner[k]))
         else:
-            out[k] = tree_leaves(half_from_jax(half, inner[k], device))
-            shapes = [tuple(t.shape) for t in tree_leaves(params_half)]
-            if [tuple(t.shape) for t in out[k]] != shapes:
-                raise ValueError(f'{half} {k}: the shapes do not match the params')
+            out[k] = _moments_from_jax(half, k, inner[k], params_half, device)
     return out
 
 

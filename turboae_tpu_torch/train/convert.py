@@ -5,6 +5,8 @@ checkpoint holds them, where lists appear as dicts keyed '0', '1', ...):
   enc/b{1,2,3}/cnn/<j>/{w (K, Cin, Cout), b}, enc/b{1,2,3}/lin/{w (in, out), b}
   dec/scan/{dec1,dec2}_{cnn/<j>,lin}/...  stacked over the first n-1 iterations
   dec/final/...                           the last iteration
+where a dense stack's layer j has Cin + j * Cout input channels, and a fixed
+encoder (DeepTurbo's) has the empty half enc = {}.
 Port params: the same tree with conv weights (Cout, Cin, K), linear weights
 (out, in), lists as lists, and the decoder as dec/iters/[it_0 .. it_{n-1}].
 `from_jax` and `to_jax` are exact inverses: a round trip is bit-identical.

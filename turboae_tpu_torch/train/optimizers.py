@@ -1,5 +1,5 @@
-"""Optimizers (JAX: train/optimizers.py:51-56): Adam and SGD with momentum,
-with optax's arithmetic.
+"""Optimizers (JAX: train/optimizers.py:20-56): Adam, SGD with momentum and
+Lookahead over Adam, with optax's arithmetic.
 
 Each optimizer owns a list of parameter tensors and updates them IN PLACE
 (the JAX package returns new arrays; in place here saves a copy of the
@@ -9,13 +9,17 @@ params per step). `step(grads)` takes the gradients in the same order.
     square root, bias-corrected moments:
         mu = b1 mu + (1 - b1) g,  nu = b2 nu + (1 - b2) g^2,
         p -= lr * (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps);
-  - SGD (optax.sgd with momentum, not Nesterov): t = g + momentum t, p -= lr t.
+  - SGD (optax.sgd with momentum, not Nesterov): t = g + momentum t, p -= lr t;
+  - Lookahead over Adam (k 5, alpha 0.5): the Adam step gives fast weights;
+    when count % k == 0, step 0 included, slow += alpha (fast - slow) and
+    fast <- slow; count goes up on every step. The slow weights are copies.
 
 The updates use torch._foreach_* ops: one launch per op over all tensors.
+An optimizer over no tensors (DeepTurbo's fixed encoder) counts its steps
+and launches nothing: torch._foreach_* refuses empty lists.
 `state()` gives an optimizer's state as plain data, with its per-leaf lists
 in the params' order, and `load_state(state)` copies such state in;
-train/checkpoint.py maps it to and from optax's layout. Lookahead is not
-ported yet (ROADMAP M8).
+train/checkpoint.py maps it to and from optax's layout.
 """
 from __future__ import annotations
 
@@ -42,6 +46,8 @@ class Adam:
     @torch.no_grad()
     def step(self, grads: List[torch.Tensor]):
         self.count += 1
+        if not self.params:
+            return
         torch._foreach_mul_(self.mu, self.b1)
         torch._foreach_add_(self.mu, grads, alpha=1.0 - self.b1)
         torch._foreach_mul_(self.nu, self.b2)
@@ -72,6 +78,8 @@ class SGD:
 
     @torch.no_grad()
     def step(self, grads: List[torch.Tensor]):
+        if not self.params:
+            return
         torch._foreach_mul_(self.trace, self.momentum)
         torch._foreach_add_(self.trace, grads)
         torch._foreach_add_(self.params, self.trace, alpha=-self.lr)
@@ -85,6 +93,48 @@ class SGD:
         _copy_into(self.trace, state['trace'])
 
 
+class Lookahead:
+    """Lookahead over Adam (JAX lookahead(optax.adam(lr), k, alpha))."""
+
+    def __init__(self, params: List[torch.Tensor], lr: float, k: int = 5,
+                 alpha: float = 0.5):
+        self.params, self.k, self.alpha = list(params), k, alpha
+        self.inner = Adam(self.params, lr)
+        self.slow = [p.detach().clone() for p in self.params]
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self, grads: List[torch.Tensor]):
+        sync = self.count % self.k == 0
+        self.count += 1
+        if not self.params:
+            self.inner.step(grads)
+            return
+        before = [p.clone() for p in self.params]
+        self.inner.step(grads)              # params are now the fast weights
+        fast = self.params
+        if sync:                            # slow += alpha (fast - slow); fast <- slow
+            torch._foreach_add_(self.slow, torch._foreach_sub(fast, self.slow),
+                                alpha=self.alpha)
+            fast = self.slow
+        # JAX's trainer adds the update fast - p to p, which may round to
+        # another value than fast: the same arithmetic here
+        upd = torch._foreach_sub(fast, before)
+        torch._foreach_copy_(self.params, before)
+        torch._foreach_add_(self.params, upd)
+
+    def state(self) -> dict:
+        """{'inner': Adam's state, 'slow': [...], 'count': steps taken}, the
+        JAX lookahead's state."""
+        return {'inner': self.inner.state(), 'slow': self.slow, 'count': self.count}
+
+    @torch.no_grad()
+    def load_state(self, state: dict):
+        self.inner.load_state(state['inner'])
+        _copy_into(self.slow, state['slow'])
+        self.count = int(state['count'])
+
+
 def _copy_into(dst: List[torch.Tensor], src) -> None:
     """Copy src's tensors into dst's, which keep their device and dtype."""
     src = list(src)
@@ -96,9 +146,10 @@ def _copy_into(dst: List[torch.Tensor], src) -> None:
 
 
 def make_optimizer(cfg, lr: float, params: List[torch.Tensor]):
-    """SGD for 'sgd', Adam for any other name, as the JAX package chooses."""
-    if cfg.optimizer == 'lookahead':
-        raise NotImplementedError('optimizer lookahead is not ported yet (ROADMAP M8)')
+    """SGD for 'sgd', Lookahead(Adam) for 'lookahead', Adam for any other
+    name, as the JAX package chooses."""
     if cfg.optimizer == 'sgd':
         return SGD(params, lr, momentum=cfg.momentum)
+    if cfg.optimizer == 'lookahead':
+        return Lookahead(params, lr, k=5, alpha=0.5)
     return Adam(params, lr)

@@ -1,14 +1,17 @@
 """Training, validation and test of the flagship (JAX: train/trainer.py:54-629).
 
 One optimizer step of a phase (`_train_step`):
-  sample bits and noise on the device -> forward_ae(training=True) -> BCE ->
-  gradients of that phase's params only -> that phase's optimizer.
+  sample bits and noise on the device -> forward_ae(training=True) ->
+  cfg.loss (train/losses.py) -> gradients of that phase's params only ->
+  that phase's optimizer.
 The 'encoder' phase steps the encoder's params, 'decoder' the decoder's,
 'joint' both with their own optimizers. The frozen half is marked as needing
 no gradient for the step, so autograd builds no graph for it, computes no
 gradient of it and its optimizer does not run; gradients are returned by
 torch.autograd.grad and never accumulate in `.grad`, so none leaks into the
-next phase. Params and optimizer state are updated in place.
+next phase. Params and optimizer state are updated in place. A half with
+no params (DeepTurbo's fixed encoder) has nothing to differentiate: its
+phase computes the loss and steps an optimizer that only counts.
 
 Eager PyTorch runs each step as it is called; losses stay on the device and
 `train_epoch` synchronises once, at its end.
@@ -45,7 +48,7 @@ import torch
 from ..channels.noise import (check_legacy_noise_channel, generate_noise, point_sigma,
                               sample_noise, spec_from_cfg)
 from ..models.channel_ae import forward_ae, init_ae, make_perms
-from ..models.encoders import intercnn_apply
+from ..models.encoders import make_encoder
 from ..utils import metrics as M
 from ..utils.device import resolve_device
 from ..utils.tree import tree_leaves, tree_map
@@ -140,9 +143,9 @@ class Trainer:
         return bits, noise
 
     def _loss(self, bits: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
-        out, _, _ = forward_ae(self.params, self.cfg, bits, noise, self.perms,
-                               training=True, generator=self.generator)
-        return customized_loss(torch.clamp(out, 0.0, 1.0), bits, self.cfg)
+        out, code, _ = forward_ae(self.params, self.cfg, bits, noise, self.perms,
+                                  training=True, generator=self.generator)
+        return customized_loss(torch.clamp(out, 0.0, 1.0), bits, self.cfg, code=code)
 
     def loss_and_grads(self, mode: str, bits: torch.Tensor, noise: torch.Tensor
                        ) -> Tuple[torch.Tensor, Dict[str, List[torch.Tensor]]]:
@@ -156,7 +159,14 @@ class Trainer:
             loss = self._loss(bits, noise)
             self._mark('forward')
             trainable = [p for h in halves for p in self._leaves[h]]
-            grads = torch.autograd.grad(loss, trainable)
+            if not trainable:
+                grads = ()
+            elif loss.requires_grad:
+                # a param the loss does not reach gets a zero gradient, as in
+                # JAX (the decoder under enc_rl)
+                grads = torch.autograd.grad(loss, trainable, materialize_grads=True)
+            else:
+                grads = [torch.zeros_like(p) for p in trainable]
             self._mark('backward')
         finally:
             for leaves in self._leaves.values():
@@ -205,11 +215,11 @@ class Trainer:
         noise = generate_noise(self._noise_shape(), cfg, self.generator, self.device,
                                snr_low=cfg.train_enc_channel_low,
                                snr_high=cfg.train_enc_channel_low)
-        out, _, _ = forward_ae(self.params, cfg, bits, noise, self.perms, training=False,
-                               generator=self.generator)
+        out, code, _ = forward_ae(self.params, cfg, bits, noise, self.perms, training=False,
+                                  generator=self.generator)
         out = torch.clamp(out, 0.0, 1.0)
-        bce = customized_loss(out, bits, cfg.replace(loss='bce'))
-        custom = customized_loss(out, bits, cfg)
+        bce = customized_loss(out, bits, cfg.replace(loss='bce'), code=code)
+        custom = customized_loss(out, bits, cfg, code=code)
         return bce, custom, M.errors_ber(bits, out)
 
     def validate(self, verbose: bool = True) -> Tuple[float, float]:
@@ -249,10 +259,11 @@ class Trainer:
     def encoder_power(self, num_batches: int) -> float:
         """Mean over batches of the encoder output's std, Bessel-corrected
         (JAX :510-529, reference trainer.py:238-248)."""
+        _, enc_apply = make_encoder(self.cfg)
         total = 0.0
         for _ in range(num_batches):
-            codes, _ = intercnn_apply(self.params['enc'], self.cfg, self._bits(), self.perms,
-                                      training=False)
+            codes, _ = enc_apply(self.params['enc'], self.cfg, self._bits(), self.perms,
+                                 training=False)
             codes = codes.float()
             total += float(torch.sqrt(((codes - codes.mean()) ** 2).sum() / (codes.numel() - 1)))
         return total / num_batches
