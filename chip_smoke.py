@@ -71,6 +71,35 @@ Phases, each printing one JSON line:
                decoder steps across the syncs at counts 0 and 5, card
                against CPU; then `-optimizer lookahead -loss maxBCE`
                through cli/main.main (bf16, fused), its K2 launches counted;
+  gru_forward  ops/gru.py's card route (cuDNN, one call a layer) against its
+               plain scan on the card and against the scan in f64, B=500,
+               L=100, In=7, H=100, 2 layers: GRU f32 within 1e-5 relative,
+               LSTM within F32_REL_TOL, GRU gradients within 1e-4, no cuDNN
+               weight-copy warning; bf16 cuDNN (the port's bf16 route)
+               within KERNEL_REL_TOL of the bf16 scan; ms a call of each;
+  rnn_forward  the RNN zoo at full width from one seeded init (batch 64,
+               0 dB), card against CPU: the rate-3 RNN pair, GRU and LSTM,
+               rnn_sys + rate-3 decoder, the rate-2 pair, nbcjr; f32 within
+               1e-4 and through cuDNN only; bf16 (cuDNN's bf16 RNN on the
+               card, the bf16 scan on the CPU) decisions > 99 % agreeing;
+  rnn_train    path 11: a joint f32 step of the rate-3 RNN pair, card against
+               CPU (loss 1e-4, gradients 1e-3 of each leaf's largest); the
+               share of head units dropped under -dropout 0.3 within 4 sigma
+               of 0.3; then cli/main.py with the pair for one f32 epoch
+               (num_block 1,000): finite, below the untrained 0.69, its train
+               blocks/s;
+  ftae_curve   path 12: cli/eval_ftae.py on artifacts/ftae_pa.msgpack
+               (pos_phase, batch 2000, feedback at 40 dB) at -2..1 dB, 20,000
+               blocks a point: f32 held to artifacts/eval_ftae_pa.json (the
+               TPU's bf16 curve) by the BLER z test, bf16 measured beside it
+               (its z reported: the port's bf16, like JAX's on the CPU, lies
+               above the TPU's); blocks/s of both; the guard refuses
+               --ftae_power_alloc pos on that file;
+  ftae_train   path 13: an f32 step of each phase from ftae_pa.msgpack's
+               params, card against CPU (rnn_train's tolerances); cli/ftae_main
+               with -dec_type turboae_rnn for one epoch at full width and
+               block_len 50, finite and falling; the turboae_sharedcnn and
+               cnn decoders' forwards, card against CPU, f32 within 1e-4;
   train_times  the port of bench.py (cli/bench_train.py), fused on and off;
   conv_stack_bench  path 7: the port of scripts/bench_conv_stack.py, the only
                path of K1, with its launches read around it;
@@ -137,6 +166,13 @@ LOSSES = ('bce', 'soft_ber', 'bce_rl', 'enc_rl', 'bce_block', 'focal', 'mse', 'm
 LOOKAHEAD_STEPS = 6         # across the syncs at counts 0 and 5
 LOSSES_NUM_BLOCK = 1000     # the cli/main.py run: 2 steps an epoch at batch 500
 LOSSES_BATCH = 500
+GRU_SHAPE = (500, 100, 7, 100, 2)   # B, L, In, H, layers: the rate-3 RNN decoder's first biGRU
+GRU_F32_TOL = 1e-5                  # cuDNN's f32 GRU against the plain scan, relative
+RNN_EPOCH_LOSS_MAX = 0.69           # the untrained BCE, log 2; fixed before the first card run
+RNN_NUM_BLOCK = 1000
+FTAE_POINTS = (-2.0, -1.0, 0.0, 1.0)  # 2 dB expects ~2 block errors at 20,000
+FTAE_NUM_BLOCK = 5000               # the cli/ftae_main.py epoch: 10 steps at batch 500
+FTAE_BATCH = 500
 
 
 def emit(phase: str, **fields):
@@ -346,6 +382,13 @@ def main() -> int:
 
     # ---- losses: path 10, the loss menu and Lookahead ----
     paths['losses'] = losses_phase(dev, gen)
+
+    # ---- the RNN zoo (paths 11) and FTAE (paths 12 and 13) ----
+    gru_forward_phase(dev)
+    paths['rnn_forward'] = rnn_forward_phase(dev, gen)
+    paths['rnn_train'] = rnn_train_phase(dev, gen)
+    paths['ftae_curve'] = ftae_curve_phase(dev)
+    paths['ftae_train'] = ftae_train_phase(dev, gen)
 
     # ---- times: each kernel, its plain version, a library yardstick, its bound ----
     sweep_layers = crown['dec']['iters'][0]['dec1_cnn']
@@ -801,6 +844,381 @@ def losses_phase(dev, gen, batch=PARITY_BATCH):
           trainer.opt['enc'].count == cfg.num_train_enc * n, 'losses: Lookahead counts')
     check(counts['conv_stack_bf16'] == 12 * forwards,
           f"losses: conv_stack_bf16 launched {counts['conv_stack_bf16']} times, not 12 x {forwards}")
+    return counts
+
+
+def rel_diff(a, b) -> float:
+    """max |a - b| / max |b| over two tensors (b the reference)."""
+    a, b = a.float().cpu(), b.float().cpu()
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def grads_rel(ga, gb) -> float:
+    """The largest, over leaves, of max |a - b| / max |b| (b the reference)."""
+    return max(rel_diff(a, b) for a, b in zip(ga, gb))
+
+
+def gru_forward_phase(dev):
+    """ops/gru.py's routes on the card at the RNN decoder's shape: cuDNN
+    against the plain scan in f32 (GRU, LSTM; GRU gradients) and bf16, with
+    ms a call of each."""
+    import warnings
+    from turboae_tpu_torch.ops import gru
+    from turboae_tpu_torch.utils.device import nvidia_smi
+    B, L, IN, H, NL = GRU_SHAPE
+    g = torch.Generator().manual_seed(21)
+    x = torch.randn((B, L, IN), generator=g).to(dev)
+    out = {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        for kind, dtype in (('gru', torch.float32), ('lstm', torch.float32),
+                            ('gru', torch.bfloat16)):
+            layers = gru.birnn_init(g, IN, H, NL, kind, dev)
+
+            def run(route, layers=layers, kind=kind, dtype=dtype):
+                with torch.inference_mode():
+                    return gru.birnn_apply(layers, x, kind, dtype, route=route)
+            before = dict(gru.ROUTE_CALLS)
+            cud, scan = run('cudnn'), run('scan')
+            sync(dev)
+            check(gru.ROUTE_CALLS['cudnn'] == before['cudnn'] + NL and
+                  gru.ROUTE_CALLS['scan'] == before['scan'] + NL, f'gru {kind}: routes')
+            check(cud.shape == (B, L, 2 * H) and bool(torch.isfinite(cud).all()),
+                  f'gru {kind}: shape or non-finite values')
+            case = {'kind': kind, 'dtype': str(dtype).split('.')[-1],
+                    'cudnn_vs_scan_rel': rel_diff(cud, scan),
+                    'cudnn_ms': cuda_ms(lambda: run('cudnn'), iters=20),
+                    'scan_ms': cuda_ms(lambda: run('scan'), iters=3, warmup=1)}
+            if dtype == torch.float32:
+                # both f32 routes against the exact function (the scan in f64)
+                with torch.inference_mode():
+                    exact = gru.birnn_apply(layers, x.double(), kind, torch.float64, route='scan')
+                case['cudnn_vs_f64_rel'] = rel_diff(cud, exact)
+                case['scan_vs_f64_rel'] = rel_diff(scan, exact)
+            out[f'{kind}_{case["dtype"]}'] = case
+        # gradients of a scalar loss through both routes, f32 GRU
+        layers = gru.birnn_init(g, IN, H, NL, 'gru', dev)
+        leaves = [t.requires_grad_(True) for layer in layers for d in layer.values()
+                  for t in d.values()]
+        w = torch.randn((B, L, 2 * H), generator=g).to(dev)
+        grads = {r: torch.autograd.grad((gru.birnn_apply(layers, x, route=r) * w).sum(), leaves)
+                 for r in ('cudnn', 'scan')}
+        out['gru_float32']['grad_rel'] = grads_rel(grads['cudnn'], grads['scan'])
+        sync(dev)
+    weight_warnings = [str(c.message) for c in caught if 'contiguous' in str(c.message)]
+    emit('gru_forward', shape=list(GRU_SHAPE), cases=out, weight_warnings=weight_warnings,
+         card=nvidia_smi())
+    check(not weight_warnings, f'cuDNN copied the RNN weights: {weight_warnings}')
+    # the GRU to 1e-5; the LSTM to the repo's f32 kernel tolerance, since
+    # cuDNN's f32 LSTM itself lies ~1.2e-5 from the exact (f64) function,
+    # where the f32 scan lies ~5e-7 from it (PERF.md §6)
+    for k, tol in (('gru_float32', GRU_F32_TOL), ('lstm_float32', F32_REL_TOL)):
+        check(out[k]['cudnn_vs_scan_rel'] < tol, f'{k}: cuDNN against the scan {out[k]}')
+        check(out[k]['cudnn_vs_f64_rel'] < tol, f'{k}: cuDNN against the f64 scan {out[k]}')
+    check(out['gru_float32']['grad_rel'] < 1e-4, f"gru gradients {out['gru_float32']}")
+    check(out['gru_bfloat16']['cudnn_vs_scan_rel'] < KERNEL_REL_TOL,
+          f"gru bf16: cuDNN against the scan {out['gru_bfloat16']}")
+
+
+RNN_MODELS = (('Turboae_rate3_rnn', 'TurboAE_rate3_rnn', {}),
+              ('Turboae_rate3_rnn', 'TurboAE_rate3_rnn', {'enc_rnn': 'lstm', 'dec_rnn': 'lstm'}),
+              ('TurboAE_rate3_rnn_sys', 'TurboAE_rate3_rnn', {}),
+              ('TurboAE_rate2_rnn', 'TurboAE_rate2_rnn', {'code_rate_n': 2}),
+              ('Turboae_rate3_rnn', 'nbcjr_rate3', {}))
+
+
+def rnn_forward_phase(dev, gen, batch=PARITY_BATCH):
+    """The RNN zoo at full width, card against CPU on host-drawn bits and
+    noise (0 dB); returns the kernels' launch counts of the card's runs."""
+    from turboae_tpu_torch.config import Config
+    from turboae_tpu_torch.models.channel_ae import forward_ae, init_ae, make_perms
+    from turboae_tpu_torch.ops import gru
+    from turboae_tpu_torch.train.sweep import params_to
+    from turboae_tpu_torch.utils.metrics import snr_db2sigma
+    cases, counts = [], {'conv_stack_bf16': 0, 'conv_stack_f32': 0}
+
+    def fwd(params, c, bits, noise, where):
+        with torch.inference_mode():
+            return forward_ae(params, c, bits.to(where), noise.to(where), make_perms(c, where),
+                              training=False)[0].cpu()
+    for enc, dec, kw in RNN_MODELS:
+        cfg = Config(encoder=enc, decoder=dec, **kw)
+        params = init_ae(torch.Generator().manual_seed(0), cfg)
+        params_d = params_to(params, dev)
+        bits = (torch.rand((batch, 100, 1), generator=gen) < 0.5).float()
+        noise = snr_db2sigma(0.0) * torch.randn((batch, 100, cfg.code_rate_n), generator=gen)
+        case = {'encoder': enc, 'decoder': dec, **kw}
+        for dtype in ('float32', 'bfloat16'):
+            c = cfg.replace(dtype=dtype)
+            before = dict(gru.ROUTE_CALLS)
+            sync(dev)
+            reset_counts()
+            g_out = fwd(params_d, c, bits, noise, dev)
+            for k, v in read_counts().items():
+                counts[k] += v
+            routes = {r: gru.ROUTE_CALLS[r] - before[r] for r in before}
+            c_out = fwd(params, c, bits, noise, 'cpu')
+            check(g_out.shape == (batch, 100, 1) and bool(torch.isfinite(g_out).all()),
+                  f'{enc}+{dec} {dtype}: shape or non-finite values')
+            case[dtype] = {'max_abs_diff': (g_out - c_out).abs().max().item(),
+                           'decision_agreement': (g_out.round() == c_out.round()).float()
+                           .mean().item(),
+                           'ber_gpu': (g_out.round() != bits).float().mean().item(),
+                           'card_routes': routes}
+        cases.append(case)
+    emit('rnn_forward', batch=batch, snr_db=0.0, cases=cases, launches=counts)
+    for c in cases:
+        name = f"{c['encoder']}+{c['decoder']} {c.get('enc_rnn', 'gru')}"
+        check(c['float32']['max_abs_diff'] < 1e-4, f'{name}: f32 differs from the CPU {c}')
+        check(c['float32']['card_routes']['scan'] == 0 and
+              c['float32']['card_routes']['cudnn'] > 0, f'{name}: f32 did not run on cuDNN')
+        check(c['bfloat16']['decision_agreement'] > 0.99, f'{name}: bf16 decisions differ {c}')
+    check(counts['conv_stack_bf16'] == 0, 'rnn_forward: K2 launched')
+    return counts
+
+
+def rnn_train_phase(dev, gen, batch=PARITY_BATCH):
+    """A joint f32 step of the rate-3 RNN pair, card against CPU; the head
+    dropout's share; one epoch through cli/main.py. Returns the kernels'
+    launch counts of the epoch."""
+    import tempfile
+    from turboae_tpu_torch.channels.noise import train_sigma
+    from turboae_tpu_torch.cli import main as cli_main
+    from turboae_tpu_torch.config import Config
+    from turboae_tpu_torch.models.channel_ae import init_ae
+    from turboae_tpu_torch.ops import gru
+    from turboae_tpu_torch.train import trainer as trainer_mod
+    from turboae_tpu_torch.utils.device import nvidia_smi
+    cfg = Config(encoder='Turboae_rate3_rnn', decoder='TurboAE_rate3_rnn', batch_size=batch)
+    params = init_ae(torch.Generator().manual_seed(0), cfg)
+    bits = (torch.rand((batch, 100, 1), generator=gen) < 0.5).float()
+    noise = train_sigma((batch, 100, 3), -1.5, 2.0, gen, 'cpu') * \
+        torch.randn((batch, 100, 3), generator=gen)
+    side = {}
+    for where in ('gpu', 'cpu'):
+        tr = trainer_mod.Trainer(cfg, dev if where == 'gpu' else 'cpu', params=params)
+        loss, grads = tr.loss_and_grads('joint', bits.to(tr.device), noise.to(tr.device))
+        side[where] = (loss.item(), [t.cpu() for h in ('enc', 'dec') for t in grads[h]])
+    (lg, gg), (lc, gc) = side['gpu'], side['cpu']
+    step = {'loss_gpu': lg, 'loss_cpu': lc, 'loss_rel': abs(lg - lc) / abs(lc),
+            'grad_rel': grads_rel(gg, gc)}
+
+    # the head dropout's share under -dropout 0.3, one decoder step at batch 500
+    tr = trainer_mod.Trainer(cfg.replace(dropout=0.3, batch_size=500), dev)
+    heads = []
+    inner = gru.dropout
+
+    def record(x, rate, generator):
+        y = inner(x, rate, generator)
+        if x.shape[-1] != 2 * cfg.dec_num_unit:
+            heads.append(((y == 0).sum().item(), y.numel()))
+        return y
+    gru.dropout = record
+    try:
+        tr._train_step('decoder')
+    finally:
+        gru.dropout = inner
+    n = sum(m for _, m in heads)
+    share = sum(z for z, _ in heads) / n
+    dropout = {'share': share, 'units': n, 'calls': len(heads),
+               'sigma': math.sqrt(0.3 * 0.7 / n)}
+
+    # one epoch of the pair through cli/main.py, f32; the training epochs timed
+    timed = {'seconds': 0.0, 'blocks': 0}
+    epoch_fn = trainer_mod.Trainer.train_epoch
+
+    def timed_epoch(self, *a, **kw):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = epoch_fn(self, *a, **kw)
+        sync(dev)
+        timed['seconds'] += time.perf_counter() - t0
+        timed['blocks'] += max(1, self.cfg.num_block // self.cfg.batch_size) * self.cfg.batch_size
+        return out
+    with tempfile.TemporaryDirectory() as tmp:
+        log = os.path.join(tmp, 'metrics.jsonl')
+        argv = ['-encoder', 'Turboae_rate3_rnn', '-decoder', 'TurboAE_rate3_rnn',
+                '-num_epoch', '1', '-num_block', str(RNN_NUM_BLOCK), '-log_jsonl', log,
+                '--device', str(dev)]
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        trainer_mod.Trainer.train_epoch = timed_epoch
+        try:
+            sync(dev)
+            reset_counts()
+            t0 = time.perf_counter()
+            trainer = cli_main.main(argv)
+            sync(dev)
+            seconds = time.perf_counter() - t0
+            counts = read_counts()
+        finally:
+            trainer_mod.Trainer.train_epoch = epoch_fn
+            os.chdir(cwd)
+        with open(log) as f:
+            epoch = [r for r in map(json.loads, f) if r['event'] == 'epoch']
+    emit('rnn_train', step=step, dropout=dropout, epoch=epoch, loss_max=RNN_EPOCH_LOSS_MAX,
+         cli_seconds=seconds, train_seconds=timed['seconds'],
+         train_blocks_per_s=timed['blocks'] / timed['seconds'],
+         test_ber=trainer.last_test['ber'], launches=counts, card=nvidia_smi())
+    check(step['loss_rel'] < 1e-4, f'rnn_train step: loss differs from the CPU {step}')
+    check(step['grad_rel'] < 1e-3, f'rnn_train step: gradients differ from the CPU {step}')
+    check(abs(share - 0.3) < 4 * dropout['sigma'], f'rnn_train: dropout share {dropout}')
+    check(len(epoch) == 1 and math.isfinite(epoch[0]['loss']) and
+          epoch[0]['loss'] < RNN_EPOCH_LOSS_MAX, f'rnn_train: epoch {epoch}')
+    check(counts['conv_stack_bf16'] == 0, 'rnn_train: K2 launched')
+    return counts
+
+
+def ftae_curve_phase(dev):
+    """ftae_pa.msgpack's curve through cli/eval_ftae.evaluate, in f32 (held
+    to the committed curve by the BLER z test) and in bf16 (measured: the
+    port's bf16, like JAX's on the CPU, sits above the TPU's bf16 curve,
+    PERF.md §6); the guard refusing a mismatched --ftae_power_alloc.
+    Returns the launch counts of both sweeps."""
+    from turboae_tpu_torch.cli import eval_ftae
+    from turboae_tpu_torch.utils.device import nvidia_smi
+    ckpt = os.path.join(ROOT, 'artifacts', 'ftae_pa.msgpack')
+    ref_path = os.path.join(ROOT, 'artifacts', 'eval_ftae_pa.json')
+
+    def args(mode, dtype):
+        return eval_ftae.parse(['--ckpt', ckpt, '--ftae_power_alloc', mode, '--snrs',
+                                *map(str, FTAE_POINTS), '--num_block', str(SWEEP_BLOCKS),
+                                '--batch_size', str(SWEEP_BATCH), '--dtype', dtype,
+                                '--device', str(dev), '--ref', ref_path])
+    refused = None
+    try:
+        eval_ftae.evaluate(args('pos', 'float32'))
+    except SystemExit as e:
+        refused = str(e)
+    with open(ref_path) as f:
+        ref = json.load(f)
+    sync(dev)
+    reset_counts()
+    curves = {}
+    for dtype in ('float32', 'bfloat16'):
+        out = eval_ftae.evaluate(args('pos_phase', dtype))
+        check(out['snr'] == list(FTAE_POINTS) and out['n_blocks'] == SWEEP_BLOCKS,
+              f"ftae_curve {dtype}: points {out['snr']}")
+        curves[dtype] = {
+            'blocks_per_s': out['eval_blocks_per_s'],
+            'points': [{'snr': s, 'blk_errors': out['blk_errors'][i],
+                        'bit_errors': out['bit_errors'][i], 'n_blocks': out['n_blocks'],
+                        'bler': out['bler'][i], 'ber': out['ber'][i],
+                        'ref_bler': ref['bler'][ref['snr'].index(s)],
+                        'z_bler': out['z_bler_vs_ref'][i]} for i, s in enumerate(out['snr'])]}
+    sync(dev)
+    counts = read_counts()
+    emit('ftae_curve', ckpt='ftae_pa.msgpack', ref_dtype=ref['dtype'], curves=curves,
+         refused_pos=refused, launches=counts, device=out['device'], card=nvidia_smi())
+    check(refused is not None and 'ps' in refused, 'ftae_curve: the guard let pos through')
+    for p in curves['float32']['points']:
+        check(abs(p['z_bler']) < MAX_Z, f"ftae_curve: f32 BLER at {p['snr']} dB: z = {p['z_bler']}")
+    check(all(0.0 < p['bler'] < 1.0 for p in curves['bfloat16']['points']),
+          'ftae_curve: bf16 BLER out of range')
+    check(counts['conv_stack_bf16'] == 0, 'ftae_curve: K2 launched')
+    return counts
+
+
+def ftae_train_phase(dev, gen, batch=PARITY_BATCH):
+    """An f32 step of each phase from ftae_pa.msgpack's params, card against
+    CPU; one epoch of cli/ftae_main with the turboae_rnn decoder; the
+    sharedcnn and cnn decoders' forwards. Returns the epoch's launch counts."""
+    import tempfile
+    from turboae_tpu_torch.channels.noise import train_sigma
+    from turboae_tpu_torch.cli import ftae_main
+    from turboae_tpu_torch.config import Config
+    from turboae_tpu_torch.models.channel_ae import make_perms
+    from turboae_tpu_torch.models.ftae import forward_ftae, init_ftae
+    from turboae_tpu_torch.train import ftae_trainer
+    from turboae_tpu_torch.train.checkpoint import FTAE_GROUPS, load_checkpoint
+    from turboae_tpu_torch.train.sweep import params_to
+    from turboae_tpu_torch.utils.device import nvidia_smi
+    from turboae_tpu_torch.utils.metrics import snr_db2sigma
+    from turboae_tpu_torch.utils.tree import tree_leaves
+    path = os.path.join(ROOT, 'artifacts', 'ftae_pa.msgpack')
+    cfg = Config(block_len=50, ftae_power_alloc='pos_phase', batch_size=batch)
+    bits = (torch.rand((batch, 50, 1), generator=gen) < 0.5).float()
+    fwd = train_sigma((batch, 50, 3), -1.5, 2.0, gen, 'cpu') * \
+        torch.randn((batch, 50, 3), generator=gen)
+    fb = snr_db2sigma(40.0) * torch.randn((batch, 50, 3), generator=gen)
+    steps = {}
+    for mode in ('encoder', 'decoder'):
+        side = {}
+        for where in ('gpu', 'cpu'):
+            tr = ftae_trainer.FTAETrainer(cfg, dev if where == 'gpu' else 'cpu')
+            tr.params = load_checkpoint(path, tr.params)
+            loss, grads = tr.loss_and_grads(mode, *(t.to(tr.device) for t in (bits, fwd, fb)))
+            side[where] = (loss.item(), [t.cpu() for t in grads])
+        (lg, gg), (lc, gc) = side['gpu'], side['cpu']
+        # per module (a phase encoder, the decoder), max |diff| over the
+        # module's largest gradient: a head bias before the whitening has a
+        # gradient that is zero up to rounding, so its own scale is none
+        by_module, at = {}, 0
+        for k in FTAE_GROUPS['enc' if mode == 'encoder' else 'dec']:
+            n = len(tree_leaves(tr.params[k]))
+            scale = max(b.abs().max().item() for b in gc[at:at + n])
+            by_module[k] = max((a - b).abs().max().item() for a, b in
+                               zip(gg[at:at + n], gc[at:at + n])) / scale
+            at += n
+        steps[mode] = {'loss_gpu': lg, 'loss_cpu': lc, 'loss_rel': abs(lg - lc) / abs(lc),
+                       'grad_rel': max(by_module.values()), 'grad_rel_by_module': by_module,
+                       'grad_rel_by_leaf': grads_rel(gg, gc)}
+
+    forwards = {}
+    for dec_type in ('turboae_sharedcnn', 'cnn'):
+        c = Config(block_len=50, dec_type=dec_type)
+        params = init_ftae(torch.Generator().manual_seed(0), c)
+        with torch.inference_mode():
+            g_out, g_codes = forward_ftae(params_to(params, dev), c, bits.to(dev), fwd.to(dev),
+                                          fb.to(dev), make_perms(c, dev))
+            c_out, c_codes = forward_ftae(params, c, bits, fwd, fb, make_perms(c, 'cpu'))
+        forwards[dec_type] = {'max_abs_diff': (g_out.cpu() - c_out).abs().max().item(),
+                              'codes_max_abs_diff': (g_codes.cpu() - c_codes).abs().max().item()}
+
+    # one epoch through the CLI: 10 encoder steps, 5 x 10 decoder steps
+    losses, timed = [], {'seconds': 0.0, 'blocks': 0}
+    epoch_fn = ftae_trainer.FTAETrainer.train_epoch
+
+    def timed_epoch(self, *a, **kw):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = epoch_fn(self, *a, **kw)
+        sync(dev)
+        timed['seconds'] += time.perf_counter() - t0
+        timed['blocks'] += max(1, self.cfg.num_block // self.cfg.batch_size) * self.cfg.batch_size
+        losses.append(out)
+        return out
+    argv = ['-dec_type', 'turboae_rnn', '-block_len', '50', '-num_epoch', '1',
+            '-num_block', str(FTAE_NUM_BLOCK), '-batch_size', str(FTAE_BATCH), '--device', str(dev)]
+    with tempfile.TemporaryDirectory() as tmp:
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        ftae_trainer.FTAETrainer.train_epoch = timed_epoch
+        try:
+            sync(dev)
+            reset_counts()
+            t0 = time.perf_counter()
+            ftae_main.main(argv)
+            sync(dev)
+            seconds = time.perf_counter() - t0
+            counts = read_counts()
+            saved = [f for f in os.listdir(os.path.join(tmp, 'tmp')) if f.startswith('ftae_model_')]
+        finally:
+            ftae_trainer.FTAETrainer.train_epoch = epoch_fn
+            os.chdir(cwd)
+    emit('ftae_train', steps=steps, forwards=forwards, epoch_losses=losses, cli_seconds=seconds,
+         train_seconds=timed['seconds'], train_blocks_per_s=timed['blocks'] / timed['seconds'],
+         saved=saved, launches=counts, card=nvidia_smi())
+    for mode, st in steps.items():
+        check(st['loss_rel'] < 1e-4, f'ftae_train {mode} step: loss differs from the CPU {st}')
+        check(st['grad_rel'] < 1e-3, f'ftae_train {mode} step: gradients differ {st}')
+    for dec_type, f in forwards.items():
+        check(f['max_abs_diff'] < 1e-4 and f['codes_max_abs_diff'] < 1e-4,
+              f'ftae {dec_type} forward differs from the CPU {f}')
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          f'ftae_train: the epoch losses {losses} are not finite and falling')
+    check(len(saved) == 1, 'ftae_train: no checkpoint saved')
+    check(counts['conv_stack_bf16'] == 0, 'ftae_train: K2 launched')
     return counts
 
 

@@ -139,12 +139,10 @@ def test_dense_and_empty_halves_round_trip_bit_identical():
 
 
 # the JAX registries' keys the port does not have yet, with their ROADMAP items
-UNPORTED_ENC = {'Turboae_rate3_rnn': 'M10', 'TurboAE_rate3_rnn_sys': 'M10',
-                'TurboAE_rate2_rnn': 'M10', 'TurboAE_rate2_cnn': 'M9', 'rate3_cnn': 'M9',
+UNPORTED_ENC = {'TurboAE_rate2_cnn': 'M9', 'rate3_cnn': 'M9',
                 'rate2_cnn': 'M9', 'turboae_2int': 'M9', 'TurboAE_rate3_cnn2d': 'M9',
                 'TurboAE_rate3_cnn2d_dense': 'M9', 'rate3_cnn2d': 'M9'}
-UNPORTED_DEC = {'TurboAE_rate3_rnn': 'M10', 'TurboAE_rate2_rnn': 'M10', 'nbcjr_rate3': 'M10',
-                'TurboAE_rate3_cnn_2inter': 'M9', 'TurboAE_rate2_cnn': 'M9', 'rate3_cnn': 'M9',
+UNPORTED_DEC = {'TurboAE_rate3_cnn_2inter': 'M9', 'TurboAE_rate2_cnn': 'M9', 'rate3_cnn': 'M9',
                 'TurboAE_rate3_cnn2d': 'M9', 'TurboAE_rate3_cnn2d_dense': 'M9',
                 'rate3_cnn2d': 'M9', 'turboae_2int': 'M9'}
 

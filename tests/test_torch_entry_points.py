@@ -192,13 +192,13 @@ def test_train_flagship_stops_at_its_time_budget(tmp_path):
     assert [r['epoch'] for r in _records(metrics) if r['event'] == 'epoch'] == [1]
 
 
-# M8 (the losses) and M11 (DeepTurbo) are ported; what stays refused is
-# the RNN zoo (M10) and the rest of the CNN zoo (M9). The ids are the cases'
+# M8 (the losses), M10 (the RNN zoo) and M11 (DeepTurbo) are ported; what
+# stays refused is the rest of the CNN zoo (M9). The ids are the cases'
 # earlier ones.
 @pytest.mark.parametrize('argv,what', [
-    pytest.param(['--encoder', 'Turboae_rate3_rnn'], 'M10', id='argv0-M8'),
+    pytest.param(['--encoder', 'TurboAE_rate2_cnn'], 'M9', id='argv0-M8'),
     pytest.param(['--encoder', 'TurboAE_rate3_cnn2d'], 'M9', id='argv1-M9/M11'),
-    pytest.param(['--decoder', 'nbcjr_rate3'], 'M10', id='argv2-M9/M11')])
+    pytest.param(['--decoder', 'TurboAE_rate3_cnn_2inter'], 'M9', id='argv2-M9/M11')])
 def test_train_flagship_refuses_what_is_not_ported(argv, what, tmp_path):
     with pytest.raises(NotImplementedError, match=what):
         train_flagship.main([*argv, '--ckpt', str(tmp_path / 'f.msgpack'),
@@ -208,8 +208,9 @@ def test_train_flagship_refuses_what_is_not_ported(argv, what, tmp_path):
 @pytest.mark.parametrize('flag', ['--encoder', '--decoder'])
 def test_eval_cli_refuses_other_models(flag):
     from turboae_tpu_torch.cli import eval_flagship
-    # the JAX registries spell the RNN encoder and decoder differently
-    name = {'--encoder': 'Turboae_rate3_rnn', '--decoder': 'TurboAE_rate3_rnn'}[flag]
-    with pytest.raises(NotImplementedError, match='M10'):
+    # the RNN zoo is ported (tests/test_torch_rnn_models.py); the CNN zoo's
+    # other keys are not
+    name = {'--encoder': 'rate3_cnn', '--decoder': 'TurboAE_rate3_cnn_2inter'}[flag]
+    with pytest.raises(NotImplementedError, match='M9'):
         eval_flagship.main([flag, name, '--ckpt', CROWN, '--num_block', '2',
                             '--batch_size', '2', '--snr_points', '1', '--device', 'cpu'])

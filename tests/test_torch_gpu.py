@@ -161,3 +161,44 @@ def test_turbo_encoder_on_the_card_equals_the_cpu(cuda_device, encoder, L):
     ref, _ = turbo_enc_apply({}, cfg, bits, make_perms(cfg, 'cpu'))
     got, _ = turbo_enc_apply({}, cfg, bits.to(cuda_device), make_perms(cfg, cuda_device))
     assert got.device.type == 'cuda' and torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('kind,tol', [('gru', 1e-5), ('lstm', F32_REL_TOL)])
+def test_gru_cudnn_route_matches_the_scan(cuda_device, kind, tol):
+    """ops/gru.py's card route (cuDNN, one call a layer, weights in one
+    buffer) against its plain scan on the card, f32, TF32 off; its
+    gradients too, and no cuDNN weight-copy warning."""
+    import warnings
+    from turboae_tpu_torch.ops import gru
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator().manual_seed(0)
+    layers = gru.birnn_init(g, 7, 32, 2, kind, cuda_device)
+    x = torch.randn((16, 40, 7), generator=g).to(cuda_device)
+    leaves = [t.requires_grad_(True) for layer in layers for d in layer.values()
+              for t in d.values()]
+    with warnings.catch_warnings():
+        warnings.simplefilter('error')
+        out = {r: gru.birnn_apply(layers, x, kind, route=r) for r in ('cudnn', 'scan')}
+        grads = {r: torch.autograd.grad(out[r].sum(), leaves) for r in out}
+    ref = out['scan']
+    assert float((out['cudnn'] - ref).abs().max() / ref.abs().max()) < tol
+    for a, b in zip(grads['cudnn'], grads['scan']):
+        assert float((a - b).abs().max() / b.abs().max()) < 1e-4
+
+
+@pytest.mark.gpu
+def test_rnn_decoder_bf16_takes_cudnn_on_the_card(cuda_device):
+    from turboae_tpu_torch.config import Config
+    from turboae_tpu_torch.models.channel_ae import forward_ae, init_ae, make_perms
+    from turboae_tpu_torch.ops import gru
+    cfg = Config(encoder='Turboae_rate3_rnn', decoder='TurboAE_rate3_rnn', dtype='bfloat16',
+                 enc_num_unit=16, dec_num_unit=16, num_iteration=2, block_len=20)
+    params = init_ae(torch.Generator().manual_seed(0), cfg, cuda_device)
+    bits = (torch.rand((8, 20, 1), device=cuda_device) < 0.5).float()
+    before = dict(gru.ROUTE_CALLS)
+    with torch.inference_mode():
+        out, _, _ = forward_ae(params, cfg, bits, torch.zeros((8, 20, 3), device=cuda_device),
+                               make_perms(cfg, cuda_device), training=False)
+    assert torch.isfinite(out).all()
+    assert gru.ROUTE_CALLS['cudnn'] > before['cudnn'] and gru.ROUTE_CALLS['scan'] == before['scan']

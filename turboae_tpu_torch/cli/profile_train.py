@@ -15,7 +15,11 @@ Runs the bench's training config (cli/bench_train.py: batch 500, bf16, the
 
 `--encoder Turbo_rate3_757` profiles DeepTurbo's decoder steps (its encoder
 has no params, and its recipe no encoder phase; its dense stacks never
-fuse).
+fuse). `--encoder`/`--decoder` take the RNN zoo's keys, `--dtype float32`
+its training dtype:
+
+    python -m turboae_tpu_torch.cli.profile_train --encoder Turboae_rate3_rnn \
+        --decoder TurboAE_rate3_rnn --dtype float32 --batch_size 100
 """
 from __future__ import annotations
 
@@ -62,6 +66,8 @@ def main(argv=None):
     p.add_argument('--batch_size', type=int, default=500)
     p.add_argument('--use_fused_conv', action='store_true')
     p.add_argument('--encoder', default='TurboAE_rate3_cnn')
+    p.add_argument('--decoder', default='TurboAE_rate3_cnn')
+    p.add_argument('--dtype', default='bfloat16')
     p.add_argument('--top', type=int, default=15)
     args = p.parse_args(argv)
 
@@ -69,7 +75,8 @@ def main(argv=None):
     no_tf32()
     cfg = Config(batch_size=args.batch_size, block_len=100, num_block=args.batch_size,
                  train_dec_channel_low=-1.5, train_dec_channel_high=2.0,
-                 encoder=args.encoder, dtype='bfloat16', use_fused_conv=args.use_fused_conv)
+                 encoder=args.encoder, decoder=args.decoder, dtype=args.dtype,
+                 use_fused_conv=args.use_fused_conv)
     trainer = Trainer(cfg, dev)
     encoder_phase = bool(trainer._leaves['enc'])
     for mode in ('decoder', 'encoder'):      # warm up both phases
@@ -89,7 +96,7 @@ def main(argv=None):
     busy_ms = sum(r[2] for r in rows)
     print(json.dumps({
         'device': torch.cuda.get_device_name(dev), 'encoder': args.encoder,
-        'use_fused_conv': args.use_fused_conv,
+        'decoder': args.decoder, 'dtype': args.dtype, 'use_fused_conv': args.use_fused_conv,
         'allow_tf32': False, 'batch_size': args.batch_size, 'steps': args.steps,
         'phases_ms': phases, 'profiled_wall_ms': wall_ms, 'device_busy_ms': busy_ms,
         'busy_share': busy_ms / wall_ms,

@@ -30,9 +30,10 @@ periodic checkpoints and JSONL metrics, resumable with --resume. TF32 is off.
         --encoder Turbo_rate3_757 --num_train_enc 0 --num_train_dec 6 --dec_lr 2e-5 \
         --train_dec_channel_low -2.5 --dtype bfloat16 --epochs 530
 
-`--device cpu` runs on the CPU; without it the CLI needs a GPU. Encoders
-and decoders that are not ported yet (the RNN zoo, ROADMAP M10; the 2D and
-other CNN codes, M9) raise NotImplementedError.
+`--device cpu` runs on the CPU; without it the CLI needs a GPU. The RNN
+zoo's keys build at the Config's RNN settings (-enc_rnn, -dec_rnn and
+-dropout are cli/main.py's flags); the CNN zoo's other keys (the 2D and
+other CNN codes, ROADMAP M9) raise NotImplementedError.
 """
 from __future__ import annotations
 

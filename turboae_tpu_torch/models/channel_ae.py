@@ -5,8 +5,10 @@ constraint and its STE, the interleavers (index gathers) and the fused
 decoder stacks (whose backward recomputes the unfused f32 stack) all carry
 gradients to both halves of the params.
 
-`generator` drives only the fading channel's gain, as the JAX forward's key
-does (channel_ae.py:53-72); the other channels ignore it."""
+`generator` drives the fading channel's gain and then, in training, the
+decoder's dropout (DEC_LargeRNN with cfg.dropout > 0), in that order: the
+JAX forward splits its key between the same two (channel_ae.py:53-72).
+Channels other than fading and decoders without dropout draw nothing."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -58,4 +60,5 @@ def forward_ae(params, cfg, bits, fwd_noise, perms, training: bool = True,
     if cfg.rec_quantize:
         # the reference passes rec_quantize_level as BOTH limit and level
         received = rx_quantize(received, cfg.rec_quantize_level, cfg.rec_quantize_level)
-    return dec_apply(params['dec'], cfg, received, perms), codes, stats
+    out = dec_apply(params['dec'], cfg, received, perms, training=training, generator=generator)
+    return out, codes, stats

@@ -1,5 +1,6 @@
-"""The iterative decoder DEC_LargeCNN and its registry
-(JAX: models/decoders.py:52-148,589-602).
+"""The iterative decoders DEC_LargeCNN, DEC_LargeRNN, DEC_LargeRNN_rate2 and
+NeuralTurbofyDec, and their registry (JAX: models/decoders.py:52-241,
+354-481,589-602).
 
 Its conv flavour is keyed off the ENCODER's name, as in the reference
 (encoders.dense): plain stacks only for encoder 'TurboAE_rate3_cnn', dense
@@ -15,6 +16,18 @@ loop.
 With cfg.use_fused_conv every conv stack goes through the hand-written bf16
 kernel (kernels/conv_stack.py), its output cast back to cfg.dtype, as
 JAX decoders.py:99-104 routes them through the Pallas kernel.
+
+The RNN decoders' iterations hold 'dec1_rnn' and 'dec2_rnn' (biRNN stacks,
+ops/gru.py) in place of the conv stacks, with heads from 2 * dec_num_unit.
+nbcjr_rate3 shares one biGRU and head over every iteration:
+{'rnn', 'out', 'final'}.
+
+Every apply takes `training` and a `generator`. Only DEC_LargeRNN reads
+them: in training with cfg.dropout > 0 it drops units after the first
+layer of each biRNN and on each head before dec_act, with masks drawn from
+the generator in the order the half-iterations run (each half: the RNN's
+mask, then the head's). As in the reference, the last iteration's dec2 RNN
+has no inter-layer dropout; its head has.
 """
 from __future__ import annotations
 
@@ -22,6 +35,8 @@ import torch
 
 from ..kernels.conv_stack import fused_stack_apply_bf16
 from ..ops import conv1d as cv
+from ..ops import gru as rnn
+from ..ops.activations import activation
 from ..ops.interleave import deinterleave, interleave
 from ..utils.device import torch_dtype
 from .encoders import dense
@@ -46,7 +61,7 @@ def largecnn_init(gen: torch.Generator, cfg, device='cpu'):
     return {'iters': iters}
 
 
-def largecnn_apply(params, cfg, received, perms) -> torch.Tensor:
+def largecnn_apply(params, cfg, received, perms, training=False, generator=None) -> torch.Tensor:
     """received (B, L, 3) -> (B, L, 1) sigmoid bit estimates.
 
     perms holds 'p1' and its inverse 'p1_inv' as int64 tensors."""
@@ -94,14 +109,147 @@ def largecnn_apply(params, cfg, received, perms) -> torch.Tensor:
     return torch.sigmoid(deinterleave(logit, inv))
 
 
+def _rnn_iters_init(gen, cfg, device, n_in: int, kind: str):
+    """Per iteration two 2-layer biRNNs n_in -> 2 * dec_num_unit and two
+    heads to num_iter_ft, the last iteration's dec2 head to 1 (JAX
+    decoders.py:155-173, 357-372)."""
+    U, iters = cfg.dec_num_unit, []
+    for i in range(cfg.num_iteration):
+        last = i == cfg.num_iteration - 1
+        iters.append({
+            'dec1_rnn': rnn.birnn_init(gen, n_in, U, 2, kind, device),
+            'dec2_rnn': rnn.birnn_init(gen, n_in, U, 2, kind, device),
+            'dec1_lin': cv.linear_init(gen, 2 * U, cfg.num_iter_ft, device),
+            'dec2_lin': cv.linear_init(gen, 2 * U, 1 if last else cfg.num_iter_ft, device),
+        })
+    return {'iters': iters}
+
+
+def largernn_init(gen: torch.Generator, cfg, device='cpu'):
+    """DEC_LargeRNN (JAX decoders.py:155-173): biRNNs of kind cfg.dec_rnn."""
+    return _rnn_iters_init(gen, cfg, device, 2 + cfg.num_iter_ft, cfg.dec_rnn)
+
+
+def largernn_apply(params, cfg, received, perms, training=False, generator=None):
+    """DEC_LargeRNN (JAX decoders.py:176-241): dec_act on every head."""
+    dt = torch_dtype(cfg.dtype)
+    act = activation(cfg.dec_act)
+    p, inv = perms['p1'], perms['p1_inv']
+    drop = cfg.dropout if training and cfg.dropout > 0 and generator is not None else 0.0
+
+    def head(w_lin, h):
+        # the reference's dec_act(dropout(linear(...))) (decoders.py:103)
+        x = cv.linear_apply(w_lin, h, compute_dtype=dt)
+        return act(rnn.dropout(x, drop, generator) if drop else x)
+
+    def half_iter(w_rnn, w_lin, inputs, sub):
+        h = rnn.birnn_apply(w_rnn, inputs, cfg.dec_rnn, compute_dtype=dt, dropout=drop,
+                            generator=generator)
+        x_plr = head(w_lin, h)
+        return x_plr - sub if cfg.extrinsic else x_plr
+
+    r_sys, r_par1, r_par2 = received[:, :, 0:1], received[:, :, 1:2], received[:, :, 2:3]
+    r_sys_int = interleave(r_sys, p)
+    b, l, _ = received.shape
+    prior = torch.zeros((b, l, cfg.num_iter_ft), dtype=torch.float32, device=received.device)
+    *iters, final = params['iters']
+    for w in iters:
+        x_plr = half_iter(w['dec1_rnn'], w['dec1_lin'],
+                          torch.cat([r_sys, r_par1, prior], dim=2), prior)
+        x_plr_int = interleave(x_plr, p)
+        x_plr2 = half_iter(w['dec2_rnn'], w['dec2_lin'],
+                           torch.cat([r_sys_int, r_par2, x_plr_int], dim=2), x_plr_int)
+        prior = deinterleave(x_plr2, inv)
+    x_plr = half_iter(final['dec1_rnn'], final['dec1_lin'],
+                      torch.cat([r_sys, r_par1, prior], dim=2), prior)
+    x_plr_int = interleave(x_plr, p)
+    # the final dec2 RNN runs without inter-layer dropout (JAX :235-240)
+    h = rnn.birnn_apply(final['dec2_rnn'], torch.cat([r_sys_int, r_par2, x_plr_int], dim=2),
+                        cfg.dec_rnn, compute_dtype=dt)
+    return torch.sigmoid(deinterleave(head(final['dec2_lin'], h), inv))
+
+
+def largernn_rate2_init(gen: torch.Generator, cfg, device='cpu'):
+    """DEC_LargeRNN_rate2 (JAX decoders.py:354-372): GRUs of 1 + num_iter_ft
+    inputs."""
+    return _rnn_iters_init(gen, cfg, device, 1 + cfg.num_iter_ft, 'gru')
+
+
+def largernn_rate2_apply(params, cfg, received, perms, training=False, generator=None):
+    """DEC_LargeRNN_rate2 (JAX decoders.py:375-417): raw linear heads, no
+    dec_act; received is (B, L, 2) [sys, interleaved parity]."""
+    dt = torch_dtype(cfg.dtype)
+    p, inv = perms['p1'], perms['p1_inv']
+
+    def half(w_rnn, w_lin, inputs, sub):
+        h = rnn.bigru_apply(w_rnn, inputs, compute_dtype=dt)
+        x = cv.linear_apply(w_lin, h, compute_dtype=dt)
+        return x - sub if cfg.extrinsic else x
+
+    r_sys, r_int = received[:, :, 0:1], received[:, :, 1:2]
+    b, l, _ = received.shape
+    prior = torch.zeros((b, l, cfg.num_iter_ft), dtype=torch.float32, device=received.device)
+    *iters, final = params['iters']
+    for w in iters:
+        x_plr = half(w['dec1_rnn'], w['dec1_lin'], torch.cat([r_sys, prior], dim=2), prior)
+        x_int = interleave(x_plr, p)
+        x_plr2 = half(w['dec2_rnn'], w['dec2_lin'], torch.cat([r_int, x_int], dim=2), x_int)
+        prior = deinterleave(x_plr2, inv)
+    x_plr = half(final['dec1_rnn'], final['dec1_lin'], torch.cat([r_sys, prior], dim=2), prior)
+    x_int = interleave(x_plr, p)
+    h = rnn.bigru_apply(final['dec2_rnn'], torch.cat([r_int, x_int], dim=2), compute_dtype=dt)
+    logit = cv.linear_apply(final['dec2_lin'], h, compute_dtype=dt)
+    return torch.sigmoid(deinterleave(logit, inv))
+
+
+def nbcjr_init(gen: torch.Generator, cfg, device='cpu'):
+    """NeuralTurbofyDec (JAX decoders.py:437-442): one 2-layer biGRU of
+    code_rate_n + num_iter_ft - 1 inputs, its head and a final linear."""
+    U = cfg.dec_num_unit
+    return {'rnn': rnn.bigru_init(gen, cfg.code_rate_n + cfg.num_iter_ft - 1, U, 2, device),
+            'out': cv.linear_init(gen, 2 * U, cfg.num_iter_ft, device),
+            'final': cv.linear_init(gen, cfg.num_iter_ft, 1, device)}
+
+
+def nbcjr_apply(params, cfg, received, perms, training=False, generator=None):
+    """NeuralTurbofyDec (JAX decoders.py:445-481): the same weights every
+    iteration; the prior is subtracted when NOT cfg.extrinsic, the
+    reference's inversion (decoders.py:825)."""
+    dt = torch_dtype(cfg.dtype)
+    p, inv = perms['p1'], perms['p1_inv']
+
+    def half(inputs, sub):
+        h = rnn.bigru_apply(params['rnn'], inputs, compute_dtype=dt)
+        x = cv.linear_apply(params['out'], h, compute_dtype=dt)
+        return x - sub if not cfg.extrinsic else x
+
+    r_sys, r_par1, r_par2 = received[:, :, 0:1], received[:, :, 1:2], received[:, :, 2:3]
+    r_sys_int = interleave(r_sys, p)
+    b, l, _ = received.shape
+    prior = torch.zeros((b, l, cfg.num_iter_ft), dtype=torch.float32, device=received.device)
+    for _ in range(cfg.num_iteration - 1):
+        x_plr = half(torch.cat([r_sys, r_par1, prior], dim=2), prior)
+        x_int = interleave(x_plr, p)
+        prior = deinterleave(half(torch.cat([r_sys_int, r_par2, x_int], dim=2), x_int), inv)
+    x_plr = half(torch.cat([r_sys, r_par1, prior], dim=2), prior)
+    x_int = interleave(x_plr, p)
+    h = rnn.bigru_apply(params['rnn'], torch.cat([r_sys_int, r_par2, x_int], dim=2),
+                        compute_dtype=dt)
+    x_dec = cv.linear_apply(params['out'], h, compute_dtype=dt)
+    x_final = torch.sigmoid(cv.linear_apply(params['final'], x_dec, compute_dtype=dt))
+    return deinterleave(x_final, inv)
+
+
 DEC_REGISTRY = {
     'TurboAE_rate3_cnn': (largecnn_init, largecnn_apply),
     'TurboAE_rate3_cnn_dense': (largecnn_init, largecnn_apply),
+    'TurboAE_rate3_rnn': (largernn_init, largernn_apply),
+    'TurboAE_rate2_rnn': (largernn_rate2_init, largernn_rate2_apply),
+    'nbcjr_rate3': (nbcjr_init, nbcjr_apply),
 }
 
-# the JAX registry's other keys, by the ROADMAP item that ports them
+# the JAX registry's other keys, all of the CNN zoo's ROADMAP item M9
 UNPORTED_DECODERS = {
-    'TurboAE_rate3_rnn': 'M10', 'TurboAE_rate2_rnn': 'M10', 'nbcjr_rate3': 'M10',
     'TurboAE_rate3_cnn_2inter': 'M9', 'TurboAE_rate2_cnn': 'M9', 'rate3_cnn': 'M9',
     'TurboAE_rate3_cnn2d': 'M9', 'TurboAE_rate3_cnn2d_dense': 'M9', 'rate3_cnn2d': 'M9',
     'turboae_2int': 'M9',

@@ -1,10 +1,16 @@
-"""Encoders and their registry (JAX: models/encoders.py:37-79,349-376).
+"""Encoders and their registry (JAX: models/encoders.py:37-79,192-259,349-376).
 
 ENC_interCNN, the flagship's, in both conv flavours: 'TurboAE_rate3_cnn'
 with plain stacks and 'TurboAE_rate3_cnn_dense' with dense ones. Params:
 {'b1' | 'b2' | 'b3': {'cnn': [conv layers], 'lin': linear head}} in
 PyTorch's layout (see ops/conv1d.py). Bits x are (B, L, k) in {0, 1}; codes
-are (B, L, 3). The encoder's conv stacks run unfused, as in the JAX package.
+are (B, L, n). The encoder's conv stacks run unfused, as in the JAX package.
+
+The RNN encoders (ops/gru.py) have branches {'rnn': [biRNN layers],
+'lin': head from 2 * enc_num_unit}: 'Turboae_rate3_rnn' (three branches,
+cfg.enc_rnn), 'TurboAE_rate3_rnn_sys' (a hard systematic bit and two
+parity branches) and 'TurboAE_rate2_rnn' (two branches, always GRU). They
+read the raw bits, with no BPSK map, as the reference does.
 
 `make_encoder(cfg)` gives (init, apply) for cfg.encoder; DeepTurbo's fixed
 classical encoders come from models/deepturbo.py. A key of the JAX
@@ -16,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import conv1d as cv
+from ..ops import gru as rnn
 from ..ops.activations import activation
 from ..ops.interleave import interleave
 from ..ops.power import power_constraint
@@ -60,14 +67,66 @@ def intercnn_apply(params, cfg, x, perms, training=True, stats=None):
     return power_constraint(x_tx, cfg, training, stats)
 
 
+def _rnn_branch_init(gen, cfg, device, kind):
+    return {'rnn': rnn.birnn_init(gen, cfg.code_rate_k, cfg.enc_num_unit, cfg.enc_num_layer,
+                                  kind, device),
+            'lin': cv.linear_init(gen, 2 * cfg.enc_num_unit, 1, device)}
+
+
+def _rnn_branch_apply(p, cfg, x, kind):
+    dt = torch_dtype(cfg.dtype)
+    h = rnn.birnn_apply(p['rnn'], x, kind, compute_dtype=dt)
+    return activation(cfg.enc_act)(cv.linear_apply(p['lin'], h, compute_dtype=dt))
+
+
+def interrnn_init(gen: torch.Generator, cfg, device='cpu'):
+    """ENC_interRNN: three branches b1, b2, b3 (JAX encoders.py:204-208)."""
+    return {b: _rnn_branch_init(gen, cfg, device, cfg.enc_rnn) for b in ('b1', 'b2', 'b3')}
+
+
+def interrnn_apply(params, cfg, x, perms, training=True, stats=None):
+    """Raw bits into every branch, b3's interleaved (JAX :211-218)."""
+    x_sys = _rnn_branch_apply(params['b1'], cfg, x, cfg.enc_rnn)
+    x_p1 = _rnn_branch_apply(params['b2'], cfg, x, cfg.enc_rnn)
+    x_p2 = _rnn_branch_apply(params['b3'], cfg, interleave(x, perms['p1']), cfg.enc_rnn)
+    return power_constraint(torch.cat([x_sys, x_p1, x_p2], dim=2), cfg, training, stats)
+
+
+def interrnn_sys_init(gen: torch.Generator, cfg, device='cpu'):
+    """ENC_interRNN_sys: two parity branches b1, b2 (JAX :221-225)."""
+    return {b: _rnn_branch_init(gen, cfg, device, cfg.enc_rnn) for b in ('b1', 'b2')}
+
+
+def interrnn_sys_apply(params, cfg, x, perms, training=True, stats=None):
+    """[2x - 1, power_constraint(parity)] (JAX :228-236)."""
+    x_p1 = _rnn_branch_apply(params['b1'], cfg, x, cfg.enc_rnn)
+    x_p2 = _rnn_branch_apply(params['b2'], cfg, interleave(x, perms['p1']), cfg.enc_rnn)
+    x_tx, stats = power_constraint(torch.cat([x_p1, x_p2], dim=2), cfg, training, stats)
+    return torch.cat([2.0 * x - 1.0, x_tx], dim=2), stats
+
+
+def rate2rnn_init(gen: torch.Generator, cfg, device='cpu'):
+    """ENC_turbofy_rate2: two GRU branches b1, b2 (JAX :239-247)."""
+    return {b: _rnn_branch_init(gen, cfg, device, 'gru') for b in ('b1', 'b2')}
+
+
+def rate2rnn_apply(params, cfg, x, perms, training=True, stats=None):
+    """[b1(x), b2(interleave(x))] (JAX :250-257)."""
+    x_sys = _rnn_branch_apply(params['b1'], cfg, x, 'gru')
+    x_p2 = _rnn_branch_apply(params['b2'], cfg, interleave(x, perms['p1']), 'gru')
+    return power_constraint(torch.cat([x_sys, x_p2], dim=2), cfg, training, stats)
+
+
 ENC_REGISTRY = {
     'TurboAE_rate3_cnn': (intercnn_init, intercnn_apply),
     'TurboAE_rate3_cnn_dense': (intercnn_init, intercnn_apply),
+    'Turboae_rate3_rnn': (interrnn_init, interrnn_apply),
+    'TurboAE_rate3_rnn_sys': (interrnn_sys_init, interrnn_sys_apply),
+    'TurboAE_rate2_rnn': (rate2rnn_init, rate2rnn_apply),
 }
 
-# the JAX registry's other keys, by the ROADMAP item that ports them
+# the JAX registry's other keys, all of the CNN zoo's ROADMAP item M9
 UNPORTED_ENCODERS = {
-    'Turboae_rate3_rnn': 'M10', 'TurboAE_rate3_rnn_sys': 'M10', 'TurboAE_rate2_rnn': 'M10',
     'TurboAE_rate2_cnn': 'M9', 'rate3_cnn': 'M9', 'rate2_cnn': 'M9', 'turboae_2int': 'M9',
     'TurboAE_rate3_cnn2d': 'M9', 'TurboAE_rate3_cnn2d_dense': 'M9', 'rate3_cnn2d': 'M9',
 }

@@ -12,12 +12,19 @@ the empty state of optax's learning-rate scaling. Lookahead over Adam
   {'inner': {'0': Adam's state, '1': {}}, 'slow': a tree shaped like the
    half's params, 'count': int32 0-d}.
 A fixed encoder (DeepTurbo's) has the empty half params/enc = {} and the
-state {'0': {'count', 'mu': {}, 'nu': {}}, '1': {}}. The JAX training
+state {'0': {'count', 'mu': {}, 'nu': {}}, '1': {}}.
+
+FTAE's params have no halves: its optimizer state's 'enc' steps the forward
+encoders {'fwd_enc1', 'fwd_enc2', 'fwd_enc3'} and its 'dec' the feedback
+encoders and the decoder {'fb_enc1', 'fb_enc2', 'dec'} (JAX
+train/ftae_trainer.py:26-27), each moment a tree of those keys. The JAX training
 scripts store the epoch in 'step' (scripts/train_flagship.py:245); the
 port's CLIs do too.
 
 Port side, params are the port's param tree and an optimizer state is
-{'enc' | 'dec': optimizer.state()}, lists in tree_leaves order of that half.
+{'enc' | 'dec': optimizer.state()}, lists in tree_leaves order of that
+half's params (`groups`). A moment tree read from a file is put in the
+params' key order before its leaves are listed.
 
 `load_checkpoint` merges only the leaves whose paths and shapes match the
 template (the reference's strict=False load, main.py:168-174) and counts
@@ -30,23 +37,33 @@ from typing import Any, Optional
 import numpy as np
 
 from ..utils.tree import tree_leaves, tree_unflatten
-from .convert import from_jax, half_from_jax, half_to_jax, to_jax
+from .convert import from_jax, to_jax
 from .msgpack_io import load_msgpack, save_msgpack
 
 _MOMENTS = ('mu', 'nu', 'trace')
+FTAE_GROUPS = {'enc': ('fwd_enc1', 'fwd_enc2', 'fwd_enc3'),
+               'dec': ('fb_enc1', 'fb_enc2', 'dec')}
+
+
+def groups(params) -> dict:
+    """{'enc' | 'dec': the params one optimizer steps}: the AE's halves, or
+    FTAE's forward encoders and the rest."""
+    if 'fwd_enc1' in params:
+        return {h: {k: params[k] for k in keys} for h, keys in FTAE_GROUPS.items()}
+    return {h: params[h] for h in ('enc', 'dec')}
 
 
 def _opt_to_jax(half: str, params_half, state: dict) -> dict:
     if 'inner' in state:                    # Lookahead
         return {'inner': _opt_to_jax(half, params_half, state['inner']),
-                'slow': half_to_jax(half, tree_unflatten(params_half, state['slow'])),
+                'slow': to_jax(tree_unflatten(params_half, state['slow'])),
                 'count': np.asarray(state['count'], np.int32)}
     inner = {}
     for k, v in state.items():
         if k == 'count':
             inner[k] = np.asarray(v, np.int32)
         elif k in _MOMENTS:
-            inner[k] = half_to_jax(half, tree_unflatten(params_half, v))
+            inner[k] = to_jax(tree_unflatten(params_half, v))
         else:
             raise ValueError(f'unknown optimizer state entry {k!r}')
     return {'0': inner, '1': {}}
@@ -57,7 +74,8 @@ def save_checkpoint(path: str, params: Any, opt_state: Optional[dict] = None,
     """Write params (port tree), the optimizer state of each half and step."""
     payload = {'params': to_jax(params), 'step': int(step)}
     if opt_state is not None:
-        payload['opt_state'] = {h: _opt_to_jax(h, params[h], s) for h, s in opt_state.items()}
+        g = groups(params)
+        payload['opt_state'] = {h: _opt_to_jax(h, g[h], s) for h, s in opt_state.items()}
     save_msgpack(path, payload)
 
 
@@ -88,9 +106,21 @@ def _merge(tpl, got, stats: dict):
     return keep(tpl)
 
 
+def _like(tpl, tree):
+    """`tree` with its dicts' keys in `tpl`'s order (a missing key raises)."""
+    if isinstance(tpl, dict):
+        return {k: _like(v, tree[k]) for k, v in tpl.items()}
+    if isinstance(tpl, (list, tuple)):
+        return [_like(a, b) for a, b in zip(tpl, tree)]
+    return tree
+
+
 def _moments_from_jax(half: str, what: str, tree, params_half, device) -> list:
     """A tree shaped like the half's params, as a list in tree_leaves order."""
-    out = tree_leaves(half_from_jax(half, tree, device))
+    try:
+        out = tree_leaves(_like(params_half, from_jax(tree, device)))
+    except (KeyError, TypeError) as e:
+        raise ValueError(f'{half} {what}: the tree does not match the params ({e!r})')
     if [tuple(t.shape) for t in out] != [tuple(t.shape) for t in tree_leaves(params_half)]:
         raise ValueError(f'{half} {what}: the shapes do not match the params')
     return out
@@ -134,7 +164,8 @@ def load_checkpoint(path: str, params_template: Any, opt_state_template: Optiona
         device = tree_leaves(params_template)[0].device
     params = from_jax(_merge(to_jax(params_template), loaded, stats), device)
     if opt_state_template is not None and 'opt_state' in payload:
-        opt = {h: _opt_from_jax(h, payload['opt_state'][h], params[h], t, device)
+        g = groups(params)
+        opt = {h: _opt_from_jax(h, payload['opt_state'][h], g[h], t, device)
                for h, t in opt_state_template.items()}
         return params, opt, payload.get('step', 0)
     return params

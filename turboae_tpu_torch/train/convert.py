@@ -1,17 +1,23 @@
 """Parameter conversion between the JAX package's layout and the port's.
 
-JAX params (a nested dict of arrays, as `init_ae` makes them or as a msgpack
+JAX params (a nested dict of arrays, as its inits make them or as a msgpack
 checkpoint holds them, where lists appear as dicts keyed '0', '1', ...):
-  enc/b{1,2,3}/cnn/<j>/{w (K, Cin, Cout), b}, enc/b{1,2,3}/lin/{w (in, out), b}
-  dec/scan/{dec1,dec2}_{cnn/<j>,lin}/...  stacked over the first n-1 iterations
-  dec/final/...                           the last iteration
-where a dense stack's layer j has Cin + j * Cout input channels, and a fixed
-encoder (DeepTurbo's) has the empty half enc = {}.
-Port params: the same tree with conv weights (Cout, Cin, K), linear weights
-(out, in), lists as lists, and the decoder as dec/iters/[it_0 .. it_{n-1}].
+  - a conv layer {w (K, Cin, Cout), b}; a linear head {w (in, out), b};
+  - one direction of an RNN layer {w_ih (In, G*H), w_hh (H, G*H), b_ih, b_hh};
+  - an iterative decoder {'scan': <iteration tree stacked over the first
+    n-1 iterations>, 'final': <the last iteration>}, the scan's entries None
+    when n = 1;
+  - every other node (branches, FTAE's phase encoders with their 'pw' (L, 1)
+    and 'ps' () leaves, nbcjr's and FTAE's flat decoders) as it is.
+The AE's tree is {'enc', 'dec'} (a fixed encoder's half is {}); FTAE's is
+{'fwd_enc1', 'fwd_enc2', 'fwd_enc3', 'fb_enc1', 'fb_enc2', 'dec'}.
+Port params: the same trees with conv weights (Cout, Cin, K), linear and RNN
+weights (out, in), lists as lists, and an iterative decoder as
+{'iters': [it_0 .. it_{n-1}]}. A dict's keys come out in one fixed order
+(_ORDER: the order the port's inits write), whatever order the file has.
 `from_jax` and `to_jax` are exact inverses: a round trip is bit-identical.
-`half_from_jax` and `half_to_jax` convert one half, as an optimizer state
-of one phase (a tree of moments shaped like that half's params) needs.
+They take any subtree, as an optimizer state of one phase (a tree of
+moments shaped like that phase's params) needs.
 """
 from __future__ import annotations
 
@@ -20,13 +26,27 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
-_DEC_KEYS = ('dec1_cnn', 'dec2_cnn', 'dec1_lin', 'dec2_lin')
+_RNN_DIR = ('w_ih', 'w_hh', 'b_ih', 'b_hh')
+_ORDER = {k: i for i, k in enumerate((
+    'enc', 'fwd_enc1', 'fwd_enc2', 'fwd_enc3', 'fb_enc1', 'fb_enc2', 'dec',
+    'iters', 'dec1_cnn', 'dec2_cnn', 'dec1_rnn', 'dec2_rnn', 'dec1_lin', 'dec2_lin',
+    'dec1', 'dec2', 'lin1', 'lin2', 'cnn', 'rnn', 'lin', 'out', 'pw', 'ps', 'final',
+    'fwd', 'bwd', *_RNN_DIR, 'w', 'b'))}
+
+
+def _sorted_keys(d) -> List[str]:
+    return sorted(d, key=lambda k: (_ORDER.get(k, len(_ORDER)), k))
 
 
 def _as_list(tree) -> List[Any]:
     if isinstance(tree, dict):
         return [tree[str(i)] for i in range(len(tree))]
     return list(tree)
+
+
+def _is_list(tree) -> bool:
+    return isinstance(tree, (list, tuple)) or (
+        isinstance(tree, dict) and len(tree) > 0 and set(tree) == {str(i) for i in range(len(tree))})
 
 
 def _t(a, device) -> torch.Tensor:
@@ -51,48 +71,47 @@ def _lin_from(lin, device, i=None):
     return {'w': _t(w, device).t().contiguous(), 'b': _t(b, device)}
 
 
-def _iter_from(tree, device, i=None) -> Dict[str, Any]:
-    return {
-        'dec1_cnn': [_conv_from(l, device, i) for l in _as_list(tree['dec1_cnn'])],
-        'dec2_cnn': [_conv_from(l, device, i) for l in _as_list(tree['dec2_cnn'])],
-        'dec1_lin': _lin_from(tree['dec1_lin'], device, i),
-        'dec2_lin': _lin_from(tree['dec2_lin'], device, i),
-    }
+def _from(tree, device, i=None):
+    """A JAX node (iteration i of a stacked one) in the port's layout."""
+    if tree is None:
+        return None
+    if _is_list(tree):
+        return [_from(v, device, i) for v in _as_list(tree)]
+    if isinstance(tree, dict):
+        if set(tree) == {'w', 'b'}:
+            conv = np.ndim(tree['w']) - (i is not None) == 3
+            return (_conv_from if conv else _lin_from)(tree, device, i)
+        if set(tree) == set(_RNN_DIR):
+            out = {}
+            for k in _RNN_DIR:
+                a = np.asarray(tree[k]) if i is None else np.asarray(tree[k])[i]
+                out[k] = _t(a, device).t().contiguous() if k.startswith('w') else _t(a, device)
+            return out
+        if set(tree) == {'scan', 'final'} and isinstance(tree['final'], dict) \
+                and 'w' not in tree['final']:
+            scan = tree['scan']
+            stacked = _leaves(scan)
+            n_scan = np.asarray(stacked[0]).shape[0] if stacked else 0
+            return {'iters': [_from(scan, device, j) for j in range(n_scan)]
+                    + [_from(tree['final'], device)]}
+        return {k: _from(tree[k], device, i) for k in _sorted_keys(tree)}
+    a = np.asarray(tree)
+    return _t(a if i is None else a[i], device)
 
 
-def half_from_jax(half: str, tree, device='cpu'):
-    """One half ('enc' or 'dec') of a JAX param tree in the port's layout."""
-    if half == 'enc':
-        return {name: {'cnn': [_conv_from(l, device) for l in _as_list(br['cnn'])],
-                       'lin': _lin_from(br['lin'], device)}
-                for name, br in tree.items()}
-    scan = tree['scan']
-    n_scan = 0
-    if scan is not None and scan.get('dec1_lin') is not None:
-        n_scan = np.asarray(scan['dec1_lin']['w']).shape[0]
-    iters = [_iter_from(scan, device, i) for i in range(n_scan)]
-    iters.append(_iter_from(tree['final'], device))
-    return {'iters': iters}
+def _leaves(tree) -> List[Any]:
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [a for v in tree.values() for a in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [a for v in tree for a in _leaves(v)]
+    return [tree]
 
 
-def from_jax(params, device='cpu') -> Dict[str, Any]:
-    """JAX param tree -> port param tree of f32 tensors on `device`."""
-    return {h: half_from_jax(h, params[h], device) for h in ('enc', 'dec')}
-
-
-def _conv_to(layer):
-    return {'w': _n(layer['w'].permute(2, 1, 0)), 'b': _n(layer['b'])}
-
-
-def _lin_to(lin):
-    return {'w': _n(lin['w'].t()), 'b': _n(lin['b'])}
-
-
-def _iter_to(it):
-    return {'dec1_cnn': [_conv_to(l) for l in it['dec1_cnn']],
-            'dec2_cnn': [_conv_to(l) for l in it['dec2_cnn']],
-            'dec1_lin': _lin_to(it['dec1_lin']),
-            'dec2_lin': _lin_to(it['dec2_lin'])}
+def from_jax(tree, device='cpu') -> Dict[str, Any]:
+    """JAX param tree (or subtree) -> port tree of f32 tensors on `device`."""
+    return _from(tree, device)
 
 
 def _stack(trees):
@@ -103,16 +122,23 @@ def _stack(trees):
     return np.stack(trees)
 
 
-def half_to_jax(half: str, tree):
-    """One half ('enc' or 'dec') of a port param tree in the JAX layout."""
-    if half == 'enc':
-        return {name: {'cnn': [_conv_to(l) for l in br['cnn']], 'lin': _lin_to(br['lin'])}
-                for name, br in tree.items()}
-    *scan_iters, final = [_iter_to(it) for it in tree['iters']]
-    scan = _stack(scan_iters) if scan_iters else {k: None for k in _DEC_KEYS}
-    return {'scan': scan, 'final': final}
+def _to(tree):
+    if isinstance(tree, list):
+        return [_to(v) for v in tree]
+    if isinstance(tree, dict):
+        if set(tree) == {'iters'}:
+            *scan_iters, final = [_to(it) for it in tree['iters']]
+            scan = _stack(scan_iters) if scan_iters else {k: None for k in final}
+            return {'scan': scan, 'final': final}
+        if set(tree) == {'w', 'b'}:
+            w = tree['w']
+            return {'w': _n(w.permute(2, 1, 0) if w.dim() == 3 else w.t()), 'b': _n(tree['b'])}
+        if set(tree) == set(_RNN_DIR):
+            return {k: _n(tree[k].t() if k.startswith('w') else tree[k]) for k in _RNN_DIR}
+        return {k: _to(v) for k, v in tree.items()}
+    return _n(tree)
 
 
-def to_jax(params) -> Dict[str, Any]:
-    """Port param tree -> JAX param tree of numpy arrays (lists as lists)."""
-    return {h: half_to_jax(h, params[h]) for h in ('enc', 'dec')}
+def to_jax(tree) -> Dict[str, Any]:
+    """Port param tree (or subtree) -> JAX tree of numpy arrays (lists as lists)."""
+    return _to(tree)
