@@ -100,6 +100,31 @@ Phases, each printing one JSON line:
                with -dec_type turboae_rnn for one epoch at full width and
                block_len 50, finite and falling; the turboae_sharedcnn and
                cnn decoders' forwards, card against CPU, f32 within 1e-4;
+  cnn_zoo_forward  path 14: the rest of the CNN zoo at full width from one
+               seeded init a pair (batch 64, 0 dB; the 2D codes at img_size
+               10): the two-interleaver, rate-2, no-interleaver and 2D pairs,
+               every key of ROADMAP M9; f32 card against CPU within 1e-4
+               relative, bf16 with the fused decoder asked for decisions
+               > 99 % agreeing, 0 K2 launches (JAX fuses none of them);
+  cnn_zoo_train  path 15: a joint f32 step of each pair card against CPU
+               (rnn_train's tolerances); one cli/main.py epoch of the 2D pair
+               in f32 at lr 1e-4 (batch 100, 10 encoder and 50 decoder steps):
+               finite, below the untrained 0.69, its train blocks/s;
+  mod_curve    path 16: artifacts/mod_ae.msgpack (the joint coding +
+               modulation AE) through ModTrainer.test in f32, batch 2000,
+               20,000 blocks a point at -2..2 dB, held by the BLER z test to
+               the exact counts of artifacts/mod_tr2.out's closing test
+               (50,000 blocks a point); blocks/s; 0 K2 launches;
+  mod_forward  path 17: its forward on host-drawn bits and symbol noise, f32
+               card against CPU within 1e-4; bf16 with K2 carrying the
+               decoder's 12 stacks against bf16 unfused, decisions > 99 %
+               agreeing, exactly 12 launches;
+  mod_resume   path 18: mod_ae.msgpack with its four Adam states resumed for
+               one epoch of its last leg (lr 1e-4, batch 500, 1/5/1/5
+               encoder/decoder/mod/demod phase-epochs of 20 steps): each
+               count up by its steps, each loss below MOD_LOSS_MAX; then
+               cli/main_modulation.py from its params for one epoch, whose
+               checkpoint has the file's layout;
   train_times  the port of bench.py (cli/bench_train.py), fused on and off;
   conv_stack_bench  path 7: the port of scripts/bench_conv_stack.py, the only
                path of K1, with its launches read around it;
@@ -173,6 +198,35 @@ RNN_NUM_BLOCK = 1000
 FTAE_POINTS = (-2.0, -1.0, 0.0, 1.0)  # 2 dB expects ~2 block errors at 20,000
 FTAE_NUM_BLOCK = 5000               # the cli/ftae_main.py epoch: 10 steps at batch 500
 FTAE_BATCH = 500
+# the CNN zoo's pairs (encoder, decoder, code_rate_n): every key the port
+# gained in ROADMAP M9, the 2D ones at the Config's img_size 10
+ZOO_PAIRS = (('turboae_2int', 'turboae_2int', 3),
+             ('TurboAE_rate3_cnn', 'TurboAE_rate3_cnn_2inter', 3),
+             ('TurboAE_rate2_cnn', 'TurboAE_rate2_cnn', 2),
+             ('rate2_cnn', 'TurboAE_rate2_cnn', 2),
+             ('rate3_cnn', 'rate3_cnn', 3),
+             ('TurboAE_rate3_cnn2d', 'TurboAE_rate3_cnn2d', 3),
+             ('TurboAE_rate3_cnn2d_dense', 'TurboAE_rate3_cnn2d_dense', 3),
+             ('rate3_cnn2d', 'rate3_cnn2d', 3))
+ZOO_NUM_BLOCK = 1000                # the cli/main.py epoch: 10 steps at batch 100
+ZOO_BATCH = 100
+ZOO_EPOCH_LOSS_MAX = 0.69           # the untrained BCE, log 2; fixed before the first card run
+# The 2D pair's epoch runs at lr 1e-4: at the Config's 1e-3 its decoder
+# epochs diverge past log 2 in the JAX package on the CPU as on the card
+# (JAX: 0.8899 then 7.366 in the first two decoder epochs; PERF.md §6)
+ZOO_LR = '1e-4'
+MOD_POINTS = (-2.0, -1.0, 0.0, 1.0, 2.0)
+MOD_REF_BLOCKS = 50000              # the blocks a point of mod_tr2.out's test (RESULTS.md Round 3)
+# artifacts/mod_ae.msgpack's last leg (artifacts/mod_tr2.out, epochs
+# 141-400): every lr 1e-4, batch 500, 10,000 blocks an epoch of each phase
+MOD_RECIPE = dict(enc_lr=1e-4, dec_lr=1e-4, mod_lr=1e-4, demod_lr=1e-4, batch_size=500,
+                  num_block=10000)
+# Each phase's epoch loss after one resumed epoch of that recipe must lie
+# below this; fixed before the first card run: the log's epochs 397-400
+# give 0.00114-0.00121 (enc), 0.0090-0.0096 (dec), 0.0087-0.0090 (mod),
+# 0.0089-0.0098 (demod).
+MOD_LOSS_MAX = 0.02
+MOD_CLI_NUM_BLOCK = 1000            # the cli/main_modulation.py run: 2 steps an epoch
 
 
 def emit(phase: str, **fields):
@@ -389,6 +443,13 @@ def main() -> int:
     paths['rnn_train'] = rnn_train_phase(dev, gen)
     paths['ftae_curve'] = ftae_curve_phase(dev)
     paths['ftae_train'] = ftae_train_phase(dev, gen)
+
+    # ---- the CNN zoo (paths 14, 15) and the modulation AE (paths 16-18) ----
+    paths['cnn_zoo_forward'] = cnn_zoo_forward_phase(dev, gen)
+    paths['cnn_zoo_train'] = cnn_zoo_train_phase(dev, gen)
+    paths['mod_curve'] = mod_curve_phase(dev)
+    paths['mod_forward'] = mod_forward_phase(dev, gen)
+    paths['mod_resume'] = mod_resume_phase(dev)
 
     # ---- times: each kernel, its plain version, a library yardstick, its bound ----
     sweep_layers = crown['dec']['iters'][0]['dec1_cnn']
@@ -981,7 +1042,6 @@ def rnn_train_phase(dev, gen, batch=PARITY_BATCH):
     """A joint f32 step of the rate-3 RNN pair, card against CPU; the head
     dropout's share; one epoch through cli/main.py. Returns the kernels'
     launch counts of the epoch."""
-    import tempfile
     from turboae_tpu_torch.channels.noise import train_sigma
     from turboae_tpu_torch.cli import main as cli_main
     from turboae_tpu_torch.config import Config
@@ -1024,47 +1084,20 @@ def rnn_train_phase(dev, gen, batch=PARITY_BATCH):
                'sigma': math.sqrt(0.3 * 0.7 / n)}
 
     # one epoch of the pair through cli/main.py, f32; the training epochs timed
-    timed = {'seconds': 0.0, 'blocks': 0}
-    epoch_fn = trainer_mod.Trainer.train_epoch
-
-    def timed_epoch(self, *a, **kw):
-        sync(dev)
-        t0 = time.perf_counter()
-        out = epoch_fn(self, *a, **kw)
-        sync(dev)
-        timed['seconds'] += time.perf_counter() - t0
-        timed['blocks'] += max(1, self.cfg.num_block // self.cfg.batch_size) * self.cfg.batch_size
-        return out
-    with tempfile.TemporaryDirectory() as tmp:
-        log = os.path.join(tmp, 'metrics.jsonl')
-        argv = ['-encoder', 'Turboae_rate3_rnn', '-decoder', 'TurboAE_rate3_rnn',
-                '-num_epoch', '1', '-num_block', str(RNN_NUM_BLOCK), '-log_jsonl', log,
-                '--device', str(dev)]
-        cwd = os.getcwd()
-        os.chdir(tmp)
-        trainer_mod.Trainer.train_epoch = timed_epoch
-        try:
-            sync(dev)
-            reset_counts()
-            t0 = time.perf_counter()
-            trainer = cli_main.main(argv)
-            sync(dev)
-            seconds = time.perf_counter() - t0
-            counts = read_counts()
-        finally:
-            trainer_mod.Trainer.train_epoch = epoch_fn
-            os.chdir(cwd)
-        with open(log) as f:
-            epoch = [r for r in map(json.loads, f) if r['event'] == 'epoch']
-    emit('rnn_train', step=step, dropout=dropout, epoch=epoch, loss_max=RNN_EPOCH_LOSS_MAX,
-         cli_seconds=seconds, train_seconds=timed['seconds'],
-         train_blocks_per_s=timed['blocks'] / timed['seconds'],
-         test_ber=trainer.last_test['ber'], launches=counts, card=nvidia_smi())
+    argv = ['-encoder', 'Turboae_rate3_rnn', '-decoder', 'TurboAE_rate3_rnn',
+            '-num_epoch', '1', '-num_block', str(RNN_NUM_BLOCK), '--device', str(dev)]
+    trainer, seconds, train_s, blocks, losses, counts, _ = timed_cli(
+        dev, trainer_mod.Trainer, cli_main.main, argv)
+    emit('rnn_train', step=step, dropout=dropout, epoch_losses=losses,
+         loss_max=RNN_EPOCH_LOSS_MAX, cli_seconds=seconds, train_seconds=train_s,
+         train_blocks_per_s=blocks / train_s, test_ber=trainer.last_test['ber'],
+         launches=counts, card=nvidia_smi())
     check(step['loss_rel'] < 1e-4, f'rnn_train step: loss differs from the CPU {step}')
     check(step['grad_rel'] < 1e-3, f'rnn_train step: gradients differ from the CPU {step}')
     check(abs(share - 0.3) < 4 * dropout['sigma'], f'rnn_train: dropout share {dropout}')
-    check(len(epoch) == 1 and math.isfinite(epoch[0]['loss']) and
-          epoch[0]['loss'] < RNN_EPOCH_LOSS_MAX, f'rnn_train: epoch {epoch}')
+    # the epoch's loss, as cli/main.py logs it: its last decoder epoch's
+    check(len(losses) == 6 and all(math.isfinite(v) for v in losses) and
+          losses[-1] < RNN_EPOCH_LOSS_MAX, f'rnn_train: epoch losses {losses}')
     check(counts['conv_stack_bf16'] == 0, 'rnn_train: K2 launched')
     return counts
 
@@ -1123,7 +1156,6 @@ def ftae_train_phase(dev, gen, batch=PARITY_BATCH):
     """An f32 step of each phase from ftae_pa.msgpack's params, card against
     CPU; one epoch of cli/ftae_main with the turboae_rnn decoder; the
     sharedcnn and cnn decoders' forwards. Returns the epoch's launch counts."""
-    import tempfile
     from turboae_tpu_torch.channels.noise import train_sigma
     from turboae_tpu_torch.cli import ftae_main
     from turboae_tpu_torch.config import Config
@@ -1176,38 +1208,13 @@ def ftae_train_phase(dev, gen, batch=PARITY_BATCH):
                               'codes_max_abs_diff': (g_codes.cpu() - c_codes).abs().max().item()}
 
     # one epoch through the CLI: 10 encoder steps, 5 x 10 decoder steps
-    losses, timed = [], {'seconds': 0.0, 'blocks': 0}
-    epoch_fn = ftae_trainer.FTAETrainer.train_epoch
-
-    def timed_epoch(self, *a, **kw):
-        sync(dev)
-        t0 = time.perf_counter()
-        out = epoch_fn(self, *a, **kw)
-        sync(dev)
-        timed['seconds'] += time.perf_counter() - t0
-        timed['blocks'] += max(1, self.cfg.num_block // self.cfg.batch_size) * self.cfg.batch_size
-        losses.append(out)
-        return out
     argv = ['-dec_type', 'turboae_rnn', '-block_len', '50', '-num_epoch', '1',
             '-num_block', str(FTAE_NUM_BLOCK), '-batch_size', str(FTAE_BATCH), '--device', str(dev)]
-    with tempfile.TemporaryDirectory() as tmp:
-        cwd = os.getcwd()
-        os.chdir(tmp)
-        ftae_trainer.FTAETrainer.train_epoch = timed_epoch
-        try:
-            sync(dev)
-            reset_counts()
-            t0 = time.perf_counter()
-            ftae_main.main(argv)
-            sync(dev)
-            seconds = time.perf_counter() - t0
-            counts = read_counts()
-            saved = [f for f in os.listdir(os.path.join(tmp, 'tmp')) if f.startswith('ftae_model_')]
-        finally:
-            ftae_trainer.FTAETrainer.train_epoch = epoch_fn
-            os.chdir(cwd)
+    _, seconds, train_s, blocks, losses, counts, saved = timed_cli(
+        dev, ftae_trainer.FTAETrainer, ftae_main.main, argv)
+    saved = [f for f in saved if f.startswith('ftae_model_')]
     emit('ftae_train', steps=steps, forwards=forwards, epoch_losses=losses, cli_seconds=seconds,
-         train_seconds=timed['seconds'], train_blocks_per_s=timed['blocks'] / timed['seconds'],
+         train_seconds=train_s, train_blocks_per_s=blocks / train_s,
          saved=saved, launches=counts, card=nvidia_smi())
     for mode, st in steps.items():
         check(st['loss_rel'] < 1e-4, f'ftae_train {mode} step: loss differs from the CPU {st}')
@@ -1220,6 +1227,313 @@ def ftae_train_phase(dev, gen, batch=PARITY_BATCH):
     check(len(saved) == 1, 'ftae_train: no checkpoint saved')
     check(counts['conv_stack_bf16'] == 0, 'ftae_train: K2 launched')
     return counts
+
+
+def timed_cli(dev, cls, main, argv):
+    """main(argv) in a temporary working directory, each cls.train_epoch of
+    the run timed between synchronisations; returns (main's result, the run's
+    seconds, the training epochs' seconds, their blocks, their losses, the
+    kernels' launch counts of the run, the checkpoints saved under ./tmp,
+    read back)."""
+    import tempfile
+    from turboae_tpu_torch.train.msgpack_io import load_msgpack
+    timed = {'seconds': 0.0, 'blocks': 0, 'losses': []}
+    epoch_fn = cls.train_epoch
+
+    def timed_epoch(self, *a, **kw):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = epoch_fn(self, *a, **kw)
+        sync(dev)
+        timed['seconds'] += time.perf_counter() - t0
+        timed['blocks'] += max(1, self.cfg.num_block // self.cfg.batch_size) * self.cfg.batch_size
+        timed['losses'].append(out)
+        return out
+    with tempfile.TemporaryDirectory() as tmp:
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        cls.train_epoch = timed_epoch
+        try:
+            sync(dev)
+            reset_counts()
+            t0 = time.perf_counter()
+            result = main(argv)
+            sync(dev)
+            seconds = time.perf_counter() - t0
+            counts = read_counts()
+            saved_dir = os.path.join(tmp, 'tmp')
+            saved = {f: load_msgpack(os.path.join(saved_dir, f))
+                     for f in sorted(os.listdir(saved_dir))} if os.path.isdir(saved_dir) else {}
+        finally:
+            cls.train_epoch = epoch_fn
+            os.chdir(cwd)
+    return result, seconds, timed['seconds'], timed['blocks'], timed['losses'], counts, saved
+
+
+def cnn_zoo_forward_phase(dev, gen, batch=PARITY_BATCH):
+    """The CNN zoo at full width from one seeded init a pair, card against
+    CPU on host-drawn bits and noise (0 dB): f32 within 1e-4 relative; bf16,
+    with the fused decoder asked for (none of these decoders takes it, as in
+    JAX), decisions > 99 % agreeing. Returns the card's launch counts."""
+    from turboae_tpu_torch.config import Config
+    from turboae_tpu_torch.models.channel_ae import forward_ae, init_ae, make_perms
+    from turboae_tpu_torch.train.sweep import params_to
+    from turboae_tpu_torch.utils.metrics import snr_db2sigma
+    cases, counts = [], {'conv_stack_bf16': 0, 'conv_stack_f32': 0}
+
+    def fwd(params, c, bits, noise, where):
+        with torch.inference_mode():
+            return forward_ae(params, c, bits.to(where), noise.to(where), make_perms(c, where),
+                              training=False)[0].cpu()
+    for enc, dec, n in ZOO_PAIRS:
+        cfg = Config(encoder=enc, decoder=dec, code_rate_n=n)
+        params = init_ae(torch.Generator().manual_seed(0), cfg)
+        params_d = params_to(params, dev)
+        bits = (torch.rand((batch, 100, 1), generator=gen) < 0.5).float()
+        noise = snr_db2sigma(0.0) * torch.randn((batch, 100, n), generator=gen)
+        case = {'encoder': enc, 'decoder': dec}
+        for dtype, fused in (('float32', False), ('bfloat16', True)):
+            c = cfg.replace(dtype=dtype, use_fused_conv=fused)
+            sync(dev)
+            reset_counts()
+            g_out = fwd(params_d, c, bits, noise, dev)
+            sync(dev)
+            for k, v in read_counts().items():
+                counts[k] += v
+            c_out = fwd(params, c, bits, noise, 'cpu')
+            check(g_out.shape == (batch, 100, 1) and bool(torch.isfinite(g_out).all()),
+                  f'{enc}+{dec} {dtype}: shape or non-finite values')
+            case[dtype] = {'max_rel_diff': rel_diff(g_out, c_out),
+                           'decision_agreement': (g_out.round() == c_out.round()).float()
+                           .mean().item(),
+                           'ber_gpu': (g_out.round() != bits).float().mean().item()}
+        cases.append(case)
+    emit('cnn_zoo_forward', batch=batch, snr_db=0.0, cases=cases, launches=counts)
+    for c in cases:
+        name = f"{c['encoder']}+{c['decoder']}"
+        check(c['float32']['max_rel_diff'] < 1e-4, f'{name}: f32 differs from the CPU {c}')
+        check(c['bfloat16']['decision_agreement'] > 0.99, f'{name}: bf16 decisions differ {c}')
+    check(counts['conv_stack_bf16'] == 0, 'cnn_zoo_forward: K2 launched')
+    return counts
+
+
+def cnn_zoo_train_phase(dev, gen, batch=PARITY_BATCH):
+    """A joint f32 step of each CNN zoo pair, card against CPU (loss 1e-4,
+    gradients 1e-3 of each leaf's largest); one cli/main.py epoch of the 2D
+    pair in f32 at lr ZOO_LR (10 encoder, 50 decoder steps at batch 100):
+    every phase-epoch's loss finite, the last below the untrained 0.69, its
+    train blocks/s. Returns the epoch's launch counts."""
+    from turboae_tpu_torch.channels.noise import train_sigma
+    from turboae_tpu_torch.cli import main as cli_main
+    from turboae_tpu_torch.config import Config
+    from turboae_tpu_torch.models.channel_ae import init_ae
+    from turboae_tpu_torch.train import trainer as trainer_mod
+    from turboae_tpu_torch.utils.device import nvidia_smi
+    steps = []
+    for enc, dec, n in ZOO_PAIRS:
+        cfg = Config(encoder=enc, decoder=dec, code_rate_n=n, batch_size=batch)
+        params = init_ae(torch.Generator().manual_seed(0), cfg)
+        bits = (torch.rand((batch, 100, 1), generator=gen) < 0.5).float()
+        noise = train_sigma((batch, 100, n), -1.5, 2.0, gen, 'cpu') * \
+            torch.randn((batch, 100, n), generator=gen)
+        side = {}
+        for where in ('gpu', 'cpu'):
+            tr = trainer_mod.Trainer(cfg, dev if where == 'gpu' else 'cpu', params=params)
+            loss, grads = tr.loss_and_grads('joint', bits.to(tr.device), noise.to(tr.device))
+            side[where] = (loss.item(), [t.cpu() for h in ('enc', 'dec') for t in grads[h]])
+        (lg, gg), (lc, gc) = side['gpu'], side['cpu']
+        steps.append({'encoder': enc, 'decoder': dec, 'loss_gpu': lg, 'loss_cpu': lc,
+                      'loss_rel': abs(lg - lc) / abs(lc), 'grad_rel': grads_rel(gg, gc)})
+
+    argv = ['-encoder', 'TurboAE_rate3_cnn2d', '-decoder', 'TurboAE_rate3_cnn2d',
+            '-num_epoch', '1', '-num_block', str(ZOO_NUM_BLOCK), '-batch_size', str(ZOO_BATCH),
+            '-enc_lr', ZOO_LR, '-dec_lr', ZOO_LR, '--device', str(dev)]
+    trainer, seconds, train_s, blocks, losses, counts, _ = timed_cli(
+        dev, trainer_mod.Trainer, cli_main.main, argv)
+    emit('cnn_zoo_train', steps=steps, epoch_losses=losses, loss_max=ZOO_EPOCH_LOSS_MAX,
+         cli_seconds=seconds, train_seconds=train_s, train_blocks_per_s=blocks / train_s,
+         test_ber=trainer.last_test['ber'], launches=counts, card=nvidia_smi())
+    for st in steps:
+        name = f"{st['encoder']}+{st['decoder']}"
+        check(st['loss_rel'] < 1e-4, f'cnn_zoo_train {name}: loss differs from the CPU {st}')
+        check(st['grad_rel'] < 1e-3, f'cnn_zoo_train {name}: gradients differ {st}')
+    check(len(losses) == 6 and all(math.isfinite(v) for v in losses) and
+          losses[-1] < ZOO_EPOCH_LOSS_MAX, f'cnn_zoo_train: epoch losses {losses}')
+    check(counts['conv_stack_bf16'] == 0, 'cnn_zoo_train: K2 launched')
+    return counts
+
+
+def mod_reference():
+    """The BLER of each point of artifacts/mod_tr2.out's closing test, the
+    JAX run that ended at mod_ae.msgpack's epoch 400, as exact block error
+    counts of MOD_REF_BLOCKS a point."""
+    ref = {}
+    with open(os.path.join(ROOT, 'artifacts', 'mod_tr2.out')) as f:
+        for line in f:
+            if line.startswith('Test SNR'):
+                words = line.split()
+                snr, bler = float(words[2]), float(words[-1])
+                errors = bler * MOD_REF_BLOCKS
+                check(abs(errors - round(errors)) < 0.05, f'mod_tr2.out: {line!r}')
+                ref[snr] = round(errors)
+    return ref
+
+
+def load_mod_ae(cfg, dev):
+    """A ModTrainer on `dev` holding artifacts/mod_ae.msgpack's params."""
+    from turboae_tpu_torch.train.checkpoint import load_checkpoint
+    from turboae_tpu_torch.train.mod_trainer import ModTrainer
+    tr = ModTrainer(cfg, dev)
+    stats = {}
+    tr.params = load_checkpoint(os.path.join(ROOT, 'artifacts', 'mod_ae.msgpack'), tr.params,
+                                stats=stats)
+    check(stats['kept'] == 0, f'mod_ae.msgpack: not every leaf merged {stats}')
+    return tr
+
+
+def mod_curve_phase(dev):
+    """mod_ae.msgpack through ModTrainer.test in f32 (batch 2000, 20,000
+    blocks a point at -2..2 dB), each point's BLER held to mod_tr2.out's by
+    the z test. Returns the launch counts of the sweep."""
+    from turboae_tpu_torch.config import Config
+    from turboae_tpu_torch.utils.device import nvidia_smi
+    from turboae_tpu_torch.utils.metrics import two_proportion_z
+    ref = mod_reference()
+    cfg = Config(batch_size=SWEEP_BATCH, num_block=SWEEP_BLOCKS, snr_points=len(MOD_POINTS),
+                 snr_test_start=MOD_POINTS[0], snr_test_end=MOD_POINTS[-1])
+    tr = load_mod_ae(cfg, dev)
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    snrs, ber, bler = tr.test(verbose=False)
+    sync(dev)
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    points = []
+    for s, b, q in zip(snrs, ber, bler):
+        errors = round(q * SWEEP_BLOCKS)
+        points.append({'snr': s, 'blk_errors': errors, 'n_blocks': SWEEP_BLOCKS, 'bler': q,
+                       'ber': b, 'ref_bler': ref[s] / MOD_REF_BLOCKS,
+                       'z_bler': two_proportion_z(errors, SWEEP_BLOCKS, ref[s], MOD_REF_BLOCKS)})
+    emit('mod_curve', ckpt='mod_ae.msgpack', ref='artifacts/mod_tr2.out', dtype='float32',
+         points=points, seconds=seconds,
+         blocks_per_s=SWEEP_BLOCKS * len(snrs) / seconds, launches=counts, card=nvidia_smi())
+    check(snrs == list(MOD_POINTS), f'mod_curve: points {snrs}')
+    for p in points:
+        check(abs(p['z_bler']) < MAX_Z, f"mod_curve: BLER at {p['snr']} dB: z = {p['z_bler']}")
+    check(counts['conv_stack_bf16'] == 0, 'mod_curve: K2 launched')
+    return counts
+
+
+def mod_forward_phase(dev, gen, batch=PARITY_BATCH):
+    """mod_ae.msgpack's forward on host-drawn bits and symbol noise (0 dB):
+    f32 on the card against the CPU within 1e-4; bf16 through K2 (the
+    decoder's 12 stacks) against bf16 unfused on the card, decisions > 99 %
+    agreeing and exactly 12 K2 launches. Returns the fused forward's counts."""
+    from turboae_tpu_torch.config import Config
+    from turboae_tpu_torch.models.channel_ae import forward_mod_ae, make_perms
+    from turboae_tpu_torch.train.sweep import params_to
+    from turboae_tpu_torch.utils.metrics import snr_db2sigma
+    cfg = Config()
+    params = load_mod_ae(cfg, 'cpu').params
+    params_d = params_to(params, dev)
+    bits = (torch.rand((batch, 100, 1), generator=gen) < 0.5).float()
+    noise = snr_db2sigma(0.0) * torch.randn((batch, 150, 2), generator=gen)
+
+    def fwd(p, c, where):
+        with torch.inference_mode():
+            out, sym, _ = forward_mod_ae(p, c, bits.to(where), noise.to(where),
+                                         make_perms(c, where), training=False)
+        return out.cpu(), sym.cpu()
+    g_out, g_sym = fwd(params_d, cfg, dev)
+    c_out, c_sym = fwd(params, cfg, 'cpu')
+    f32 = {'max_rel_diff': rel_diff(g_out, c_out), 'symbols_max_rel_diff': rel_diff(g_sym, c_sym),
+           'ber_gpu': (g_out.round() != bits).float().mean().item()}
+    sync(dev)
+    reset_counts()
+    fused, _ = fwd(params_d, cfg.replace(dtype='bfloat16', use_fused_conv=True), dev)
+    sync(dev)
+    counts = read_counts()
+    unfused, _ = fwd(params_d, cfg.replace(dtype='bfloat16'), dev)
+    bf16 = {'decision_agreement': (fused.round() == unfused.round()).float().mean().item(),
+            'max_abs_diff': (fused - unfused).abs().max().item()}
+    emit('mod_forward', batch=batch, snr_db=0.0, float32=f32, bfloat16_fused_vs_unfused=bf16,
+         launches=counts, expected_launches=12)
+    check(g_out.shape == (batch, 100, 1) and bool(torch.isfinite(g_out).all()),
+          'mod_forward: shape or non-finite values')
+    check(f32['max_rel_diff'] < 1e-4 and f32['symbols_max_rel_diff'] < 1e-4,
+          f'mod_forward: f32 differs from the CPU {f32}')
+    check(bf16['decision_agreement'] > 0.99, f'mod_forward: bf16 fused decisions differ {bf16}')
+    check(counts['conv_stack_bf16'] == 12, f'mod_forward: K2 launched {counts} times, not 12')
+    return counts
+
+
+def _shapes(tree, prefix=''):
+    """{path: shape} of a msgpack tree's arrays."""
+    import numpy as np
+    if isinstance(tree, dict):
+        return {k2: v2 for k, v in tree.items() for k2, v2 in _shapes(v, f'{prefix}/{k}').items()}
+    return {prefix: tuple(np.shape(tree))}
+
+
+def mod_resume_phase(dev):
+    """mod_ae.msgpack with its four Adam states resumed for one epoch of its
+    last leg's recipe (1 encoder, 5 decoder, 1 mod and 5 demod phase-epochs,
+    f32): each phase's Adam count up by its steps, each phase's epoch loss
+    finite and below MOD_LOSS_MAX; then cli/main_modulation.py from the
+    file's params for one epoch, its checkpoint in the file's layout.
+    Returns the launch counts of both runs."""
+    from turboae_tpu_torch.cli import main_modulation
+    from turboae_tpu_torch.config import Config
+    from turboae_tpu_torch.train.checkpoint import load_checkpoint
+    from turboae_tpu_torch.train.mod_trainer import ModTrainer
+    from turboae_tpu_torch.train.msgpack_io import load_msgpack
+    from turboae_tpu_torch.utils.device import nvidia_smi
+    path = os.path.join(ROOT, 'artifacts', 'mod_ae.msgpack')
+    saved = load_msgpack(path)
+    counts0 = {ph: int(s['0']['count']) for ph, s in saved['opt_state'].items()}
+    schedule = (('encoder', 1), ('decoder', 5), ('mod', 1), ('demod', 5))
+    tr = ModTrainer(Config(**MOD_RECIPE), dev)
+    tr.params, tr.opt_state, step = load_checkpoint(path, tr.params, tr.opt_state)
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    losses = {ph: [tr.train_epoch(step + 1, ph, verbose=False) for _ in range(k)]
+              for ph, k in schedule}
+    sync(dev)
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    steps = MOD_RECIPE['num_block'] // MOD_RECIPE['batch_size']
+    grew = {ph: tr.opt[ph].count - counts0[ph] for ph in counts0}
+
+    argv = ['-init_nw_weight', path, '-num_epoch', '1', '-num_block', str(MOD_CLI_NUM_BLOCK),
+            '-batch_size', str(MOD_RECIPE['batch_size']), '--device', str(dev)]
+    _, cli_s, _, _, cli_losses, cli_counts, files = timed_cli(
+        dev, ModTrainer, main_modulation.main, argv)
+    (name, written), = files.items()
+    cli_steps = MOD_CLI_NUM_BLOCK // MOD_RECIPE['batch_size']
+    written_counts = {ph: int(s['0']['count']) for ph, s in written['opt_state'].items()}
+    same_layout = _shapes({k: v for k, v in written.items() if k != 'step'}) == \
+        _shapes({k: v for k, v in saved.items() if k != 'step'})
+    emit('mod_resume', file_step=step, file_counts=counts0, counts_grew=grew, losses=losses,
+         loss_max=MOD_LOSS_MAX, seconds=seconds,
+         train_blocks_per_s=steps * MOD_RECIPE['batch_size'] * sum(k for _, k in schedule)
+         / seconds, cli_seconds=cli_s, cli_epoch_losses=cli_losses, cli_checkpoint=name,
+         cli_counts=written_counts, cli_same_layout=same_layout, launches=counts,
+         cli_launches=cli_counts,
+         card=nvidia_smi())
+    check(step == 400, f'mod_resume: the file holds step {step}')
+    check(grew == {ph: k * steps for ph, k in schedule}, f'mod_resume: Adam counts grew {grew}')
+    for ph, ls in losses.items():
+        check(all(math.isfinite(v) and v < MOD_LOSS_MAX for v in ls),
+              f'mod_resume: {ph} losses {ls} not below {MOD_LOSS_MAX}')
+    check(written_counts == {ph: k * cli_steps for ph, k in schedule},
+          f'mod_resume: the CLI checkpoint counts {written_counts}')
+    check(same_layout, 'mod_resume: the CLI checkpoint differs from the file in layout')
+    check(all(math.isfinite(v) for v in cli_losses), f'mod_resume: CLI losses {cli_losses}')
+    check(counts['conv_stack_bf16'] == cli_counts['conv_stack_bf16'] == 0,
+          'mod_resume: K2 launched')
+    return {k: counts[k] + cli_counts[k] for k in counts}
 
 
 def train_times_phase(dev, batch=TRAIN_BATCH, steps=60, **cfg_overrides):

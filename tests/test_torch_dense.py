@@ -20,7 +20,7 @@ from turboae_tpu_torch.models import channel_ae as tae
 from turboae_tpu_torch.models import decoders as tdec
 from turboae_tpu_torch.models import encoders as tenc
 from turboae_tpu_torch.ops import conv1d as tcv
-from turboae_tpu_torch.train.convert import _conv_from, from_jax, to_jax
+from turboae_tpu_torch.train.convert import _layer_from, from_jax, to_jax
 
 from _torch_parity import bits_noise, configs, rel_err, small_params
 
@@ -49,7 +49,7 @@ def test_dense_stack_apply_matches_jax(num_layer, k, dtype):
     with jax.default_matmul_precision('highest'):
         ref = np.asarray(jcv.dense_stack_apply(jax.tree.map(jnp.asarray, layers), jnp.asarray(x),
                                                compute_dtype=jdt), np.float32)
-    got = tcv.dense_stack_apply([_conv_from(l, 'cpu') for l in layers], torch.from_numpy(x),
+    got = tcv.dense_stack_apply([_layer_from(l, 'cpu') for l in layers], torch.from_numpy(x),
                                 compute_dtype=tdt)
     assert got.dtype == tdt and got.shape == (4, 20, 16)
     if dtype == 'float32':
@@ -138,37 +138,23 @@ def test_dense_and_empty_halves_round_trip_bit_identical():
             np.testing.assert_array_equal(a, np.asarray(b))
 
 
-# the JAX registries' keys the port does not have yet, with their ROADMAP items
-UNPORTED_ENC = {'TurboAE_rate2_cnn': 'M9', 'rate3_cnn': 'M9',
-                'rate2_cnn': 'M9', 'turboae_2int': 'M9', 'TurboAE_rate3_cnn2d': 'M9',
-                'TurboAE_rate3_cnn2d_dense': 'M9', 'rate3_cnn2d': 'M9'}
-UNPORTED_DEC = {'TurboAE_rate3_cnn_2inter': 'M9', 'TurboAE_rate2_cnn': 'M9', 'rate3_cnn': 'M9',
-                'TurboAE_rate3_cnn2d': 'M9', 'TurboAE_rate3_cnn2d_dense': 'M9',
-                'rate3_cnn2d': 'M9', 'turboae_2int': 'M9'}
-
-
-def test_registries_cover_every_jax_key():
+def test_every_jax_key_builds_in_the_port():
+    """Both registries hold every JAX key, and each key's init builds params
+    whose leaves have JAX's shapes (the 2D keys at img_size**2 = block_len)."""
     from turboae_tpu.models.decoders import DEC_REGISTRY
     from turboae_tpu.models.encoders import ENC_REGISTRY
-    assert set(tenc.ENC_REGISTRY) | set(UNPORTED_ENC) == set(ENC_REGISTRY)
-    assert set(tdec.DEC_REGISTRY) | set(UNPORTED_DEC) == set(DEC_REGISTRY)
-    assert tenc.UNPORTED_ENCODERS == UNPORTED_ENC and tdec.UNPORTED_DECODERS == UNPORTED_DEC
-
-
-@pytest.mark.parametrize('key', sorted(UNPORTED_ENC))
-def test_encoder_registry_refuses_unported_keys(key):
-    _, tcfg = configs(encoder=key)
-    with pytest.raises(NotImplementedError, match=f'ROADMAP {UNPORTED_ENC[key]}'):
-        tenc.make_encoder(tcfg)
-    with pytest.raises(NotImplementedError, match=UNPORTED_ENC[key]):
-        tae.init_ae(torch.Generator().manual_seed(0), tcfg)
-
-
-@pytest.mark.parametrize('key', sorted(UNPORTED_DEC))
-def test_decoder_registry_refuses_unported_keys(key):
-    _, tcfg = configs(decoder=key)
-    with pytest.raises(NotImplementedError, match=f'ROADMAP {UNPORTED_DEC[key]}'):
-        tdec.make_decoder(tcfg)
+    assert set(tenc.ENC_REGISTRY) == set(ENC_REGISTRY)
+    assert set(tdec.DEC_REGISTRY) == set(DEC_REGISTRY)
+    small = dict(DENSE_SMALL, block_len=16, img_size=4)
+    for field, registry in (('encoder', ENC_REGISTRY), ('decoder', DEC_REGISTRY)):
+        for key in registry:
+            n = 2 if 'rate2' in key else 3
+            jcfg, tcfg = configs(**{field: key}, code_rate_n=n, **small)
+            jp, _ = small_params(jcfg)
+            got = tae.init_ae(torch.Generator().manual_seed(0), tcfg)
+            half = 'enc' if field == 'encoder' else 'dec'
+            assert [t.shape for t in jax.tree.leaves(to_jax(got)[half])] == \
+                [t.shape for t in jax.tree.leaves(jp[half])], key
 
 
 def test_registries_refuse_unknown_keys_as_jax_does():

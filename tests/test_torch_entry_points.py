@@ -192,25 +192,45 @@ def test_train_flagship_stops_at_its_time_budget(tmp_path):
     assert [r['epoch'] for r in _records(metrics) if r['event'] == 'epoch'] == [1]
 
 
-# M8 (the losses), M10 (the RNN zoo) and M11 (DeepTurbo) are ported; what
-# stays refused is the rest of the CNN zoo (M9). The ids are the cases'
-# earlier ones.
-@pytest.mark.parametrize('argv,what', [
-    pytest.param(['--encoder', 'TurboAE_rate2_cnn'], 'M9', id='argv0-M8'),
-    pytest.param(['--encoder', 'TurboAE_rate3_cnn2d'], 'M9', id='argv1-M9/M11'),
-    pytest.param(['--decoder', 'TurboAE_rate3_cnn_2inter'], 'M9', id='argv2-M9/M11')])
-def test_train_flagship_refuses_what_is_not_ported(argv, what, tmp_path):
-    with pytest.raises(NotImplementedError, match=what):
-        train_flagship.main([*argv, '--ckpt', str(tmp_path / 'f.msgpack'),
-                             '--metrics', str(tmp_path / 'm.jsonl'), *TINY_FLAGSHIP])
+@pytest.mark.parametrize('models', [
+    ['--encoder', 'TurboAE_rate3_cnn2d', '--decoder', 'TurboAE_rate3_cnn2d', '--block_len', '100'],
+    ['--encoder', 'turboae_2int', '--decoder', 'turboae_2int'],
+    ['--decoder', 'TurboAE_rate3_cnn_2inter']])
+def test_train_flagship_trains_the_cnn_zoo(models, tmp_path):
+    """The rate-3 CNN zoo trains through the script's flags (the 2D code at
+    the default img_size 10, so block_len 100), as in JAX; the file's trees
+    are JAX's."""
+    ckpt = str(tmp_path / 'f.msgpack')
+    tr = train_flagship.main([*TINY_FLAGSHIP, '--epochs', '1', '--num_train_dec', '1',
+                              '--ckpt', ckpt, '--metrics', str(tmp_path / 'm.jsonl'), *models])
+    saved = load_msgpack(ckpt)
+    assert saved['step'] == 1 and int(saved['opt_state']['dec']['0']['count']) == 2
+    epoch = [r for r in _records(str(tmp_path / 'm.jsonl')) if r['event'] == 'epoch']
+    assert len(epoch) == 1 and 0 < epoch[0]['dec_loss'] < 1
+    assert tr.last_test['encoder_power'] > 0
 
 
-@pytest.mark.parametrize('flag', ['--encoder', '--decoder'])
-def test_eval_cli_refuses_other_models(flag):
+@pytest.mark.parametrize('models', [['--decoder', 'TurboAE_rate3_cnn_2inter'],
+                                    ['--encoder', 'turboae_2int',
+                                     '--decoder', 'TurboAE_rate3_cnn_2inter']])
+def test_eval_cli_evaluates_the_cnn_zoo(models, tmp_path):
+    """The CNN zoo's keys evaluate through the eval CLI: the crown's params
+    have the two-interleaver code's trees."""
     from turboae_tpu_torch.cli import eval_flagship
-    # the RNN zoo is ported (tests/test_torch_rnn_models.py); the CNN zoo's
-    # other keys are not
-    name = {'--encoder': 'rate3_cnn', '--decoder': 'TurboAE_rate3_cnn_2inter'}[flag]
-    with pytest.raises(NotImplementedError, match='M9'):
-        eval_flagship.main([flag, name, '--ckpt', CROWN, '--num_block', '2',
-                            '--batch_size', '2', '--snr_points', '1', '--device', 'cpu'])
+    out = eval_flagship.main([*models, '--ckpt', CROWN, '--num_block', '4',
+                              '--batch_size', '2', '--snr_points', '1', '--device', 'cpu',
+                              '--out', str(tmp_path / 'e.json')])
+    assert out['n_blocks'] == [4] and 0 <= out['blk_errors'][0] <= 4
+
+
+def test_eval_cli_writes_its_json_by_default(tmp_path, monkeypatch, capsys):
+    """As scripts/eval_flagship.py does: without --out the JSON goes to
+    logs/flagship_eval.json under the working directory."""
+    from turboae_tpu_torch.cli import eval_flagship
+    assert eval_flagship.parse([]).out == 'logs/flagship_eval.json'
+    monkeypatch.chdir(tmp_path)
+    out = eval_flagship.main(['--ckpt', CROWN, '--num_block', '4', '--batch_size', '2',
+                              '--snr_points', '2', '--device', 'cpu'])
+    with open(tmp_path / 'logs' / 'flagship_eval.json') as f:
+        assert json.load(f) == json.loads(json.dumps(out))
+    assert 'wrote logs/flagship_eval.json' in capsys.readouterr().out

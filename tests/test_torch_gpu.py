@@ -202,3 +202,56 @@ def test_rnn_decoder_bf16_takes_cudnn_on_the_card(cuda_device):
                                make_perms(cfg, cuda_device), training=False)
     assert torch.isfinite(out).all()
     assert gru.ROUTE_CALLS['cudnn'] > before['cudnn'] and gru.ROUTE_CALLS['scan'] == before['scan']
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('encoder,decoder,n', [
+    ('turboae_2int', 'turboae_2int', 3), ('TurboAE_rate2_cnn', 'TurboAE_rate2_cnn', 2),
+    ('rate3_cnn', 'rate3_cnn', 3), ('TurboAE_rate3_cnn2d', 'TurboAE_rate3_cnn2d', 3),
+    ('TurboAE_rate3_cnn2d_dense', 'rate3_cnn2d', 3)])
+def test_cnn_zoo_on_the_card_equals_the_cpu(cuda_device, encoder, decoder, n):
+    """A CNN zoo pair at full width in f32 (TF32 off), card against CPU
+    within 1e-4; its decoder never launches K2, even when asked to fuse."""
+    from turboae_tpu_torch.config import Config
+    from turboae_tpu_torch.models.channel_ae import forward_ae, init_ae, make_perms
+    from turboae_tpu_torch.train.sweep import params_to
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = Config(encoder=encoder, decoder=decoder, code_rate_n=n, use_fused_conv=True)
+    params = init_ae(torch.Generator().manual_seed(0), cfg)
+    g = torch.Generator().manual_seed(2)
+    bits = (torch.rand((32, 100, 1), generator=g) < 0.5).float()
+    noise = torch.randn((32, 100, n), generator=g)
+    before = ks.conv_stack_bf16.launches
+    with torch.inference_mode():
+        got = forward_ae(params_to(params, cuda_device), cfg, bits.to(cuda_device),
+                         noise.to(cuda_device), make_perms(cfg, cuda_device), training=False)[0]
+        ref = forward_ae(params, cfg, bits, noise, make_perms(cfg, 'cpu'), training=False)[0]
+    assert ks.conv_stack_bf16.launches == before
+    assert (got.cpu() - ref).abs().max().item() < 1e-4
+
+
+@pytest.mark.gpu
+def test_mod_ae_decoder_fuses_through_k2(cuda_device):
+    """artifacts/mod_ae.msgpack in bf16 with use_fused_conv: 12 K2 launches
+    a forward, decisions as the unfused bf16 forward's on > 99 %."""
+    import os
+    from turboae_tpu_torch.config import Config
+    from turboae_tpu_torch.models.channel_ae import forward_mod_ae, make_perms
+    from turboae_tpu_torch.train.checkpoint import load_checkpoint
+    from turboae_tpu_torch.train.mod_trainer import ModTrainer
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = Config(dtype='bfloat16')
+    tr = ModTrainer(cfg, cuda_device)
+    tr.params = load_checkpoint(os.path.join(root, 'artifacts', 'mod_ae.msgpack'), tr.params)
+    g = torch.Generator().manual_seed(3)
+    bits = (torch.rand((256, 100, 1), generator=g) < 0.5).float().to(cuda_device)
+    noise = torch.randn((256, 150, 2), generator=g).to(cuda_device)
+    outs = {}
+    for fused in (False, True):
+        before = ks.conv_stack_bf16.launches
+        with torch.inference_mode():
+            outs[fused] = forward_mod_ae(tr.params, cfg.replace(use_fused_conv=fused), bits, noise,
+                                         make_perms(cfg, cuda_device), training=False)[0]
+        torch.cuda.synchronize()
+        assert ks.conv_stack_bf16.launches - before == (12 if fused else 0)
+    assert (outs[True].round() == outs[False].round()).float().mean().item() > 0.99

@@ -19,7 +19,7 @@ from turboae_tpu.kernels.conv_stack import (_fused_forward, _fused_forward_im2co
 from turboae_tpu.ops.conv1d import stack_init
 from turboae_tpu_torch.kernels import conv_stack as ks
 from turboae_tpu_torch.ops.conv1d import stack_apply
-from turboae_tpu_torch.train.convert import _conv_from
+from turboae_tpu_torch.train.convert import _layer_from
 
 from _torch_parity import rel_err
 
@@ -27,7 +27,7 @@ from _torch_parity import rel_err
 def _mk(num_layer, k, cin=7, c=100, B=8, L=20, seed=0):
     jl = jax.tree.map(np.asarray, stack_init(jax.random.PRNGKey(seed), num_layer, cin, c, k))
     x = np.random.RandomState(seed).standard_normal((B, L, cin)).astype(np.float32)
-    return jl, [_conv_from(l, 'cpu') for l in jl], x
+    return jl, [_layer_from(l, 'cpu') for l in jl], x
 
 
 @pytest.mark.parametrize('k', [1, 5])

@@ -40,6 +40,7 @@ def test_make_perms_matches_jax():
     for k in ('p1', 'p2'):
         np.testing.assert_array_equal(tp[k].numpy(), np.asarray(jp[k]))
     np.testing.assert_array_equal(tp['p1'][tp['p1_inv']].numpy(), np.arange(24))
+    np.testing.assert_array_equal(tp['p2'][tp['p2_inv']].numpy(), np.arange(24))
     assert not np.array_equal(tp['p1'].numpy(), tp['p2'].numpy())
 
 

@@ -18,7 +18,7 @@ from turboae_tpu_torch.ops import interleave as til
 from turboae_tpu_torch.ops.activations import activation
 from turboae_tpu_torch.ops.power import power_constraint as t_power
 from turboae_tpu_torch.ops.ste import ste_quantize as t_ste
-from turboae_tpu_torch.train.convert import _conv_from, _lin_from
+from turboae_tpu_torch.train.convert import _layer_from
 from turboae_tpu_torch.utils import metrics as tm
 
 from _torch_parity import configs, rel_err
@@ -40,7 +40,7 @@ def test_stack_apply_f32_matches_jax(num_layer, k):
     x = rng.standard_normal((4, 20, 7)).astype(np.float32)
     with jax.default_matmul_precision('highest'):
         ref = np.asarray(jcv.stack_apply(jax.tree.map(jnp.asarray, layers), jnp.asarray(x)))
-    got = tcv.stack_apply([_conv_from(l, 'cpu') for l in layers], torch.from_numpy(x))
+    got = tcv.stack_apply([_layer_from(l, 'cpu') for l in layers], torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=1e-5)
 
 
@@ -50,7 +50,7 @@ def test_stack_apply_bf16_matches_jax():
     x = rng.standard_normal((4, 20, 7)).astype(np.float32)
     ref = jcv.stack_apply(jax.tree.map(jnp.asarray, layers), jnp.asarray(x),
                           compute_dtype=jnp.bfloat16)
-    got = tcv.stack_apply([_conv_from(l, 'cpu') for l in layers], torch.from_numpy(x),
+    got = tcv.stack_apply([_layer_from(l, 'cpu') for l in layers], torch.from_numpy(x),
                           compute_dtype=torch.bfloat16)
     assert got.dtype == torch.bfloat16          # bf16 convs emit bf16
     assert rel_err(got, np.asarray(ref, np.float32)) < 1e-2
@@ -65,7 +65,7 @@ def test_linear_apply_matches_jax(dtype):
     jdt, tdt = (jnp.float32, torch.float32) if dtype == 'float32' else (jnp.bfloat16, torch.bfloat16)
     with jax.default_matmul_precision('highest'):
         ref = np.asarray(jcv.linear_apply(jax.tree.map(jnp.asarray, lin), jnp.asarray(x), jdt))
-    got = tcv.linear_apply(_lin_from(lin, 'cpu'), torch.from_numpy(x), tdt)
+    got = tcv.linear_apply(_layer_from(lin, 'cpu'), torch.from_numpy(x), tdt)
     assert got.dtype == torch.float32           # heads return f32
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=1e-5)
 

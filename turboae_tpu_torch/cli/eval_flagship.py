@@ -9,7 +9,7 @@ the flagship's, DeepTurbo's included) run unfused, as in JAX.
 
     python -m turboae_tpu_torch.cli.eval_flagship \
         --ckpt artifacts/flagship_fading.msgpack --channel fading \
-        --num_block 100000 --out eval.json
+        --num_block 100000 --out eval.json   # default logs/flagship_eval.json
     python -m turboae_tpu_torch.cli.eval_flagship --ckpt artifacts/deepturbo.msgpack \
         --encoder Turbo_rate3_757 --ref artifacts/eval_deepturbo.json
 
@@ -144,7 +144,7 @@ def parse(argv=None) -> argparse.Namespace:
     p.add_argument('--ref', default='',
                    help='reference curve (e.g. artifacts/eval_crown_r4.json): '
                         'adds the BLER z statistic of each point against it')
-    p.add_argument('--out', default='')
+    p.add_argument('--out', default='logs/flagship_eval.json')
     return p.parse_args(argv)
 
 
@@ -152,10 +152,11 @@ def main(argv=None):
     args = parse(argv)
     no_tf32()
     out = evaluate(args)
-    if args.out:
-        os.makedirs(os.path.dirname(args.out) or '.', exist_ok=True)
-        with open(args.out, 'w') as f:
-            json.dump(out, f, indent=1)
+    # always written, as scripts/eval_flagship.py:144-147 writes it
+    os.makedirs(os.path.dirname(args.out) or '.', exist_ok=True)
+    with open(args.out, 'w') as f:
+        json.dump(out, f, indent=1)
+    print('wrote', args.out)
     print(json.dumps(out))
     return out
 

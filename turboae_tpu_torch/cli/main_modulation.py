@@ -1,0 +1,57 @@
+"""The joint coding+modulation experiment on the GPU (JAX:
+cli/main_modulation.py; reference main_modulation.py:98-279).
+
+Parses the reference's flags (config.py:get_args), starts from
+`-init_nw_weight <file>` when given (params only, the tolerant load, as in
+JAX), runs num_epoch epochs of num_train_enc encoder, num_train_dec
+decoder, num_train_mod modulator and num_train_demod demodulator epochs,
+saves ./tmp/mod_model_<id>.msgpack (params and the four optimizers' state,
+the JAX package's layout) and ends with ModTrainer.test. TF32 is off.
+
+    python -m turboae_tpu_torch.cli.main_modulation -mod_rate 2 -mod_pc block_power
+
+`--device cpu` runs on the CPU; without it the CLI needs a GPU.
+`-mesh_shape` is not ported (ROADMAP M16).
+"""
+from __future__ import annotations
+
+import os
+import time
+
+from .main import parse
+
+
+def main(argv=None):
+    cfg, device = parse(argv)
+    from ..utils.device import no_tf32, resolve_device
+    no_tf32()
+    if cfg.mesh_shape:
+        raise NotImplementedError('-mesh_shape is not ported yet (ROADMAP M16)')
+    device = resolve_device(device)
+
+    from ..train.checkpoint import load_checkpoint, save_checkpoint
+    from ..train.mod_trainer import ModTrainer
+    trainer = ModTrainer(cfg, device)
+    print(cfg)
+    if cfg.init_nw_weight != 'default':
+        trainer.params = load_checkpoint(cfg.init_nw_weight, trainer.params)
+        print('loaded weights from', cfg.init_nw_weight)
+
+    for epoch in range(1, cfg.num_epoch + 1):
+        for phase, count in (('encoder', cfg.num_train_enc), ('decoder', cfg.num_train_dec),
+                             ('mod', cfg.num_train_mod), ('demod', cfg.num_train_demod)):
+            for _ in range(count):
+                trainer.train_epoch(epoch, phase)
+
+    if cfg.num_epoch > 0:
+        os.makedirs('./tmp', exist_ok=True)
+        ckpt = f'./tmp/mod_model_{int(time.time()) % 1_000_000}.msgpack'
+        save_checkpoint(ckpt, trainer.params, trainer.opt_state)
+        print('saved model', ckpt)
+
+    trainer.test()
+    return trainer
+
+
+if __name__ == '__main__':
+    main()

@@ -30,10 +30,11 @@ periodic checkpoints and JSONL metrics, resumable with --resume. TF32 is off.
         --encoder Turbo_rate3_757 --num_train_enc 0 --num_train_dec 6 --dec_lr 2e-5 \
         --train_dec_channel_low -2.5 --dtype bfloat16 --epochs 530
 
-`--device cpu` runs on the CPU; without it the CLI needs a GPU. The RNN
-zoo's keys build at the Config's RNN settings (-enc_rnn, -dec_rnn and
--dropout are cli/main.py's flags); the CNN zoo's other keys (the 2D and
-other CNN codes, ROADMAP M9) raise NotImplementedError.
+`--device cpu` runs on the CPU; without it the CLI needs a GPU. Every key
+of the registries builds: the RNN zoo's at the Config's RNN settings
+(-enc_rnn, -dec_rnn and -dropout are cli/main.py's flags), the 2D codes at
+the Config's img_size 10 (so block_len 100); the rate-2 codes need
+-code_rate_n 2, a flag of cli/main.py only, as in JAX.
 """
 from __future__ import annotations
 

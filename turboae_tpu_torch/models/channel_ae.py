@@ -1,4 +1,6 @@
-"""Encoder -> channel -> decoder (JAX: models/channel_ae.py:23-72).
+"""Encoder -> channel -> decoder (JAX: models/channel_ae.py:23-72), and the
+joint coding+modulation AE, encoder -> modulator -> AWGN -> demodulator ->
+decoder (JAX :75-101).
 
 `forward_ae(training=True)` is differentiable end to end: the power
 constraint and its STE, the interleavers (index gathers) and the fused
@@ -22,6 +24,7 @@ from ..ops.interleave import invert_perm
 from ..ops.ste import rx_quantize
 from .decoders import make_decoder
 from .encoders import make_encoder
+from .modulation import demod_apply, demod_init, mod_apply, mod_init
 
 
 def init_ae(gen: torch.Generator, cfg, device='cpu'):
@@ -37,7 +40,7 @@ def make_perms(cfg, device) -> Dict[str, torch.Tensor]:
     """Interleaver permutations as the reference builds them.
 
     p1 and p2 are CONSECUTIVE draws from one MT19937 RandomState(0), not the
-    first draws of two seeds. Also holds p1's inverse.
+    first draws of two seeds. Also holds their inverses p1_inv and p2_inv.
     """
     L = cfg.block_len
     if cfg.is_interleave == 0:
@@ -47,7 +50,8 @@ def make_perms(cfg, device) -> Dict[str, torch.Tensor]:
         p1 = rand_gen.permutation(np.arange(L))
         p2 = rand_gen.permutation(np.arange(L))
     as_t = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device)
-    return {'p1': as_t(p1), 'p2': as_t(p2), 'p1_inv': as_t(invert_perm(p1))}
+    return {'p1': as_t(p1), 'p2': as_t(p2), 'p1_inv': as_t(invert_perm(p1)),
+            'p2_inv': as_t(invert_perm(p2))}
 
 
 def forward_ae(params, cfg, bits, fwd_noise, perms, training: bool = True,
@@ -62,3 +66,27 @@ def forward_ae(params, cfg, bits, fwd_noise, perms, training: bool = True,
         received = rx_quantize(received, cfg.rec_quantize_level, cfg.rec_quantize_level)
     out = dec_apply(params['dec'], cfg, received, perms, training=training, generator=generator)
     return out, codes, stats
+
+
+def init_mod_ae(gen: torch.Generator, cfg, device='cpu'):
+    """{'enc', 'dec', 'mod', 'demod'}, drawn from `gen` in that order (JAX
+    channel_ae.py:75-81)."""
+    return {**init_ae(gen, cfg, device), 'mod': mod_init(gen, cfg, device),
+            'demod': demod_init(gen, cfg, device)}
+
+
+def forward_mod_ae(params, cfg, bits, fwd_noise, perms, training: bool = True,
+                   stats=None, generator: Optional[torch.Generator] = None):
+    """Returns (bit_estimates, symbols, stats). fwd_noise is (B, L * n /
+    mod_rate, 2), added to the symbols: the AWGN family only, as in JAX
+    (channel_ae.py:84-101)."""
+    _, enc_apply = make_encoder(cfg)
+    _, dec_apply = make_decoder(cfg)
+    codes, stats = enc_apply(params['enc'], cfg, bits, perms, training=training, stats=stats)
+    symbols = mod_apply(params['mod'], cfg, codes)
+    received = symbols + fwd_noise
+    if cfg.rec_quantize:
+        received = rx_quantize(received, cfg.rec_quantize_level, cfg.rec_quantize_level)
+    x_rec = demod_apply(params['demod'], cfg, received)
+    out = dec_apply(params['dec'], cfg, x_rec, perms, training=training, generator=generator)
+    return out, symbols, stats

@@ -1,6 +1,7 @@
-"""The iterative decoders DEC_LargeCNN, DEC_LargeRNN, DEC_LargeRNN_rate2 and
-NeuralTurbofyDec, and their registry (JAX: models/decoders.py:52-241,
-354-481,589-602).
+"""The decoders and their registry (JAX: models/decoders.py): the
+iterative DEC_LargeCNN, DEC_LargeCNN2Int, DEC_LargeCNN_rate2, DEC_LargeRNN,
+DEC_LargeRNN_rate2, NeuralTurbofyDec and the 2D DEC_LargeCNN2D, and the
+single-pass CNN_decoder_rate3 and DEC_CNN2D.
 
 Its conv flavour is keyed off the ENCODER's name, as in the reference
 (encoders.dense): plain stacks only for encoder 'TurboAE_rate3_cnn', dense
@@ -16,6 +17,18 @@ loop.
 With cfg.use_fused_conv every conv stack goes through the hand-written bf16
 kernel (kernels/conv_stack.py), its output cast back to cfg.dtype, as
 JAX decoders.py:99-104 routes them through the Pallas kernel.
+
+DEC_LargeCNN2Int ('TurboAE_rate3_cnn_2inter', 'turboae_2int') and
+DEC_LargeCNN_rate2 ('TurboAE_rate2_cnn') have DEC_LargeCNN's params but
+always plain, never fused stacks, as in JAX (decoders.py:248-352).
+
+The 2D decoders view the received block as a (cfg.img_size, cfg.img_size)
+image and permute its pixels in the flattened row-major order of
+ops/interleave.interleave_2d. Their conv flavour is keyed off the encoder's
+name too: dense only for 'TurboAE_rate3_cnn2d_dense' (encoders.dense2d).
+DEC_LargeCNN2D's iterations hold 'dec1_cnn', 'dec2_cnn' (2D stacks) and
+'dec1_out', 'dec2_out' (one-layer 1x1 stacks that keep their ELU, except
+the last iteration's dec2_out); DEC_CNN2D is {'dec', 'out'}.
 
 The RNN decoders' iterations hold 'dec1_rnn' and 'dec2_rnn' (biRNN stacks,
 ops/gru.py) in place of the conv stacks, with heads from 2 * dec_num_unit.
@@ -39,7 +52,7 @@ from ..ops import gru as rnn
 from ..ops.activations import activation
 from ..ops.interleave import deinterleave, interleave
 from ..utils.device import torch_dtype
-from .encoders import dense
+from .encoders import dense, dense2d
 
 
 def largecnn_init(gen: torch.Generator, cfg, device='cpu'):
@@ -75,15 +88,18 @@ def largecnn_apply(params, cfg, received, perms, training=False, generator=None)
     else:
         def stackf(layers, x):
             return cv.stack_apply(layers, x, compute_dtype=dt)
-    p, inv = perms['p1'], perms['p1_inv']
+    return _cnn_iterations(params, cfg, stackf, received[:, :, 0:1], received[:, :, 1:2],
+                           received[:, :, 2:3], perms)
 
-    r_sys = received[:, :, 0:1]
-    r_par1 = received[:, :, 1:2]
-    r_par2 = received[:, :, 2:3]
+
+def _cnn_iterations(params, cfg, stackf, r_sys, r_par1, r_par2, perms) -> torch.Tensor:
+    """DEC_LargeCNN's iterations: dec1 reads [r_sys, r_par1, prior], dec2
+    [r_sys interleaved by p1, r_par2, dec1's extrinsic interleaved]."""
+    dt = torch_dtype(cfg.dtype)
+    p, inv = perms['p1'], perms['p1_inv']
     r_sys_int = interleave(r_sys, p)
-    b, l, _ = received.shape
-    prior = torch.zeros((b, l, cfg.num_iter_ft), dtype=torch.float32,
-                        device=received.device)
+    b, l, _ = r_sys.shape
+    prior = torch.zeros((b, l, cfg.num_iter_ft), dtype=torch.float32, device=r_sys.device)
 
     def half_iter(w_cnn, w_lin, inputs, sub):
         # raw linear head: CNN decoders apply no dec_act
@@ -240,27 +256,173 @@ def nbcjr_apply(params, cfg, received, perms, training=False, generator=None):
     return deinterleave(x_final, inv)
 
 
+def plain_cnn_init(gen: torch.Generator, cfg, device='cpu'):
+    """DEC_LargeCNN's params over plain stacks, whatever the encoder (JAX
+    decoders.py:248-251, 305-308)."""
+    return largecnn_init(gen, cfg.replace(encoder='TurboAE_rate3_cnn'), device)
+
+
+def _plain_stack(cfg):
+    dt = torch_dtype(cfg.dtype)
+    return lambda layers, x: cv.stack_apply(layers, x, compute_dtype=dt)
+
+
+def largecnn2int_apply(params, cfg, received, perms, training=False, generator=None):
+    """DEC_LargeCNN2Int (JAX decoders.py:254-298): each iteration interleaves
+    the prior by p1, goes from dec1 to dec2 by inv1 then p2, and ends by
+    inv2."""
+    dt = torch_dtype(cfg.dtype)
+    stackf = _plain_stack(cfg)
+    p1, inv1, p2, inv2 = perms['p1'], perms['p1_inv'], perms['p2'], perms['p2_inv']
+    r_sys, r_par1, r_par2 = received[:, :, 0:1], received[:, :, 1:2], received[:, :, 2:3]
+    r_sys_int1, r_sys_int2 = interleave(r_sys, p1), interleave(r_sys, p2)
+    b, l, _ = received.shape
+    prior = torch.zeros((b, l, cfg.num_iter_ft), dtype=torch.float32, device=received.device)
+
+    def half(w_cnn, w_lin, inputs, sub):
+        x = cv.linear_apply(w_lin, stackf(w_cnn, inputs), compute_dtype=dt)
+        return x - sub if cfg.extrinsic else x
+
+    def dec1(w, prior):
+        prior_i = interleave(prior, p1)
+        x_plr = half(w['dec1_cnn'], w['dec1_lin'], torch.cat([r_sys_int1, r_par1, prior_i], dim=2),
+                     prior_i)
+        return interleave(deinterleave(x_plr, inv1), p2)
+
+    *iters, final = params['iters']
+    for w in iters:
+        x_int = dec1(w, prior)
+        x_plr2 = half(w['dec2_cnn'], w['dec2_lin'], torch.cat([r_sys_int2, r_par2, x_int], dim=2),
+                      x_int)
+        prior = deinterleave(x_plr2, inv2)
+    x_int = dec1(final, prior)
+    h = stackf(final['dec2_cnn'], torch.cat([r_sys_int2, r_par2, x_int], dim=2))
+    logit = cv.linear_apply(final['dec2_lin'], h, compute_dtype=dt)
+    return torch.sigmoid(deinterleave(logit, inv2))
+
+
+def largecnn_rate2_apply(params, cfg, received, perms, training=False, generator=None):
+    """DEC_LargeCNN_rate2 (JAX decoders.py:311-351): DEC_LargeCNN's
+    iterations over plain stacks on received (B, L, 2) [sys, parity of the
+    interleaved bits]: dec1 reads the de-interleaved parity, dec2 the
+    parity as it is."""
+    r_par = received[:, :, 1:2]
+    return _cnn_iterations(params, cfg, _plain_stack(cfg), received[:, :, 0:1],
+                           deinterleave(r_par, perms['p1_inv']), r_par, perms)
+
+
+def cnn_rate3_init(gen: torch.Generator, cfg, device='cpu'):
+    """CNN_decoder_rate3 (JAX decoders.py:420-424): one stack code_rate_n ->
+    dec_num_unit and a head to 1."""
+    return {'cnn': cv.stack_init(gen, cfg.dec_num_layer, cfg.code_rate_n, cfg.dec_num_unit,
+                                 cfg.dec_kernel_size, device),
+            'lin': cv.linear_init(gen, cfg.dec_num_unit, 1, device)}
+
+
+def cnn_rate3_apply(params, cfg, received, perms, training=False, generator=None):
+    """sigmoid(head(stack(received))) (JAX decoders.py:427-430)."""
+    dt = torch_dtype(cfg.dtype)
+    h = cv.stack_apply(params['cnn'], received, compute_dtype=dt)
+    return torch.sigmoid(cv.linear_apply(params['lin'], h, compute_dtype=dt))
+
+
+def _stack2d(cfg):
+    return (cv.dense_stack2d_init, cv.dense_stack2d_apply) if dense2d(cfg) else \
+        (cv.stack2d_init, cv.stack2d_apply)
+
+
+def largecnn2d_init(gen: torch.Generator, cfg, device='cpu'):
+    """DEC_LargeCNN2D (JAX decoders.py:488-508): per iteration two 2D stacks
+    (2 + num_iter_ft) -> dec_num_unit and two one-layer 1x1 stacks to
+    num_iter_ft, the last iteration's dec2_out to 1."""
+    init, _ = _stack2d(cfg)
+    n_in, U, ft = 2 + cfg.num_iter_ft, cfg.dec_num_unit, cfg.num_iter_ft
+    iters = []
+    for i in range(cfg.num_iteration):
+        last = i == cfg.num_iteration - 1
+        iters.append({
+            'dec1_cnn': init(gen, cfg.dec_num_layer, n_in, U, cfg.dec_kernel_size, device),
+            'dec2_cnn': init(gen, cfg.dec_num_layer, n_in, U, cfg.dec_kernel_size, device),
+            'dec1_out': init(gen, 1, U, ft, 1, device),
+            'dec2_out': init(gen, 1, U, 1 if last else ft, 1, device),
+        })
+    return {'iters': iters}
+
+
+def largecnn2d_apply(params, cfg, received, perms, training=False, generator=None):
+    """DEC_LargeCNN2D (JAX decoders.py:511-560): received (B, L, 3) as a
+    (B, S, S, 3) image -> (B, L, code_rate_k)."""
+    dt = torch_dtype(cfg.dtype)
+    _, stack = _stack2d(cfg)
+    s, b = cfg.img_size, received.shape[0]
+    p, inv = perms['p1'], perms['p1_inv']
+
+    def pix_perm(x, idx):
+        c = x.shape[-1]
+        return interleave(x.reshape(b, s * s, c), idx).reshape(b, s, s, c)
+
+    def half(w_cnn, w_out, inputs, sub):
+        # the per-iteration heads keep their ELU (JAX :532-534)
+        x = stack(w_out, stack(w_cnn, inputs, compute_dtype=dt), compute_dtype=dt)
+        return x - sub if cfg.extrinsic else x
+
+    img = received.reshape(b, s, s, cfg.code_rate_n)
+    r_sys, r_par1, r_par2 = img[..., 0:1], img[..., 1:2], img[..., 2:3]
+    r_sys_int = pix_perm(r_sys, p)
+    prior = torch.zeros((b, s, s, cfg.num_iter_ft), dtype=torch.float32, device=received.device)
+    *iters, final = params['iters']
+    for w in iters:
+        x_plr = half(w['dec1_cnn'], w['dec1_out'], torch.cat([r_sys, r_par1, prior], dim=3), prior)
+        x_int = pix_perm(x_plr, p)
+        x_plr2 = half(w['dec2_cnn'], w['dec2_out'], torch.cat([r_sys_int, r_par2, x_int], dim=3),
+                      x_int)
+        prior = pix_perm(x_plr2, inv)
+    x_plr = half(final['dec1_cnn'], final['dec1_out'], torch.cat([r_sys, r_par1, prior], dim=3),
+                 prior)
+    x_int = pix_perm(x_plr, p)
+    h = stack(final['dec2_cnn'], torch.cat([r_sys_int, r_par2, x_int], dim=3), compute_dtype=dt)
+    logit = stack(final['dec2_out'], h, no_act=True, compute_dtype=dt)
+    return torch.sigmoid(pix_perm(logit, inv)).reshape(b, cfg.block_len, cfg.code_rate_k)
+
+
+def cnn2d_init(gen: torch.Generator, cfg, device='cpu'):
+    """DEC_CNN2D (JAX decoders.py:563-570): a 2D stack code_rate_n ->
+    dec_num_unit and a one-layer 1x1 stack to 1."""
+    init, _ = _stack2d(cfg)
+    return {'dec': init(gen, cfg.dec_num_layer, cfg.code_rate_n, cfg.dec_num_unit,
+                        cfg.dec_kernel_size, device),
+            'out': init(gen, 1, cfg.dec_num_unit, 1, 1, device)}
+
+
+def cnn2d_apply(params, cfg, received, perms, training=False, generator=None):
+    """sigmoid(ELU(out(dec(image)))): the out stack applies its ELU before the
+    sigmoid (JAX decoders.py:573-582)."""
+    dt = torch_dtype(cfg.dtype)
+    _, stack = _stack2d(cfg)
+    s, b = cfg.img_size, received.shape[0]
+    h = stack(params['dec'], received.reshape(b, s, s, cfg.code_rate_n), compute_dtype=dt)
+    x = stack(params['out'], h, compute_dtype=dt)
+    return torch.sigmoid(x).reshape(b, cfg.block_len, cfg.code_rate_k)
+
+
 DEC_REGISTRY = {
     'TurboAE_rate3_cnn': (largecnn_init, largecnn_apply),
     'TurboAE_rate3_cnn_dense': (largecnn_init, largecnn_apply),
     'TurboAE_rate3_rnn': (largernn_init, largernn_apply),
+    'TurboAE_rate3_cnn_2inter': (plain_cnn_init, largecnn2int_apply),
     'TurboAE_rate2_rnn': (largernn_rate2_init, largernn_rate2_apply),
+    'TurboAE_rate2_cnn': (plain_cnn_init, largecnn_rate2_apply),
     'nbcjr_rate3': (nbcjr_init, nbcjr_apply),
-}
-
-# the JAX registry's other keys, all of the CNN zoo's ROADMAP item M9
-UNPORTED_DECODERS = {
-    'TurboAE_rate3_cnn_2inter': 'M9', 'TurboAE_rate2_cnn': 'M9', 'rate3_cnn': 'M9',
-    'TurboAE_rate3_cnn2d': 'M9', 'TurboAE_rate3_cnn2d_dense': 'M9', 'rate3_cnn2d': 'M9',
-    'turboae_2int': 'M9',
+    'rate3_cnn': (cnn_rate3_init, cnn_rate3_apply),
+    'TurboAE_rate3_cnn2d': (largecnn2d_init, largecnn2d_apply),
+    'TurboAE_rate3_cnn2d_dense': (largecnn2d_init, largecnn2d_apply),
+    'rate3_cnn2d': (cnn2d_init, cnn2d_apply),
+    'turboae_2int': (plain_cnn_init, largecnn2int_apply),
 }
 
 
 def make_decoder(cfg):
     """(init, apply) of cfg.decoder (JAX decoders.py:605-608)."""
-    if cfg.decoder in UNPORTED_DECODERS:
-        raise NotImplementedError(f'decoder {cfg.decoder!r} is not ported yet '
-                                  f'(ROADMAP {UNPORTED_DECODERS[cfg.decoder]})')
     if cfg.decoder not in DEC_REGISTRY:
         raise ValueError(f'unknown decoder {cfg.decoder}')
     return DEC_REGISTRY[cfg.decoder]

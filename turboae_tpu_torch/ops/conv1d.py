@@ -1,14 +1,17 @@
-"""Same-length Conv1d stacks, dense stacks and linear heads
-(JAX: ops/conv1d.py:28-122).
+"""Same-shape Conv1d and Conv2d stacks, dense stacks and linear heads
+(JAX: ops/conv1d.py:28-188).
 
-Tensors are (B, L, C) channels last at this module's interface, as in the JAX
-package; `F.conv1d` sees (B, C, L) through a transpose inside.
+Tensors are channels last at this module's interface, as in the JAX
+package: (B, L, C) for 1D and (B, H, W, C) for 2D; `F.conv1d` and
+`F.conv2d` see (B, C, ...) through a transpose inside.
 
 Parameters are plain dicts in PyTorch's layout: a conv layer is
-{'w': (Cout, Cin, K), 'b': (Cout,)}, a linear head {'w': (out, in), 'b': (out,)}.
+{'w': (Cout, Cin, K), 'b': (Cout,)} (2D: {'w': (Cout, Cin, K, K), ...}), a
+linear head {'w': (out, in), 'b': (out,)}.
 
-Init is PyTorch's default for Conv1d and Linear, as in the JAX package (:28-41,
-66-74, 109-117): weight and bias both U(-1/sqrt(fan_in), 1/sqrt(fan_in)),
+Init is PyTorch's default for Conv1d, Conv2d and Linear, as in the JAX
+package (:28-41, 66-74, 109-117, 127-134): weight and bias both
+U(-1/sqrt(fan_in), 1/sqrt(fan_in)) with fan_in = Cin * K (2D: Cin * K * K),
 drawn in f32 from an explicit CPU torch.Generator and then moved to `device`,
 so an init does not depend on the device it lands on.
 
@@ -100,3 +103,59 @@ def linear_apply(p: Layer, x: torch.Tensor, compute_dtype=torch.float32) -> torc
     xq = x.to(compute_dtype).float()
     wq = p['w'].to(compute_dtype).float()
     return torch.matmul(xq, wq.t()) + p['b'].float()
+
+
+def conv2d_init(gen: torch.Generator, in_channels: int, out_channels: int,
+                kernel_size: int, device='cpu') -> Layer:
+    """One Conv2d layer: w (Cout, Cin, K, K), b (Cout,), fan_in = Cin * K * K."""
+    bound = 1.0 / math.sqrt(in_channels * kernel_size * kernel_size)
+    return {'w': _uniform(gen, (out_channels, in_channels, kernel_size, kernel_size), bound,
+                          device),
+            'b': _uniform(gen, (out_channels,), bound, device)}
+
+
+def conv2d_apply(p: Layer, x: torch.Tensor, compute_dtype=torch.float32) -> torch.Tensor:
+    """Same-shape 2D conv on (B, H, W, Cin) -> (B, H, W, Cout), zero padding
+    K//2 on both axes; the bias added in compute_dtype (JAX :137-150)."""
+    w = p['w'].to(compute_dtype)
+    y = F.conv2d(x.to(compute_dtype).permute(0, 3, 1, 2), w, padding=w.shape[2] // 2)
+    return y.permute(0, 2, 3, 1) + p['b'].to(compute_dtype)
+
+
+def stack2d_init(gen: torch.Generator, num_layer: int, in_channels: int,
+                 out_channels: int, kernel_size: int, device='cpu') -> List[Layer]:
+    """SameShapeConv2d: the first layer Cin -> Cout, the rest Cout -> Cout."""
+    return [conv2d_init(gen, in_channels if i == 0 else out_channels, out_channels,
+                        kernel_size, device) for i in range(num_layer)]
+
+
+def stack2d_apply(layers: List[Layer], x: torch.Tensor, no_act: bool = False,
+                  compute_dtype=torch.float32) -> torch.Tensor:
+    """SameShapeConv2d: conv then ELU, layer after layer (JAX :162-168)."""
+    for p in layers:
+        x = conv2d_apply(p, x, compute_dtype)
+        if not no_act:
+            x = F.elu(x)
+    return x
+
+
+def dense_stack2d_init(gen: torch.Generator, num_layer: int, in_channels: int,
+                       out_channels: int, kernel_size: int, device='cpu') -> List[Layer]:
+    """DenseSameShapeConv2d: layer i takes Cin + i * Cout channels."""
+    return [conv2d_init(gen, in_channels + i * out_channels, out_channels, kernel_size,
+                        device) for i in range(num_layer)]
+
+
+def dense_stack2d_apply(layers: List[Layer], x: torch.Tensor, no_act: bool = False,
+                        compute_dtype=torch.float32) -> torch.Tensor:
+    """The 2D dense stack (JAX :178-188): layer i reads the running concat
+    [x, out_0, ..., out_{i-1}], ELU after every layer unless no_act. As in
+    the 1D one, each layer rounds its input to compute_dtype."""
+    inp = x.to(compute_dtype)
+    out = conv2d_apply(layers[0], inp, compute_dtype)
+    out = out if no_act else F.elu(out)
+    for p in layers[1:]:
+        inp = torch.cat([inp, out], dim=-1)
+        out = conv2d_apply(p, inp, compute_dtype)
+        out = out if no_act else F.elu(out)
+    return out

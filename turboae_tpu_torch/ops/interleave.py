@@ -1,4 +1,4 @@
-"""Interleaver permutations (JAX: ops/interleave.py:20-53).
+"""Interleaver permutations (JAX: ops/interleave.py:20-72).
 
 Permutations are ALWAYS drawn on the host from numpy's MT19937 RandomState,
 never from a torch RNG: the reference's interleaver is that generator's
@@ -34,3 +34,15 @@ def interleave(x: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
 def deinterleave(x: torch.Tensor, p_inv: torch.Tensor) -> torch.Tensor:
     """Inverse of `interleave`; takes the INVERSE permutation (see invert_perm)."""
     return torch.index_select(x, 1, p_inv)
+
+
+def interleave_2d(x: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Permute the pixels of a (B, C, H, W) image, flattened row-major:
+    out[:, :, i] = x[:, :, p[i]] on the (B, C, H * W) view (JAX :56-64)."""
+    b, c, h, w = x.shape
+    return torch.index_select(x.reshape(b, c, h * w), 2, p).reshape(b, c, h, w)
+
+
+def deinterleave_2d(x: torch.Tensor, p_inv: torch.Tensor) -> torch.Tensor:
+    """Inverse of `interleave_2d`; takes the INVERSE permutation (JAX :67-72)."""
+    return interleave_2d(x, p_inv)

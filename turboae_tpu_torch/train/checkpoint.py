@@ -4,9 +4,10 @@
 Files are flax msgpack in the JAX package's tree layout, written and read by
 the port's own msgpack_io, so the two packages read each other's files:
   {'params': JAX param tree, 'step': int,
-   'opt_state': {'enc' | 'dec': {'0': inner state, '1': {}}}}
-where the inner state is optax's: Adam {'count': int32 0-d, 'mu', 'nu'}
-(trees shaped like that half's params), SGD with momentum {'trace'}; '1' is
+   'opt_state': {group: {'0': inner state, '1': {}}}}
+with one group an optimizer (`groups`: the AE's 'enc' and 'dec'), where
+the inner state is optax's: Adam {'count': int32 0-d, 'mu', 'nu'} (trees
+shaped like that group's params), SGD with momentum {'trace'}; '1' is
 the empty state of optax's learning-rate scaling. Lookahead over Adam
 (JAX train/optimizers.py:20-48) stores, in place of that pair,
   {'inner': {'0': Adam's state, '1': {}}, 'slow': a tree shaped like the
@@ -17,13 +18,16 @@ state {'0': {'count', 'mu': {}, 'nu': {}}, '1': {}}.
 FTAE's params have no halves: its optimizer state's 'enc' steps the forward
 encoders {'fwd_enc1', 'fwd_enc2', 'fwd_enc3'} and its 'dec' the feedback
 encoders and the decoder {'fb_enc1', 'fb_enc2', 'dec'} (JAX
-train/ftae_trainer.py:26-27), each moment a tree of those keys. The JAX training
-scripts store the epoch in 'step' (scripts/train_flagship.py:245); the
-port's CLIs do too.
+train/ftae_trainer.py:26-27), each moment a tree of those keys. The
+modulation AE {'enc', 'dec', 'mod', 'demod'} has one optimizer a phase,
+the groups 'encoder', 'decoder', 'mod' and 'demod' (JAX
+train/mod_trainer.py:23-43), whose moment trees are keyed {'enc'},
+{'dec'}, {'mod'} and {'demod'}. The JAX training scripts store the epoch in
+'step' (scripts/train_flagship.py:245); the port's CLIs do too.
 
 Port side, params are the port's param tree and an optimizer state is
-{'enc' | 'dec': optimizer.state()}, lists in tree_leaves order of that
-half's params (`groups`). A moment tree read from a file is put in the
+{group: optimizer.state()}, lists in tree_leaves order of that group's
+params. A moment tree read from a file is put in the
 params' key order before its leaves are listed.
 
 `load_checkpoint` merges only the leaves whose paths and shapes match the
@@ -43,13 +47,16 @@ from .msgpack_io import load_msgpack, save_msgpack
 _MOMENTS = ('mu', 'nu', 'trace')
 FTAE_GROUPS = {'enc': ('fwd_enc1', 'fwd_enc2', 'fwd_enc3'),
                'dec': ('fb_enc1', 'fb_enc2', 'dec')}
+MOD_GROUPS = {'encoder': ('enc',), 'decoder': ('dec',), 'mod': ('mod',), 'demod': ('demod',)}
 
 
 def groups(params) -> dict:
-    """{'enc' | 'dec': the params one optimizer steps}: the AE's halves, or
-    FTAE's forward encoders and the rest."""
-    if 'fwd_enc1' in params:
-        return {h: {k: params[k] for k in keys} for h, keys in FTAE_GROUPS.items()}
+    """{group: the params one optimizer steps}: the AE's halves 'enc' and
+    'dec', FTAE's forward encoders and the rest, or the modulation AE's four
+    phases."""
+    for marker, table in (('fwd_enc1', FTAE_GROUPS), ('mod', MOD_GROUPS)):
+        if marker in params:
+            return {h: {k: params[k] for k in keys} for h, keys in table.items()}
     return {h: params[h] for h in ('enc', 'dec')}
 
 

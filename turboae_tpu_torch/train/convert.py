@@ -2,16 +2,21 @@
 
 JAX params (a nested dict of arrays, as its inits make them or as a msgpack
 checkpoint holds them, where lists appear as dicts keyed '0', '1', ...):
-  - a conv layer {w (K, Cin, Cout), b}; a linear head {w (in, out), b};
+  - a conv layer {w (K, Cin, Cout), b}, a 2D conv layer {w (K, K, Cin, Cout),
+    b} and a linear head {w (in, out), b}, told apart by the weight's rank
+    (one more in a node stacked over iterations), not by the key: the 2D
+    codes' 'lin' heads are 1x1 Conv2d layers;
   - one direction of an RNN layer {w_ih (In, G*H), w_hh (H, G*H), b_ih, b_hh};
   - an iterative decoder {'scan': <iteration tree stacked over the first
     n-1 iterations>, 'final': <the last iteration>}, the scan's entries None
     when n = 1;
   - every other node (branches, FTAE's phase encoders with their 'pw' (L, 1)
     and 'ps' () leaves, nbcjr's and FTAE's flat decoders) as it is.
-The AE's tree is {'enc', 'dec'} (a fixed encoder's half is {}); FTAE's is
+The AE's tree is {'enc', 'dec'} (a fixed encoder's half is {}), the
+modulation AE's {'enc', 'dec', 'mod', 'demod'}; FTAE's is
 {'fwd_enc1', 'fwd_enc2', 'fwd_enc3', 'fb_enc1', 'fb_enc2', 'dec'}.
-Port params: the same trees with conv weights (Cout, Cin, K), linear and RNN
+Port params: the same trees with conv weights (Cout, Cin, K) or
+(Cout, Cin, K, K), linear and RNN
 weights (out, in), lists as lists, and an iterative decoder as
 {'iters': [it_0 .. it_{n-1}]}. A dict's keys come out in one fixed order
 (_ORDER: the order the port's inits write), whatever order the file has.
@@ -28,9 +33,10 @@ import torch
 
 _RNN_DIR = ('w_ih', 'w_hh', 'b_ih', 'b_hh')
 _ORDER = {k: i for i, k in enumerate((
-    'enc', 'fwd_enc1', 'fwd_enc2', 'fwd_enc3', 'fb_enc1', 'fb_enc2', 'dec',
+    'enc', 'fwd_enc1', 'fwd_enc2', 'fwd_enc3', 'fb_enc1', 'fb_enc2', 'dec', 'mod', 'demod',
     'iters', 'dec1_cnn', 'dec2_cnn', 'dec1_rnn', 'dec2_rnn', 'dec1_lin', 'dec2_lin',
-    'dec1', 'dec2', 'lin1', 'lin2', 'cnn', 'rnn', 'lin', 'out', 'pw', 'ps', 'final',
+    'dec1_out', 'dec2_out', 'dec1', 'dec2', 'lin1', 'lin2', 'cnn', 'rnn', 'lin', 'out', 'pw',
+    'ps', 'layer', 'final',
     'fwd', 'bwd', *_RNN_DIR, 'w', 'b'))}
 
 
@@ -57,18 +63,18 @@ def _n(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
-def _conv_from(layer, device, i=None):
+# a weight's axes from the JAX layout to the port's, by its rank:
+# conv1d (K, Cin, Cout), conv2d (K, K, Cin, Cout), linear (in, out)
+_FROM_AXES = {3: (2, 1, 0), 4: (3, 2, 0, 1), 2: (1, 0)}
+_TO_AXES = {3: (2, 1, 0), 4: (2, 3, 1, 0), 2: (1, 0)}
+
+
+def _layer_from(layer, device, i=None):
+    """A conv layer or a linear head (iteration i of a stacked one)."""
     w, b = np.asarray(layer['w']), np.asarray(layer['b'])
     if i is not None:
         w, b = w[i], b[i]
-    return {'w': _t(w, device).permute(2, 1, 0).contiguous(), 'b': _t(b, device)}
-
-
-def _lin_from(lin, device, i=None):
-    w, b = np.asarray(lin['w']), np.asarray(lin['b'])
-    if i is not None:
-        w, b = w[i], b[i]
-    return {'w': _t(w, device).t().contiguous(), 'b': _t(b, device)}
+    return {'w': _t(w, device).permute(_FROM_AXES[w.ndim]).contiguous(), 'b': _t(b, device)}
 
 
 def _from(tree, device, i=None):
@@ -79,8 +85,7 @@ def _from(tree, device, i=None):
         return [_from(v, device, i) for v in _as_list(tree)]
     if isinstance(tree, dict):
         if set(tree) == {'w', 'b'}:
-            conv = np.ndim(tree['w']) - (i is not None) == 3
-            return (_conv_from if conv else _lin_from)(tree, device, i)
+            return _layer_from(tree, device, i)
         if set(tree) == set(_RNN_DIR):
             out = {}
             for k in _RNN_DIR:
@@ -132,7 +137,7 @@ def _to(tree):
             return {'scan': scan, 'final': final}
         if set(tree) == {'w', 'b'}:
             w = tree['w']
-            return {'w': _n(w.permute(2, 1, 0) if w.dim() == 3 else w.t()), 'b': _n(tree['b'])}
+            return {'w': _n(w.permute(_TO_AXES[w.dim()])), 'b': _n(tree['b'])}
         if set(tree) == set(_RNN_DIR):
             return {k: _n(tree[k].t() if k.startswith('w') else tree[k]) for k in _RNN_DIR}
         return {k: _to(v) for k, v in tree.items()}

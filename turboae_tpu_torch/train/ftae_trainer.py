@@ -22,71 +22,32 @@ per-batch BER and BLER (JAX :184-207). The caller decides TF32.
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
 from ..channels.noise import generate_noise, sample_noise, spec_from_cfg
-from ..models.channel_ae import make_perms
 from ..models.ftae import forward_ftae, init_ftae
 from ..utils import metrics as M
-from ..utils.device import resolve_device
-from ..utils.tree import tree_leaves, tree_map
+from ..utils.tree import tree_leaves
 from .checkpoint import groups
 from .losses import customized_loss
 from .optimizers import make_optimizer
+from .trainer import TrainerBase
 
 _MODES = {'encoder': 'enc', 'decoder': 'dec'}
 
 
-class FTAETrainer:
+class FTAETrainer(TrainerBase):
     def __init__(self, cfg, device='cuda', params=None):
         """params: a port FTAE param tree to start from (copied), else a
         seeded init."""
-        self.cfg = cfg
-        self.device = resolve_device(device)
-        self.perms = make_perms(cfg, self.device)
-        if params is None:
-            params = init_ftae(torch.Generator().manual_seed(cfg.seed), cfg, self.device)
-        else:
-            params = tree_map(lambda t: t.detach().to(self.device, torch.float32, copy=True),
-                              params)
-        self._params = params
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(cfg.seed)
-        self._leaves = {h: tree_leaves(g) for h, g in groups(params).items()}
+        super().__init__(cfg, device, params, init_ftae)
+        self._leaves = {h: tree_leaves(g) for h, g in groups(self._params).items()}
         self.opt = {'enc': make_optimizer(cfg, cfg.enc_lr, self._leaves['enc']),
                     'dec': make_optimizer(cfg, cfg.dec_lr, self._leaves['dec'])}
 
-    @property
-    def params(self):
-        return self._params
-
-    @params.setter
-    def params(self, tree):
-        """Copy a port FTAE param tree of the same shapes into the trainer's."""
-        new, old = tree_leaves(tree), tree_leaves(self._params)
-        if len(new) != len(old) or any(a.shape != b.shape for a, b in zip(old, new)):
-            raise ValueError('the params do not match the trainer\'s config')
-        with torch.no_grad():
-            for a, b in zip(old, new):
-                a.copy_(b)
-
-    @property
-    def opt_state(self) -> Dict[str, dict]:
-        return {h: o.state() for h, o in self.opt.items()}
-
-    @opt_state.setter
-    def opt_state(self, state: Dict[str, dict]):
-        for h, s in state.items():
-            self.opt[h].load_state(s)
-
     # -------------------------------------------------------------
-    def _bits(self) -> torch.Tensor:
-        cfg = self.cfg
-        return (torch.rand((cfg.batch_size, cfg.block_len, cfg.code_rate_k),
-                           generator=self.generator, device=self.device) < 0.5).float()
-
     def _shape(self):
         return (self.cfg.batch_size, self.cfg.block_len, 3)
 
@@ -112,20 +73,11 @@ class FTAETrainer:
                        ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """The loss and the gradients of the phase's params, in tree_leaves
         order of its group (checkpoint.groups)."""
-        half = _MODES[mode]
-        for h, leaves in self._leaves.items():
-            for p in leaves:
-                p.requires_grad_(h == half)
-        try:
+        def loss():
             out, codes = forward_ftae(self.params, self.cfg, bits, fwd_noise, fb_noise,
                                       self.perms)
-            loss = customized_loss(torch.clamp(out, 0.0, 1.0), bits, self.cfg, code=codes)
-            grads = torch.autograd.grad(loss, self._leaves[half], materialize_grads=True)
-        finally:
-            for leaves in self._leaves.values():
-                for p in leaves:
-                    p.requires_grad_(False)
-        return loss.detach(), list(grads)
+            return customized_loss(torch.clamp(out, 0.0, 1.0), bits, self.cfg, code=codes)
+        return self._group_loss_and_grads(_MODES[mode], loss)
 
     def _train_step(self, mode: str, bits=None, fwd_noise=None, fb_noise=None) -> torch.Tensor:
         """One optimizer step of `mode` on a fresh batch (or the one given)."""

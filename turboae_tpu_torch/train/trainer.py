@@ -67,26 +67,25 @@ def _refuse_unported(cfg):
             raise NotImplementedError(f'{name} is not ported yet (ROADMAP M14)')
 
 
-class Trainer:
-    def __init__(self, cfg, device='cuda', params=None):
-        """params: a port param tree to start from (copied), else a seeded init."""
-        _refuse_unported(cfg)
+class TrainerBase:
+    """What every trainer shares: the config, the device, the interleavers,
+    the params (a seeded init from a CPU generator, or a copy of the tree
+    given), the device generator seeded with cfg.seed, and the params and
+    optimizer state assigned by copy. A subclass sets `self._leaves`
+    ({group: tree_leaves of its params}) and `self.opt` ({group: optimizer})."""
+
+    def __init__(self, cfg, device, params, init):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.perms = make_perms(cfg, self.device)
         if params is None:
-            params = init_ae(torch.Generator().manual_seed(cfg.seed), cfg, self.device)
+            params = init(torch.Generator().manual_seed(cfg.seed), cfg, self.device)
         else:
             params = tree_map(lambda t: t.detach().to(self.device, torch.float32, copy=True),
                               params)
         self._params = params
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(cfg.seed)
-        self._leaves = {h: tree_leaves(params[h]) for h in ('enc', 'dec')}
-        self.opt = {'enc': make_optimizer(cfg, cfg.enc_lr, self._leaves['enc']),
-                    'dec': make_optimizer(cfg, cfg.dec_lr, self._leaves['dec'])}
-        self.marks: Optional[List[Tuple[str, torch.cuda.Event]]] = None
-        self.last_test: Optional[dict] = None
 
     @property
     def params(self):
@@ -105,13 +104,45 @@ class Trainer:
 
     @property
     def opt_state(self) -> Dict[str, dict]:
-        """{'enc' | 'dec': optimizer.state()}, as train/checkpoint.py writes it."""
+        """{group: optimizer.state()}, as train/checkpoint.py writes it."""
         return {h: o.state() for h, o in self.opt.items()}
 
     @opt_state.setter
     def opt_state(self, state: Dict[str, dict]):
         for h, s in state.items():
             self.opt[h].load_state(s)
+
+    def _bits(self) -> torch.Tensor:
+        cfg = self.cfg
+        return (torch.rand((cfg.batch_size, cfg.block_len, cfg.code_rate_k),
+                           generator=self.generator, device=self.device) < 0.5).float()
+
+    def _group_loss_and_grads(self, group: str, loss_fn) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """loss_fn()'s value and its gradients of `group`'s params only, in
+        their tree_leaves order; the other groups build no graph."""
+        for h, leaves in self._leaves.items():
+            for p in leaves:
+                p.requires_grad_(h == group)
+        try:
+            loss = loss_fn()
+            grads = torch.autograd.grad(loss, self._leaves[group], materialize_grads=True)
+        finally:
+            for leaves in self._leaves.values():
+                for p in leaves:
+                    p.requires_grad_(False)
+        return loss.detach(), list(grads)
+
+
+class Trainer(TrainerBase):
+    def __init__(self, cfg, device='cuda', params=None):
+        """params: a port param tree to start from (copied), else a seeded init."""
+        _refuse_unported(cfg)
+        super().__init__(cfg, device, params, init_ae)
+        self._leaves = {h: tree_leaves(self._params[h]) for h in ('enc', 'dec')}
+        self.opt = {'enc': make_optimizer(cfg, cfg.enc_lr, self._leaves['enc']),
+                    'dec': make_optimizer(cfg, cfg.dec_lr, self._leaves['dec'])}
+        self.marks: Optional[List[Tuple[str, torch.cuda.Event]]] = None
+        self.last_test: Optional[dict] = None
 
     def _mark(self, name: str):
         if self.marks is not None:
@@ -120,11 +151,6 @@ class Trainer:
             self.marks.append((name, ev))
 
     # -------------------------------------------------------------
-    def _bits(self) -> torch.Tensor:
-        cfg = self.cfg
-        return (torch.rand((cfg.batch_size, cfg.block_len, cfg.code_rate_k),
-                           generator=self.generator, device=self.device) < 0.5).float()
-
     def _noise_shape(self):
         return (self.cfg.batch_size, self.cfg.block_len, self.cfg.code_rate_n)
 

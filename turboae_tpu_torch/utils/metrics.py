@@ -24,13 +24,15 @@ def snr_sigma2db(sigma: float) -> float:
     return -20.0 * math.log10(sigma)
 
 
-def f32_mean(x: torch.Tensor, dim=None) -> torch.Tensor:
+def f32_mean(x: torch.Tensor, dim=None, keepdim: bool = False) -> torch.Tensor:
     """Mean as XLA computes it, the f32 sum times the f32 reciprocal of the
     count, so the port's rates equal the JAX package's bit for bit where the
-    sums are exact (error counts)."""
-    n = x.numel() if dim is None else x.shape[dim]
-    recip = float(np.float32(1.0) / np.float32(n))
-    return (x.sum() if dim is None else x.sum(dim=dim)) * recip
+    sums are exact (error counts). `dim`: None (all), an axis or a tuple."""
+    if dim is None:
+        return x.sum() * float(np.float32(1.0) / np.float32(x.numel()))
+    dims = (dim,) if isinstance(dim, int) else tuple(dim)
+    n = math.prod(x.shape[d] for d in dims)
+    return x.sum(dim=dims, keepdim=keepdim) * float(np.float32(1.0) / np.float32(n))
 
 
 def _decisions(y_true: torch.Tensor, y_pred: torch.Tensor):
