@@ -125,7 +125,38 @@ Phases, each printing one JSON line:
                count up by its steps, each loss below MOD_LOSS_MAX; then
                cli/main_modulation.py from its params for one epoch, whose
                checkpoint has the file's layout;
-  train_times  the port of bench.py (cli/bench_train.py), fused on and off;
+  train_times  the port of bench.py (cli/bench_train.py), fused on and off,
+               with its MFU;
+  vbl_epoch    path 19: one cli/main.py epoch with --is_variable_block_len
+               (10..199: the 8 buckets 10, 37, ..., 199), full width, bf16,
+               fused, batch 500 (60 steps), then its tests at its length, at
+               10 and at 200: the (phase, length) of every step as a narrow
+               CPU trainer draws them from the same seed, every phase-epoch
+               finite and the last below 0.69, 12 K2 launches a forward (K2
+               is also held to its plain version at each bucket length, B=500,
+               in kernel_check);
+  k_same_code  path 20: is_k_same_code (k 2) at full width, bf16, fused: the
+               encoder's bits shared by steps (0, 1) and (2, 3), the noise new
+               at every step, the decoder's bits new at every step;
+  norm_stats_test  path 21: test_pass with --precompute_norm_stats (the
+               precompute's running mean and std threaded through both passes);
+  graph_steps  path 22: steps_per_call as CUDA graphs (6 steps a replay, 2
+               replays) against eager steps from the same params, optimizer
+               state and generator: flagship_fading.msgpack's Adam state on
+               its fading channel, bf16 fused and f32 unfused, both phases;
+               Lookahead and SGD in f32; f32 losses within 1e-5 relative,
+               bf16 within the gap of two eager runs plus 1e-3; K2 counted
+               per replayed step; then bench_train's timed loop through the
+               graphs, fused and unfused, beside train_times' eager figures;
+  flops        cli/compute_flop's report on the card (the counted forward
+               within 5 % of the closed form) and bench_train's step FLOPs,
+               TFLOP/s and MFU (eager and graph) against the named peak;
+  train_clis   path 23: the crown averaged with itself is its own file, byte
+               for byte; select_checkpoint and select_bler_deep rank
+               flagship.msgpack and flagship_fading.msgpack (4,000 blocks a
+               point, fused); train_family resumes ftae_pa.msgpack and
+               mod_ae.msgpack for one epoch each, every phase-epoch finite and
+               below 0.69;
   conv_stack_bench  path 7: the port of scripts/bench_conv_stack.py, the only
                path of K1, with its launches read around it;
   times        CUDA-event times of each kernel, its plain version and a
@@ -145,12 +176,6 @@ import time
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-
-# Published dense peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet)
-PEAK_BF16_FLOPS = 989e12       # tensor cores, bf16
-PEAK_TF32_FLOPS = 495e12       # tensor cores, TF32: K1 does three TF32 products a product (3xTF32)
-PEAK_F32_FLOPS = 67e12         # CUDA cores, f32 FFMA: the bound of exact f32 without the tensor cores
-PEAK_BYTES_PER_S = 3.35e12
 
 SWEEP_POINTS = (-1.0, 0.0)
 SWEEP_BLOCKS = 20000
@@ -227,6 +252,14 @@ MOD_RECIPE = dict(enc_lr=1e-4, dec_lr=1e-4, mod_lr=1e-4, demod_lr=1e-4, batch_si
 # 0.0089-0.0098 (demod).
 MOD_LOSS_MAX = 0.02
 MOD_CLI_NUM_BLOCK = 1000            # the cli/main_modulation.py run: 2 steps an epoch
+VBL_LOW, VBL_HIGH = 10, 200
+VBL_BUCKETS = [10, 37, 64, 91, 118, 145, 172, 199]   # np.linspace(10, 199, 8)
+VBL_NUM_BLOCK = 5000                # the cli/main.py epoch: 10 steps a phase-epoch at batch 500
+VBL_BATCH = 500
+VBL_LOSS_MAX = 0.69                 # the untrained BCE, log 2; fixed before the first card run
+GRAPH_N = 6                         # steps_per_call: optimizer steps a graph replay
+SELECT_BLOCKS = 4000                # blocks a point of the two rankings
+FAMILY_NUM_BLOCK = 1000             # train_family's epoch: 2 steps a phase-epoch at batch 500
 
 
 def emit(phase: str, **fields):
@@ -309,10 +342,14 @@ def main() -> int:
     # column groups of warps, a last block that holds one of its three rows
     block_edge = [('odd_c', (500, 100, 7, 25, 5, 5)), ('c128', (500, 100, 7, 128, 5, 5)),
                   ('c256', (500, 100, 7, 256, 5, 5)), ('partial_block', (334, 100, 7, 100, 5, 5))]
+    # the bucket lengths of a variable-block-length epoch, the crown's stack
+    vbl = [(f'vbl_l{L}', (VBL_BATCH, L, 7, 100, 5, 5), crown['dec']['iters'][0]['dec1_cnn'])
+           for L in VBL_BUCKETS]
     kernels = {  # name: (wrapper, plain, tolerance, cases)
         'conv_stack_bf16': (ks.conv_stack_bf16, ks.conv_stack_bf16_plain, KERNEL_REL_TOL,
                             [('main_path', main_shape, crown['dec']['iters'][0]['dec1_cnn'])]
-                            + [(n, sh, None) for n, sh in edge + block_edge if n != 'two_layers']),
+                            + [(n, sh, None) for n, sh in edge + block_edge if n != 'two_layers']
+                            + vbl),
         'conv_stack_f32': (ks.conv_stack_f32, ks.conv_stack_f32_plain, F32_REL_TOL,
                            [('bench', bench_shape, None)]
                            + [(n, sh, None) for n, sh in edge + block_edge]),
@@ -415,7 +452,7 @@ def main() -> int:
     paths['resume'] = resume_phase(dev, gen)
 
     # ---- train_times: the port of bench.py, fused on and off ----
-    train_times_phase(dev)
+    eager_bench = train_times_phase(dev)
 
     # ---- conv_stack_bench: path 7, the only path of K1 ----
     paths['conv_stack_bench'] = conv_stack_bench_phase(dev)
@@ -450,6 +487,16 @@ def main() -> int:
     paths['mod_curve'] = mod_curve_phase(dev)
     paths['mod_forward'] = mod_forward_phase(dev, gen)
     paths['mod_resume'] = mod_resume_phase(dev)
+
+    # ---- the trainer's extras (paths 19-22), the FLOP count and the training CLIs ----
+    paths['vbl_epoch'] = vbl_epoch_phase(dev)
+    paths['k_same_code'] = k_same_code_phase(dev)
+    paths['norm_stats_test'] = test_pass_phase(crown, dev, phase='norm_stats_test',
+                                               precompute_norm_stats=True)
+    paths['graph_steps'], graph_bench = graph_steps_phase(dev, eager_bench)
+    flops_phase(dev, {**{f'eager_{k}': r for k, r in eager_bench.items()},
+                      **{f'graph_{k}': r for k, r in graph_bench.items()}})
+    paths['train_clis'] = train_clis_phase(dev)
 
     # ---- times: each kernel, its plain version, a library yardstick, its bound ----
     sweep_layers = crown['dec']['iters'][0]['dec1_cnn']
@@ -609,15 +656,18 @@ def curve_phase(phase, dev, ckpt, ref_name, flags, snrs=SWEEP_POINTS, stacks=12)
     return counts
 
 
-def test_pass_phase(crown, dev):
+def test_pass_phase(crown, dev, phase='test_pass', precompute_norm_stats=False):
     """Trainer.test on the crown: both passes at -1 and 0 dB; the main pass
-    held to the crown's counts, the encoder power to block_norm's 1."""
+    held to the crown's counts, the encoder power to block_norm's 1. With
+    precompute_norm_stats the stats of the precompute pass are threaded
+    through every batch of both passes."""
     from turboae_tpu_torch.config import Config
     from turboae_tpu_torch.train.trainer import Trainer
     from turboae_tpu_torch.utils.metrics import two_proportion_z
     cfg = Config(batch_size=SWEEP_BATCH, num_block=TEST_PASS_BLOCKS, dtype='bfloat16',
                  use_fused_conv=True, snr_points=len(SWEEP_POINTS),
-                 snr_test_start=SWEEP_POINTS[0], snr_test_end=SWEEP_POINTS[-1])
+                 snr_test_start=SWEEP_POINTS[0], snr_test_end=SWEEP_POINTS[-1],
+                 precompute_norm_stats=precompute_norm_stats)
     trainer = Trainer(cfg, dev, params=crown)
     with open(os.path.join(ROOT, 'artifacts', 'eval_crown_r4.json')) as f:
         ref = json.load(f)
@@ -634,14 +684,17 @@ def test_pass_phase(crown, dev):
     rep = trainer.last_test
     expected = 12 * 2 * (TEST_PASS_BLOCKS // SWEEP_BATCH) * len(SWEEP_POINTS)
     decoded = 2 * n * len(SWEEP_POINTS)
-    emit('test_pass', snrs=snrs, ber=ber, bler=bler, z_bler=z, ber_punc=rep['ber_punc'],
+    stats = trainer.norm_stats
+    emit(phase, snrs=snrs, ber=ber, bler=bler, z_bler=z, ber_punc=rep['ber_punc'],
          bler_punc=rep['bler_punc'], encoder_power=rep['encoder_power'], blocks=n,
+         norm_stats=None if stats is None else {k: float(v) for k, v in stats._asdict().items()},
          launches=counts, expected_launches=expected, seconds=seconds,
          decoded_blocks_per_s=decoded / seconds)
     check(counts['conv_stack_bf16'] == expected,
-          f"test_pass: conv_stack_bf16 launched {counts['conv_stack_bf16']} times, not {expected}")
-    check(all(abs(v) < MAX_Z for v in z), f'test_pass: BLER z {z}')
+          f"{phase}: conv_stack_bf16 launched {counts['conv_stack_bf16']} times, not {expected}")
+    check(all(abs(v) < MAX_Z for v in z), f'{phase}: BLER z {z}')
     check(abs(rep['encoder_power'] - 1.0) < 1e-2, f"encoder power {rep['encoder_power']}")
+    check((stats is not None) == precompute_norm_stats, f'{phase}: norm stats {stats}')
     return counts
 
 
@@ -1547,8 +1600,9 @@ def train_times_phase(dev, batch=TRAIN_BATCH, steps=60, **cfg_overrides):
                   **cfg_overrides)
         check(math.isfinite(r['last_loss']), 'bench_train: non-finite loss')
         check((ks.conv_stack_bf16.launches > before) == fused, 'bench_train: K2 launches')
-        out['fused' if fused else 'unfused'] = r['value']
-    emit('train_times', train_blocks_per_s=out, batch=batch, steps=steps,
+        out['fused' if fused else 'unfused'] = r
+    emit('train_times', train_blocks_per_s={k: r['value'] for k, r in out.items()},
+         mfu={k: r['mfu'] for k, r in out.items()}, batch=batch, steps=steps,
          schedule='1 encoder : 5 decoder', dtype='bfloat16', allow_tf32=False)
     return out
 
@@ -1568,6 +1622,321 @@ def conv_stack_bench_phase(dev, argv=()):
     check(counts['conv_stack_bf16'] > 0, 'K2 did not launch in its bench')
     check(numerics['cuda_f32_max_rel_err'] < F32_REL_TOL, 'K1 bench numerics')
     check(numerics['cuda_bf16_max_rel_err'] < KERNEL_REL_TOL, 'K2 bench numerics')
+    return counts
+
+
+def vbl_epoch_phase(dev):
+    """One cli/main.py epoch with --is_variable_block_len over 10..199 (the
+    eight buckets of np.linspace(10, 199, 8)) at full width, bf16, fused,
+    batch VBL_BATCH, VBL_NUM_BLOCK blocks, then its three tests (the run's
+    length, block_len_low and block_len_high; SNR_POINTS_VBL points each).
+    The (phase, length) of every step equals what a narrow CPU trainer
+    draws from the same seed and schedule; every phase-epoch's loss is
+    finite and the last below the untrained 0.69; K2 launches 12 times a
+    forward. Returns the run's launch counts."""
+    from turboae_tpu_torch.cli import main as cli_main
+    from turboae_tpu_torch.config import Config
+    from turboae_tpu_torch.train import trainer as trainer_mod
+    from turboae_tpu_torch.utils.device import nvidia_smi
+    vbl = ['--is_variable_block_len', '-block_len_low', str(VBL_LOW), '-block_len_high',
+           str(VBL_HIGH)]
+    argv = [*vbl, '-dtype', 'bfloat16', '--use_fused_conv', '-num_epoch', '1',
+            '-num_block', str(VBL_NUM_BLOCK), '-batch_size', str(VBL_BATCH),
+            '-snr_points', str(len(SWEEP_POINTS)), '-snr_test_start', str(SWEEP_POINTS[0]),
+            '-snr_test_end', str(SWEEP_POINTS[-1]), '--device', str(dev)]
+    steps = []
+    step_fn = trainer_mod.Trainer._train_step
+
+    def recorded(self, mode, bits=None, noise=None, block_len=None):
+        if self.cfg.is_variable_block_len:
+            steps.append((mode, block_len))
+        return step_fn(self, mode, bits, noise, block_len)
+    trainer_mod.Trainer._train_step = recorded
+    try:
+        trainer, seconds, train_s, blocks, losses, counts, _ = timed_cli(
+            dev, trainer_mod.Trainer, cli_main.main, argv)
+        card_steps = list(steps)
+        # the same schedule at a narrow width on the CPU: the lengths and
+        # seeds come from cfg.seed alone
+        steps.clear()
+        n = VBL_NUM_BLOCK // VBL_BATCH
+        cpu = trainer_mod.Trainer(trainer.cfg.replace(
+            enc_num_unit=8, dec_num_unit=8, num_iteration=2, dtype='float32',
+            use_fused_conv=False, batch_size=2, num_block=2 * n), 'cpu')
+        for mode in ['encoder'] * trainer.cfg.num_train_enc + ['decoder'] * trainer.cfg.num_train_dec:
+            cpu.train_epoch(1, mode, verbose=False)
+        cpu_steps = list(steps)
+    finally:
+        trainer_mod.Trainer._train_step = step_fn
+    cfg = trainer.cfg
+    buckets = trainer_mod.vbl_buckets(cfg)
+    val = max(1, int(cfg.num_block / cfg.batch_size * cfg.test_ratio))
+    forwards = len(card_steps) + val + 3 * 2 * cfg.snr_points * n
+    emit('vbl_epoch', buckets=buckets, lengths_used=sorted({L for _, L in card_steps}),
+         seeds=sorted(trainer.vbl_seeds.items()), epoch_losses=losses,
+         loss_max=VBL_LOSS_MAX, steps=len(card_steps), same_as_cpu=card_steps == cpu_steps,
+         test_bler=trainer.last_test['bler'], cli_seconds=seconds, train_seconds=train_s,
+         train_blocks_per_s=blocks / train_s, launches=counts,
+         expected_launches=12 * forwards, card=nvidia_smi())
+    check(buckets == VBL_BUCKETS, f'vbl_epoch: buckets {buckets}')
+    check(card_steps == cpu_steps and len(card_steps) == 6 * n,
+          'vbl_epoch: the card drew other lengths than the CPU')
+    check(len(losses) == 6 and all(math.isfinite(v) for v in losses) and
+          losses[-1] < VBL_LOSS_MAX, f'vbl_epoch: epoch losses {losses}')
+    check(counts['conv_stack_bf16'] == 12 * forwards,
+          f"vbl_epoch: conv_stack_bf16 launched {counts['conv_stack_bf16']} times, "
+          f'not 12 x {forwards}')
+    return counts
+
+
+def k_same_code_phase(dev):
+    """is_k_same_code (k = 2) at full width, bf16, fused, batch 500: in an
+    encoder epoch of 5 steps the bits are shared by steps (0, 1) and (2, 3)
+    and new at 0, 2 and 4, the noise new at every step; a decoder epoch
+    draws new bits every step. Returns the launch counts of both epochs."""
+    from turboae_tpu_torch.config import Config
+    from turboae_tpu_torch.train.trainer import Trainer
+    cfg = Config(batch_size=TRAIN_BATCH, num_block=5 * TRAIN_BATCH, dtype='bfloat16',
+                 use_fused_conv=True, is_k_same_code=True, k_same_code=2)
+    tr = Trainer(cfg, dev)
+    seen = []
+    inner = tr.loss_and_grads
+
+    def record(mode, bits, noise, *a):
+        seen.append((mode, bits.clone(), noise.clone()))
+        return inner(mode, bits, noise, *a)
+    tr.loss_and_grads = record
+    sync(dev)
+    reset_counts()
+    losses = {m: tr.train_epoch(1, m, verbose=False) for m in ('encoder', 'decoder')}
+    sync(dev)
+    counts = read_counts()
+    enc = [(b, n) for m, b, n in seen if m == 'encoder']
+    dec = [b for m, b, _ in seen if m == 'decoder']
+    same = [bool(torch.equal(a[0], b[0])) for a, b in zip(enc, enc[1:])]
+    noise_new = all(not torch.equal(a[1], b[1]) for i, a in enumerate(enc) for b in enc[i + 1:])
+    dec_new = all(not torch.equal(a, b) for a, b in zip(dec, dec[1:]))
+    emit('k_same_code', k=cfg.k_same_code, encoder_bits_same_as_previous=same,
+         encoder_noise_all_new=noise_new, decoder_bits_all_new=dec_new, losses=losses,
+         launches=counts, expected_launches=12 * len(seen))
+    check(same == [True, False, True, False], f'k_same_code: bits reused {same}')
+    check(noise_new and dec_new, 'k_same_code: noise or decoder bits repeated')
+    check(all(math.isfinite(v) for v in losses.values()), f'k_same_code: losses {losses}')
+    check(counts['conv_stack_bf16'] == 12 * len(seen), f'k_same_code: launches {counts}')
+    return counts
+
+
+def graph_steps_phase(dev, eager_bench):
+    """steps_per_call as CUDA graphs, against eager steps from the same
+    params, optimizer state and generator state (flagship_fading.msgpack
+    with its Adam state on its fading channel, whose gain the generator
+    draws; a seeded init for Lookahead and SGD): GRAPH_N steps a replay, 2
+    replays, each phase. Three trainers a case: two eager (their gap is
+    the run-to-run noise) and one that replays. f32 unfused: every loss
+    within 1e-5 relative of eager; bf16 fused: within the eager-eager gap
+    plus 1e-3. cuDNN's backward algorithms may add in another order from
+    run to run, which bf16 and a fine-tuned model's small losses amplify
+    (on an H100 80GB HBM3 at 700 W, eager against eager: 1.2e-3 in the
+    decoder phase, 1.3e-2 in the encoder's); the comparisons run with
+    torch.backends.cudnn.deterministic so that they measure the graph, not
+    that noise. Then cli/bench_train's timed loop through the graphs, fused
+    and unfused, beside the eager figures of train_times. Returns the launch
+    counts of the replaying trainers and the graph benchmarks."""
+    from turboae_tpu_torch.cli.bench_train import bench
+    from turboae_tpu_torch.config import Config
+    from turboae_tpu_torch.train.checkpoint import load_checkpoint
+    from turboae_tpu_torch.train.trainer import Trainer
+    from turboae_tpu_torch.utils.device import nvidia_smi
+    path = os.path.join(ROOT, 'artifacts', 'flagship_fading.msgpack')
+    n, groups = GRAPH_N, 2
+    cases = [('bfloat16', True, 'adam', ('decoder', 'encoder')),
+             ('float32', False, 'adam', ('decoder', 'encoder')),
+             ('float32', False, 'lookahead', ('decoder',)),
+             ('float32', False, 'sgd', ('decoder',))]
+    results, counts = [], {'conv_stack_bf16': 0, 'conv_stack_f32': 0}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+
+    def trainer(cfg, from_file):
+        tr = Trainer(cfg, dev)
+        if from_file:
+            tr.params, tr.opt_state, _ = load_checkpoint(path, tr.params, tr.opt_state)
+        return tr
+    for dtype, fused, opt, modes in cases:
+        from_file = opt == 'adam'
+        cfg = Config(batch_size=TRAIN_BATCH, dtype=dtype, use_fused_conv=fused, optimizer=opt,
+                     **(dict(channel='fading', train_dec_channel_low=-2.5,
+                             train_dec_channel_high=2.5, train_enc_channel_low=0.5,
+                             train_enc_channel_high=0.5) if from_file else {}))
+        for mode in modes:
+            eager = []
+            for _ in range(2):
+                tr = trainer(cfg, from_file)
+                eager.append((torch.stack([tr._train_step(mode) for _ in range(n * groups)]),
+                              [p.clone() for h in ('enc', 'dec') for p in tr._leaves[h]]))
+            tr = trainer(cfg, from_file)
+            counts0 = {h: getattr(o, 'count', None) for h, o in tr.opt.items()}
+            sync(dev)
+            reset_counts()
+            got = torch.cat(tr._train_steps(mode, n, groups))
+            sync(dev)
+            c = read_counts()
+            for k in counts:
+                counts[k] += c[k]
+            params = [p for h in ('enc', 'dec') for p in tr._leaves[h]]
+
+            def rel(a, b):
+                return ((a - b).abs() / b.abs()).max().item()
+
+            def prel(a, b):
+                return max(((x - y).abs().max() / y.abs().max().clamp_min(1e-30)).item()
+                           for x, y in zip(a, b))
+            (l1, p1), (l2, p2) = eager
+            results.append({
+                'dtype': dtype, 'use_fused_conv': fused, 'optimizer': opt, 'mode': mode,
+                'from': 'flagship_fading.msgpack' if from_file else 'seeded init',
+                'losses_eager': l1.tolist(), 'losses_graph': got.tolist(),
+                'loss_rel_graph_vs_eager': rel(got, l1), 'loss_rel_eager_vs_eager': rel(l2, l1),
+                'param_rel_graph_vs_eager': prel(params, p1),
+                'param_rel_eager_vs_eager': prel(p2, p1),
+                'counts_before': counts0,
+                'counts_after': {h: getattr(o, 'count', None) for h, o in tr.opt.items()},
+                'launches': c, 'expected_launches': 12 * (1 + n * groups) if fused else 0})
+    torch.backends.cudnn.deterministic = deterministic
+    bench_graph = {}
+    sync(dev)
+    reset_counts()
+    for fused in (True, False):
+        r = bench(batch_size=TRAIN_BATCH, use_fused_conv=fused, steps=60, device=dev,
+                  steps_per_call=n)
+        check(math.isfinite(r['last_loss']), 'graph bench: non-finite loss')
+        bench_graph['fused' if fused else 'unfused'] = r
+    sync(dev)
+    c = read_counts()
+    for k in counts:
+        counts[k] += c[k]
+    emit('graph_steps', n=n, replays=groups, cases=results, cudnn_deterministic=True,
+         train_blocks_per_s={k: {'eager': eager_bench[k]['value'],
+                                 'graph': bench_graph[k]['value']} for k in bench_graph},
+         bench_launches=c, card=nvidia_smi())
+    for r in results:
+        name = f"{r['dtype']} {r['optimizer']} {r['mode']}"
+        if r['dtype'] == 'float32':
+            check(r['loss_rel_graph_vs_eager'] < 1e-5, f'graph_steps {name}: {r}')
+        else:
+            check(r['loss_rel_graph_vs_eager'] <= r['loss_rel_eager_vs_eager'] + 1e-3,
+                  f'graph_steps {name}: {r}')
+        check(all(math.isfinite(v) for v in r['losses_graph']), f'graph_steps {name}: not finite')
+        check(r['launches']['conv_stack_bf16'] == r['expected_launches'],
+              f"graph_steps {name}: K2 launched {r['launches']} times")
+        if r['counts_before']['dec'] is not None:
+            h = 'dec' if r['mode'] == 'decoder' else 'enc'
+            check(r['counts_after'][h] == r['counts_before'][h] + n * groups,
+                  f'graph_steps {name}: optimizer counts {r}')
+    check(c['conv_stack_bf16'] > 0, 'graph bench: K2 did not launch')
+    return counts, bench_graph
+
+
+def flops_phase(dev, benches):
+    """cli/compute_flop's report at the flagship config on the card (the
+    counted forward within 5 % of the closed form), and bench_train's step
+    FLOPs, TFLOP/s and MFU from the eager and graph runs: each MFU a number
+    between 0 and 1 against the named peak."""
+    from turboae_tpu_torch.config import Config
+    from turboae_tpu_torch.utils.device import nvidia_smi
+    from turboae_tpu_torch.utils.flops import report
+    rep = report(Config(), dev)
+    rows = {k: {f: r[f] for f in ('step_flops', 'tflops_per_s', 'mfu', 'mfu_reason',
+                                  'peak_flops', 'peak_dtype', 'value', 'steps_per_call',
+                                  'use_fused_conv')} for k, r in benches.items()}
+    emit('flops', compute_flop=rep, bench=rows, card=nvidia_smi())
+    check(abs(rep['counted'] - rep['total_flops']) <= 0.05 * rep['total_flops'],
+          f'flops: counted {rep["counted"]} against {rep["total_flops"]}')
+    for k, r in rows.items():
+        check(r['mfu'] is not None and 0 < r['mfu'] < 1 and r['peak_flops'],
+              f'flops {k}: mfu {r}')
+
+
+def train_clis_phase(dev):
+    """The training-side CLIs on the card: the crown averaged with itself
+    gives its own file back, byte for byte; select_checkpoint and
+    select_bler_deep rank flagship.msgpack and flagship_fading.msgpack
+    (SELECT_BLOCKS a point); train_family resumes ftae_pa.msgpack and
+    mod_ae.msgpack for one epoch each (their phase-epoch losses finite and
+    below the untrained 0.69). Returns the launch counts of the rankings
+    and the family epochs."""
+    import tempfile
+    from turboae_tpu_torch.cli import average_checkpoints, select_bler_deep, select_checkpoint
+    from turboae_tpu_torch.cli import train_family
+    from turboae_tpu_torch.train.msgpack_io import load_msgpack
+    from turboae_tpu_torch.utils.device import nvidia_smi
+    art = os.path.join(ROOT, 'artifacts')
+    crown = os.path.join(art, 'flagship.msgpack')
+    pair = [crown, os.path.join(art, 'flagship_fading.msgpack')]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        soup = os.path.join(tmp, 'soup.msgpack')
+        average_checkpoints.main(['--out', soup, crown, crown])
+        with open(soup, 'rb') as f, open(crown, 'rb') as g:
+            out['soup_same_bytes'] = f.read() == g.read()
+        common = ['--num_block', str(SELECT_BLOCKS), '--batch_size', str(SWEEP_BATCH),
+                  '--use_fused_conv', '--device', str(dev)]
+        sync(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        ranked = select_checkpoint.main([*pair, *common, '--out', os.path.join(tmp, 'r.jsonl')])
+        deep = select_bler_deep.main([*pair, *common, '--out', os.path.join(tmp, 'd.jsonl'),
+                                      '--snrs', '2.0', '3.5'])
+        sync(dev)
+        out['select_seconds'] = time.perf_counter() - t0
+        counts = read_counts()
+        out['select_checkpoint'] = [{k: r[k] for k in ('ckpt', 'ber_wins', 'bler_wins',
+                                                       'blk_errors')} for r in ranked]
+        out['select_bler_deep'] = [{k: r[k] for k in ('ckpt', 'snr', 'bler', 'blk_errors')}
+                                   for r in deep]
+        family = {
+            'ftae': ['--family', 'ftae', '--resume', os.path.join(art, 'ftae_pa.msgpack'),
+                     '--ftae_power_alloc', 'pos_phase', '--fb_channel_low', '40',
+                     '--fb_channel_high', '40', '--block_len', '50', '--epochs', '1201'],
+            'mod': ['--family', 'mod', '--resume', os.path.join(art, 'mod_ae.msgpack'),
+                    '--block_len', '100', '--enc_lr', '1e-4', '--dec_lr', '1e-4', '--mod_lr',
+                    '1e-4', '--demod_lr', '1e-4', '--epochs', '401']}
+        for name, argv in family.items():
+            ckpt = os.path.join(tmp, f'{name}.msgpack')
+            argv = [*argv, '--num_block', str(FAMILY_NUM_BLOCK), '--batch_size',
+                    str(TRAIN_BATCH), '--val_every', '0', '--test_num_block', '2000',
+                    '--ckpt', ckpt, '--metrics', os.path.join(tmp, f'{name}.jsonl'),
+                    '--device', str(dev)]
+            sync(dev)
+            reset_counts()
+            t0 = time.perf_counter()
+            tr = train_family.main(argv)
+            sync(dev)
+            seconds = time.perf_counter() - t0
+            for k, v in read_counts().items():
+                counts[k] += v
+            with open(os.path.join(tmp, f'{name}.jsonl')) as f:
+                epoch = [r for r in map(json.loads, f) if r['event'] == 'epoch']
+            out[name] = {'epoch': epoch, 'saved_step': load_msgpack(ckpt)['step'],
+                         'seconds': seconds}
+    out['launches'] = counts
+    emit('train_clis', **out, card=nvidia_smi())
+    check(out['soup_same_bytes'], 'train_clis: the soup of the crown with itself differs')
+    check(len(ranked) == 2 and all(len(r['ber']) == 12 for r in ranked),
+          'train_clis: select_checkpoint rows')
+    check(len(deep) == 2 and all(r['n_blocks'] == SELECT_BLOCKS for r in deep),
+          'train_clis: select_bler_deep rows')
+    for name, step in (('ftae', 1201), ('mod', 401)):
+        (ep,) = out[name]['epoch']
+        losses = [v for k, v in ep.items() if k.endswith('_loss')]
+        check(out[name]['saved_step'] == step and ep['epoch'] == step,
+              f'train_clis {name}: the epoch counter {ep}')
+        check(losses and all(math.isfinite(v) and v < 0.69 for v in losses),
+              f'train_clis {name}: losses {ep}')
+    # K2: the rankings' sweeps; the families' decoders have no plain stack
+    n_batches = SELECT_BLOCKS // SWEEP_BATCH
+    check(counts['conv_stack_bf16'] == 12 * n_batches * 2 * (12 + 2),
+          f'train_clis: K2 launched {counts}')
     return counts
 
 
@@ -1611,15 +1980,21 @@ def time_kernel(wrapper, plain, dtype, shape, layers, gen, dev):
         return h
     library_ms = cuda_ms(library_chain, iters=20)
     from turboae_tpu_torch.kernels.conv_stack import conv_stack_work
+    from turboae_tpu_torch.utils.flops import PEAKS
+    # the card's published dense peaks at its full power limit (utils/flops.py)
+    peaks = PEAKS.get(torch.cuda.get_device_name(dev))
+    check(peaks is not None, f'no peaks for {torch.cuda.get_device_name(dev)} in utils/flops.py')
     itemsize = torch.finfo(dtype).bits // 8
     flops, nbytes = conv_stack_work(B, L, cin, c, k, nl, itemsize)
     if dtype == torch.bfloat16:
-        peak, products, extra = PEAK_BF16_FLOPS, flops, {}
+        peak, products, extra = peaks['bfloat16'], flops, {}
     else:
-        peak, products = PEAK_TF32_FLOPS, 3 * flops
-        extra = {'ffma_bound_ms': flops / PEAK_F32_FLOPS * 1e3}
+        # K1 does three TF32 products a product (3xTF32); exact f32 without
+        # the tensor cores is bound by the FFMA peak
+        peak, products = peaks['tf32'], 3 * flops
+        extra = {'ffma_bound_ms': flops / peaks['float32'] * 1e3}
     compute_ms = products / peak * 1e3
-    memory_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    memory_ms = nbytes / peaks['bytes_per_s'] * 1e3
     return {'shape': list(shape), 'ms': ms, 'plain_ms': plain_ms, 'library_ms': library_ms,
             'flops': flops, 'tensor_core_flops': products, 'bytes': nbytes, 'peak_flops': peak,
             'compute_bound_ms': compute_ms, **extra, 'memory_bound_ms': memory_ms,

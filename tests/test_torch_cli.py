@@ -35,6 +35,20 @@ def test_bench_train_json_line_on_cpu():
     assert out['metric'] == 'train_blocks_per_s' and out['value'] > 0
     assert out['mfu'] is None and out['use_fused_conv'] and not out['allow_tf32']
     assert np.isfinite(out['last_loss']) and out['device'] == 'cpu'
+    # the FLOPs of a step of each phase are counted on the CPU too; the MFU
+    # needs a card's peak
+    assert set(out['step_flops']) == {'enc', 'dec'}
+    assert all(v > 0 for v in out['step_flops'].values())
+    assert out['tflops_per_s'] > 0 and out['mfu_reason'] == 'no MFU on the CPU'
+
+
+def test_bench_train_times_graph_groups_on_cpu():
+    """--steps_per_call 3: the encoder's 2 and the decoder's 10 of 12 steps,
+    in groups of 3 (eager on the CPU) and the rest one by one."""
+    out = bench_train.main(['--device', 'cpu', '--batch_size', '4', '--steps', '12',
+                            '--steps_per_call', '3'])
+    assert out['steps_per_call'] == 3 and out['steps'] == 12 and out['value'] > 0
+    assert np.isfinite(out['last_loss']) and out['mfu'] is None
 
 
 def test_bench_train_defaults_are_bench_py():

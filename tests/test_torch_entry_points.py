@@ -99,8 +99,7 @@ def test_main_trains_saves_and_reloads(tmp_path, monkeypatch):
     assert max(reloaded.last_test['ber']) < 0.45
 
 
-@pytest.mark.parametrize('argv,what', [(['-mesh_shape', '2'], 'M16'),
-                                       (['--is_variable_block_len'], 'M14')])
+@pytest.mark.parametrize('argv,what', [(['-mesh_shape', '2'], 'M16')])
 def test_main_refuses_what_is_not_ported(argv, what, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match=what):

@@ -255,3 +255,37 @@ def test_mod_ae_decoder_fuses_through_k2(cuda_device):
         torch.cuda.synchronize()
         assert ks.conv_stack_bf16.launches - before == (12 if fused else 0)
     assert (outs[True].round() == outs[False].round()).float().mean().item() > 0.99
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype,fused,opt', [('float32', False, 'adam'), ('bfloat16', True, 'adam'),
+                                             ('float32', False, 'lookahead'),
+                                             ('float32', False, 'sgd')])
+@pytest.mark.parametrize('mode', ['encoder', 'decoder'])
+def test_graph_steps_match_eager_steps(cuda_device, dtype, fused, opt, mode):
+    """steps_per_call as CUDA graphs: 2 replays of 3 steps against 6 eager
+    steps from the same seeded init and generator seed. f32: every loss
+    within 1e-5 relative (cuDNN may pick other algorithms under capture);
+    bf16 fused within 1e-3. K2 counts the warm-up
+    step's and each replayed step's 4 stacks (2 iterations), nothing for
+    the capture; the optimizer's host count moves by the 6 steps."""
+    from turboae_tpu_torch.config import Config
+    from turboae_tpu_torch.train.trainer import Trainer
+    cfg = Config(batch_size=64, enc_num_unit=32, dec_num_unit=32, num_iteration=2,
+                 dtype=dtype, use_fused_conv=fused, optimizer=opt)
+    eager = Trainer(cfg, cuda_device)
+    ref = torch.stack([eager._train_step(mode) for _ in range(6)])
+    graph = Trainer(cfg, cuda_device)
+    before = ks.conv_stack_bf16.launches
+    got = torch.cat(graph._train_steps(mode, 3, 2))
+    torch.cuda.synchronize()
+    assert ks.conv_stack_bf16.launches - before == (4 * 7 if fused else 0)
+    assert ((got - ref).abs() / ref.abs()).max().item() < (1e-5 if dtype == 'float32' else 1e-3)
+    half = 'enc' if mode == 'encoder' else 'dec'
+    if opt != 'sgd':
+        assert graph.opt[half].count == eager.opt[half].count == 6
+    for a, b in zip(graph._leaves[half], eager._leaves[half]):
+        assert (a - b).abs().max().item() <= 1e-3 * b.abs().max().item()
+    graph.marks = []
+    with pytest.raises(RuntimeError, match='marks'):
+        graph._train_steps(mode, 2, 1)

@@ -85,9 +85,9 @@ def test_legacy_noise_draws_one_realization():
     seen = []
     inner = tr._eval_batch
 
-    def record(bits, noise, punc_mask=None):
+    def record(bits, noise, punc_mask=None, stats=None):
         seen.append((punc_mask is None, noise.clone()))
-        return inner(bits, noise, punc_mask)
+        return inner(bits, noise, punc_mask, stats)
     tr._eval_batch = record
     tr.test(verbose=False)
     main = [n for is_main, n in seen if is_main]
@@ -137,8 +137,8 @@ def test_mask_channels_test_at_the_raw_probability(channel):
     tr = Trainer(tcfg, 'cpu', params=small_params(configs(**CFG)[0], seed=1)[1])
     noises = []
     inner = tr._eval_batch
-    tr._eval_batch = lambda bits, noise, punc_mask=None: noises.append(noise) or inner(
-        bits, noise, punc_mask)
+    tr._eval_batch = lambda bits, noise, punc_mask=None, stats=None: noises.append(noise) or inner(
+        bits, noise, punc_mask, stats)
     tr.test(verbose=False)
     for p, batch in ((0.0, noises[0:2]), (0.5, noises[4:6])):
         want = 0.8 + 0.2 * p if channel == 'ge' else 1.0 - p

@@ -323,15 +323,6 @@ def test_params_given_are_copied():
     assert all(torch.equal(a, b) for a, b in zip(tree_leaves(tp), before))
 
 
-@pytest.mark.parametrize('field,value', [('is_variable_block_len', True),
-                                         ('is_k_same_code', True), ('steps_per_call', 2),
-                                         ('precompute_norm_stats', True)])
-def test_unported_trainer_flags_raise(field, value):
-    _, tcfg = configs(**SMALL, **{field: value})
-    with pytest.raises(NotImplementedError, match='M14'):
-        Trainer(tcfg, 'cpu')
-
-
 # ---------------------------------------------------------------- a short run
 def test_short_run_tracks_the_jax_trainer():
     """Four epochs of 10 encoder and 10 decoder steps from each side's own

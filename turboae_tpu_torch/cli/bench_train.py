@@ -9,10 +9,23 @@ torch.cuda.synchronize(). Prints one JSON line with `train_blocks_per_s`.
 
 `--use_fused_conv` routes the decoder's 12 stacks through the CUDA kernel K2
 (forward) and its recompute backward. TF32 is off: the f32 backward
-recompute and the f32 heads run in full f32. `mfu` stays null: the port has
-no FLOP count yet (M17).
+recompute and the f32 heads run in full f32.
 
-    python -m turboae_tpu_torch.cli.bench_train [--use_fused_conv] [--batch_size 500]
+`--steps_per_call n` (n > 1) times the graph path instead: the encoder's
+steps/6 steps, then the decoder's 5 steps/6, each phase in groups of n that
+are one replay of its captured CUDA graph (the rest eagerly), both graphs
+captured before the clock starts.
+
+FLOPs and MFU as bench.py computes them (:74-107): `step_flops` holds the
+FLOPs of one encoder and one decoder step, counted by FlopCounterMode
+(utils/flops.py) on a throwaway trainer at the same config, unfused (the
+fused stack does the same products); `tflops_per_s` is (enc + 5 dec) / 6
+FLOPs a step over the timed steps' seconds, and `mfu` that over the card's
+dense peak in the config's dtype (utils/flops.py:PEAKS). On a card not in
+the table, and on the CPU, `mfu` is null and `mfu_reason` says why.
+
+    python -m turboae_tpu_torch.cli.bench_train [--use_fused_conv] [--batch_size 500] \
+        [--steps_per_call 6]
 """
 from __future__ import annotations
 
@@ -25,12 +38,21 @@ import torch
 from ..config import Config
 from ..train.trainer import Trainer
 from ..utils.device import no_tf32, resolve_device
+from ..utils.flops import counted_flops, peak
 
 BASELINE_BLOCKS_PER_S = 2000.0     # the reference on a 1080Ti (bench.py:16)
 
 
+def step_flops(cfg, device) -> dict:
+    """{'enc', 'dec'}: the counted FLOPs of one encoder and one decoder step
+    at cfg, unfused, on a throwaway trainer."""
+    trainer = Trainer(cfg.replace(use_fused_conv=False, steps_per_call=1), device)
+    return {'enc': counted_flops(trainer._train_step, 'encoder'),
+            'dec': counted_flops(trainer._train_step, 'decoder')}
+
+
 def bench(batch_size: int = 500, use_fused_conv: bool = False, steps: int = 60,
-          device='cuda', **cfg_overrides) -> dict:
+          device='cuda', steps_per_call: int = 1, **cfg_overrides) -> dict:
     dev = resolve_device(device)
     no_tf32()
     cfg = Config(batch_size=batch_size, block_len=100, num_block=batch_size,
@@ -39,27 +61,52 @@ def bench(batch_size: int = 500, use_fused_conv: bool = False, steps: int = 60,
     trainer = Trainer(cfg, dev)
     trainer.train_epoch(0, 'decoder', verbose=False)     # warm up both phases
     trainer.train_epoch(0, 'encoder', verbose=False)
+    n = steps_per_call
+
+    def phase(mode, count):
+        groups, rem = divmod(count, n)
+        out = trainer._train_steps(mode, n, groups) if groups else []
+        return out + [trainer._train_step(mode) for _ in range(rem)]
+    if n > 1:                                            # capture both graphs
+        phase('decoder', n)
+        phase('encoder', n)
 
     def sync():
         if dev.type == 'cuda':
             torch.cuda.synchronize(dev)
     sync()
     t0 = time.perf_counter()
-    losses = [trainer._train_step('encoder' if i % 6 == 0 else 'decoder')
-              for i in range(steps)]
+    if n > 1:
+        losses = phase('encoder', steps // 6) + phase('decoder', steps - steps // 6)
+    else:
+        losses = [trainer._train_step('encoder' if i % 6 == 0 else 'decoder')
+                  for i in range(steps)]
     sync()
     dt = time.perf_counter() - t0
     blocks_per_s = steps * cfg.batch_size / dt
+    flops = step_flops(cfg, dev)
+    avg_step_flops = (flops['enc'] + 5.0 * flops['dec']) / 6.0
+    flops_per_s = avg_step_flops * steps / dt
+    name = torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu'
+    peak_flops = peak(name, cfg.dtype) if dev.type == 'cuda' else None
+    if dev.type != 'cuda':
+        reason = 'no MFU on the CPU'
+    elif peak_flops is None:
+        reason = f'no {cfg.dtype} peak for {name!r} in utils/flops.py:PEAKS'
+    else:
+        reason = None
     return {
         'metric': 'train_blocks_per_s',
         'value': blocks_per_s,
         'unit': 'blocks/s/GPU (rate-1/3, K=100, 6 dec iters, full train step)',
         'vs_baseline': blocks_per_s / BASELINE_BLOCKS_PER_S,
-        'mfu': None, 'tflops_per_s': None, 'step_flops': None,
-        'use_fused_conv': use_fused_conv, 'allow_tf32': False,
+        'mfu': None if peak_flops is None else flops_per_s / peak_flops,
+        'mfu_reason': reason, 'peak_flops': peak_flops, 'peak_dtype': cfg.dtype,
+        'tflops_per_s': flops_per_s / 1e12, 'step_flops': flops,
+        'use_fused_conv': use_fused_conv, 'allow_tf32': False, 'steps_per_call': n,
         'batch_size': batch_size, 'steps': steps, 'seconds': dt,
-        'last_loss': float(losses[-1]),
-        'device': torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu',
+        'last_loss': float(torch.cat([l.reshape(-1) for l in losses])[-1]),
+        'device': name,
     }
 
 
@@ -68,9 +115,12 @@ def main(argv=None):
     p.add_argument('--batch_size', type=int, default=500)
     p.add_argument('--use_fused_conv', action='store_true')
     p.add_argument('--steps', type=int, default=60)
+    p.add_argument('--steps_per_call', type=int, default=1,
+                   help='> 1: time the steps as replays of CUDA graphs of this many steps')
     p.add_argument('--device', default='cuda')
     args = p.parse_args(argv)
-    out = bench(args.batch_size, args.use_fused_conv, args.steps, args.device)
+    out = bench(args.batch_size, args.use_fused_conv, args.steps, args.device,
+                args.steps_per_call)
     print(json.dumps(out))
     return out
 

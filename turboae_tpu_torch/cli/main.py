@@ -5,12 +5,15 @@ Parses the reference's flags (config.py:get_args), tees stdout to
 ./logs/<id>_log.txt, runs the alternating encoder/decoder epochs with a
 validation after each, saves ./tmp/model_<id>.msgpack (params and optimizer
 state, the JAX package's format) and ends with Trainer.test's SNR sweep.
-`-init_nw_weight <file>` starts from a checkpoint's params. TF32 is off.
+`-init_nw_weight <file>` starts from a checkpoint's params. With
+`--is_variable_block_len` the steps draw their lengths from
+[block_len_low, block_len_high) and the run ends with two more tests, at
+block_len_low and block_len_high (JAX cli/main.py:86-94). TF32 is off.
 
     python -m turboae_tpu_torch.cli.main -num_epoch 10 -num_block 10000
 
 `--device cpu` runs on the CPU; without it the CLI needs a GPU. Not ported
-yet: `-mesh_shape` (ROADMAP M16) and `--is_variable_block_len` (M14) raise.
+yet: `-mesh_shape` (ROADMAP M16) raises.
 """
 from __future__ import annotations
 
@@ -38,8 +41,6 @@ def main(argv=None):
     no_tf32()
     if cfg.mesh_shape:
         raise NotImplementedError('-mesh_shape is not ported yet (ROADMAP M16)')
-    if cfg.is_variable_block_len:
-        raise NotImplementedError('is_variable_block_len is not ported yet (ROADMAP M14)')
     device = resolve_device(device)
 
     # stdout tee to ./logs/<id>_log.txt (reference main.py:17-27,102-107)
@@ -100,6 +101,14 @@ def _run(cfg, ident, device):
     snrs, ber, bler = trainer.test()
     metrics.log('test', snrs=snrs, ber=ber, bler=bler)
     metrics.close()
+
+    # variable block lengths: also test at the low and high lengths
+    # (reference main.py:251-257)
+    if cfg.is_variable_block_len:
+        for L in (cfg.block_len_low, cfg.block_len_high):
+            print(f'====> test at block_len {L}')
+            Trainer(cfg.replace(block_len=L, is_variable_block_len=False), device,
+                    params=trainer.params).test()
     return trainer
 
 

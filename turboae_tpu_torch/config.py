@@ -9,9 +9,10 @@ Port meanings of the accelerator fields:
   - use_fused_conv routes the decoder's plain conv stacks through the
     hand-written CUDA kernel `kernels/conv_stack.py::conv_stack_bf16`; dense
     stacks (every encoder but 'TurboAE_rate3_cnn') never fuse, as in JAX;
+  - steps_per_call > 1 runs that many optimizer steps as one replay of a
+    CUDA graph (train/trainer.py);
   - shard_axis and scan_unroll are inert here; a non-empty mesh_shape
-    (ROADMAP M16) and steps_per_call > 1 (M14) are refused by the CLIs and
-    the trainer.
+    (ROADMAP M16) is refused by the CLIs.
 
 `get_args` parses the reference's flag surface into a `Config`, as the JAX
 package's does: booleans are `--flag` (store_true), every other field is
@@ -198,7 +199,7 @@ class Config:
     legacy_noise: bool = False        # reproduce pre-2022 test-noise bug (README.md:2)
     use_fused_conv: bool = False      # decoder conv stacks through the CUDA bf16
                                       # conv-stack kernel (kernels/conv_stack.py)
-    steps_per_call: int = 1           # optimizer steps per dispatch; the trainer refuses > 1 (M14)
+    steps_per_call: int = 1           # optimizer steps per dispatch: one CUDA graph replay
     scan_unroll: int = 1              # (inert in the port) decoder-iteration unroll
     log_jsonl: str = ''               # if set, structured metrics written here
 

@@ -36,17 +36,21 @@ def init_ae(gen: torch.Generator, cfg, device='cpu'):
     return {'enc': enc_init(gen, cfg, device), 'dec': dec_init(gen, cfg, device)}
 
 
-def make_perms(cfg, device) -> Dict[str, torch.Tensor]:
-    """Interleaver permutations as the reference builds them.
+def make_perms(cfg, device, block_len: Optional[int] = None,
+               seed: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """Interleaver permutations as the reference builds them (JAX
+    channel_ae.py:24-43), at cfg.block_len or the block_len given.
 
-    p1 and p2 are CONSECUTIVE draws from one MT19937 RandomState(0), not the
-    first draws of two seeds. Also holds their inverses p1_inv and p2_inv.
+    p1 and p2 are CONSECUTIVE draws from one MT19937 RandomState(seed), not
+    the first draws of two seeds; seed defaults to 0 (the reference's
+    is_same_interleaver), and variable block lengths draw one per length.
+    Also holds their inverses p1_inv and p2_inv.
     """
-    L = cfg.block_len
+    L = block_len or cfg.block_len
     if cfg.is_interleave == 0:
         p1 = p2 = np.arange(L)
     else:
-        rand_gen = mtrand.RandomState(0)
+        rand_gen = mtrand.RandomState(0 if seed is None else seed)
         p1 = rand_gen.permutation(np.arange(L))
         p2 = rand_gen.permutation(np.arange(L))
     as_t = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device)

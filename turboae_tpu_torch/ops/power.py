@@ -13,11 +13,19 @@ from .ste import ste_quantize
 
 
 class NormStats(NamedTuple):
-    """Running mean/std for precomputed normalization (carried, not used on
-    the evaluation path)."""
+    """Running mean/std for precomputed normalization (reference
+    encoders.py:76-84, 110-114): under cfg.precompute_norm_stats,
+    Trainer.precompute_norm_stats seeds them and Trainer.test threads them
+    through every test batch; 0-d f32 tensors on the device."""
     mean: torch.Tensor
     std: torch.Tensor
     count: torch.Tensor
+
+
+def init_norm_stats(device='cpu') -> NormStats:
+    """mean 0, std 1, count 0 (JAX ops/power.py:31-32)."""
+    z = torch.zeros((), dtype=torch.float32, device=device)
+    return NormStats(z, torch.ones((), dtype=torch.float32, device=device), z.clone())
 
 
 def _std_bessel(x: torch.Tensor) -> torch.Tensor:
