@@ -157,6 +157,28 @@ Phases, each printing one JSON line:
                point, fused); train_family resumes ftae_pa.msgpack and
                mod_ae.msgpack for one epoch each, every phase-epoch finite and
                below 0.69;
+  classical_parity  path 24: each classical device decoder on the card
+               against the same function on the CPU on host-seeded symbols:
+               the turbo decoder in every variant for Turbo-757 and LTE
+               (B=2000, L=100, -1 dB, 256 of the blocks again on the CPU;
+               LLRs within 1e-2, decisions equal where |LLR| > 1e-3), Viterbi (hard, unquantized, tdist3 on
+               [7,5] and [7,5,6]; decisions equal), LDPC BP on the (96, 48)
+               design (MSA bits and LLRs on every frame, SPA bits on the
+               converged frames and frame errors by z); the ms of a call,
+               and launches and busy share of one;
+  classical_curve  path 25: Turbo-757 through cli/turbo_benchmark on the
+               card, each point's BLER held by z to the committed exact
+               counts: torch_mc at -1.5..0 dB (K=100, 20,000 blocks a point,
+               classical_awgn_k100.json), torch at -1 dB, torch with t-dist
+               noise (vv 3) at -1.5 dB (classical_nonawgn_k100.json),
+               torch_mc at K=1000, -1 dB, 4,000 blocks
+               (classical_awgn_k1000.json); blocks/s a point;
+  ldpc_fer     path 26: cli/ldpc_benchmark on the card at Eb/N0 2.5 dB (SPA,
+               100 iterations, 20,000 frames), FER held by z to JAX's
+               708/8,000 on the CPU, the reference's 0.1 beside it;
+  viterbi_curve  path 27: cli/conv_benchmark ([7,5], unquantized, AWGN, 0, 2
+               and 4 dB, 20,000 blocks a point) on the card and the same
+               seeded run on the CPU: equal error counts;
   conv_stack_bench  path 7: the port of scripts/bench_conv_stack.py, the only
                path of K1, with its launches read around it;
   times        CUDA-event times of each kernel, its plain version and a
@@ -260,6 +282,39 @@ VBL_LOSS_MAX = 0.69                 # the untrained BCE, log 2; fixed before the
 GRAPH_N = 6                         # steps_per_call: optimizer steps a graph replay
 SELECT_BLOCKS = 4000                # blocks a point of the two rankings
 FAMILY_NUM_BLOCK = 1000             # train_family's epoch: 2 steps a phase-epoch at batch 500
+# the classical device decoders (ROADMAP M15): Turbo-757 and Turbo-LTE at
+# K=100, 6 iterations, hazzys; the Gallager (96, 48) LDPC code; [7,5] Viterbi
+CLASSICAL_B, CLASSICAL_L, CLASSICAL_ITERS = 2000, 100, 6
+CLASSICAL_CPU_ROWS = 256      # the blocks of a card batch that the CPU decodes again
+CLASSICAL_PARITY_SNR = -1.0
+# f32 turbo LLRs, card against CPU, absolute. Tier-1 holds the CPU to JAX by
+# 2e-4 at B <= 8, L <= 40; over B=2000 blocks of L=100 six iterations of
+# extrinsic exchange amplify the two devices' f32 rounding (exp, log, the
+# order of a sum) on a few blocks, most in the standard variant, so the
+# LLRs are held to 1e-2 and the decisions exactly, wherever |LLR| > 1e-3
+CLASSICAL_LLR_TOL = 1e-2
+CLASSICAL_NEAR_ZERO = 1e-3
+# f32 BP output LLRs, absolute: MSA's arithmetic is exact up to its sums,
+# which the decoder takes in one order on every device, so its bits and
+# LLRs are held on every frame. SPA's check update takes atanh of a product
+# of tanh values clipped at 0.9999999, where one ulp of the product moves a
+# message by up to ~1
+# (tests/test_torch_classical_decoders.py::test_spa_check_update_is_ill_conditioned_at_its_clip),
+# and the card's tanh is not the CPU's: SPA is held by its bits on the
+# frames that satisfy the parity on both devices and by its frame errors.
+LDPC_LLR_TOL = 1e-4
+CURVE_BLOCKS = 20000          # blocks a point of the K=100 curve, one batch
+K100_POINTS = (-1.5, -1.0, -0.5, 0.0)
+K1000_BLOCKS = 4000           # the K=1000 point, one batch
+# JAX's make_jax_ldpc_decoder on the CPU at Eb/N0 2.5 dB, SPA, 100
+# iterations, seed 0, 8 batches of 1,000 frames, through its CLI:
+#   python -m turboae_tpu.cli.ldpc_benchmark -design
+#     turboae_tpu/classical/designs/96.33.964.txt -ebn0_start 2.5 -points 1
+#     -batch 1000 -max_frames 8000 -target_frame_errors 100000 -engine jax
+LDPC_REF = (708, 8000)        # frame errors, frames
+LDPC_COMMPY_FER = 0.1         # what the reference's commpy test expects there (tests/test_ldpc.py)
+LDPC_FRAMES, LDPC_BATCH = 20000, 2000
+VITERBI_BLOCKS = 20000
 
 
 def emit(phase: str, **fields):
@@ -497,6 +552,12 @@ def main() -> int:
     flops_phase(dev, {**{f'eager_{k}': r for k, r in eager_bench.items()},
                       **{f'graph_{k}': r for k, r in graph_bench.items()}})
     paths['train_clis'] = train_clis_phase(dev)
+
+    # ---- the classical device decoders (paths 24-27): parity, curves, FER ----
+    paths['classical_parity'] = classical_parity_phase(dev)
+    paths['classical_curve'] = classical_curve_phase(dev)
+    paths['ldpc_fer'] = ldpc_fer_phase(dev)
+    paths['viterbi_curve'] = viterbi_curve_phase(dev)
 
     # ---- times: each kernel, its plain version, a library yardstick, its bound ----
     sweep_layers = crown['dec']['iters'][0]['dec1_cnn']
@@ -1937,6 +1998,275 @@ def train_clis_phase(dev):
     n_batches = SELECT_BLOCKS // SWEEP_BATCH
     check(counts['conv_stack_bf16'] == 12 * n_batches * 2 * (12 + 2),
           f'train_clis: K2 launched {counts}')
+    return counts
+
+
+def profile_call(fn, dev):
+    """One call of fn under torch.profiler: its kernel launches, the device's
+    busy time (kernels and copies) and the profiled wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device = [e for e in prof.key_averages() if e.device_type != DeviceType.CPU]
+    busy_ms = sum(getattr(e, 'self_device_time_total', 0.0) for e in device) / 1e3
+    return {'launches': sum(e.count for e in device), 'device_busy_ms': busy_ms,
+            'profiled_wall_ms': wall_ms, 'busy_share': busy_ms / wall_ms}
+
+
+def turbo_profile(trellis, p_array, variant, rx_dev, sigma, ms, dev):
+    """The launches and device busy time of one turbo decode of rx_dev, from
+    decoders of 1 and 2 iterations under torch.profiler: every iteration
+    launches the same kernels, so a decode of n iterations launches
+    one + (n - 1) * (two - one); the profiler's bookkeeping of a whole
+    decode's launches takes longer than the decode. Busy share against the
+    unprofiled decode's `ms`."""
+    from turboae_tpu_torch.classical.turbo import make_turbo_decoder
+    runs = []
+    for n in (1, 2):
+        dec = make_turbo_decoder(trellis, p_array, n, variant)
+        dec(*rx_dev.unbind(2), sigma ** 2)                      # tables on the card
+        runs.append(profile_call(lambda: dec(*rx_dev.unbind(2), sigma ** 2), dev))
+    one, two = runs
+    n = CLASSICAL_ITERS - 1
+    busy_ms = one['device_busy_ms'] + n * (two['device_busy_ms'] - one['device_busy_ms'])
+    return {'launches': one['launches'] + n * (two['launches'] - one['launches']),
+            'device_busy_ms': busy_ms, 'ms': ms, 'busy_share': busy_ms / ms,
+            'one_iteration': one, 'two_iterations': two}
+
+
+def timed_call(fn, dev):
+    """(fn(), its ms on the host clock, ending in a synchronize)."""
+    sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(dev)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def classical_parity_phase(dev):
+    """Each classical device decoder on the card against the same function
+    on the CPU, on host-seeded received symbols. The turbo decoder in every
+    variant for Turbo-757 and Turbo-LTE, B=2000, L=100, -1 dB: the CPU
+    decodes the first CLASSICAL_CPU_ROWS blocks (each block decodes on its
+    own), LLRs within CLASSICAL_LLR_TOL, decisions equal where |LLR| >
+    CLASSICAL_NEAR_ZERO. Viterbi with the hard, unquantized and tdist3
+    metrics on [7,5] and the rate-1/3 [7,5,6] (B=2000, L=100, 2 dB):
+    decisions equal. LDPC BP on the (96, 48) design (B=2000, 2.5 dB, 100
+    iterations): MSA, exact arithmetic summed in one order, bits equal and
+    LLRs within LDPC_LLR_TOL on every frame; SPA bits equal on the frames
+    that satisfy the parity on both devices and the frame-error counts
+    within |z| < MAX_Z. The ms of each card call (host clock; the turbo
+    decoders' first, Viterbi's and BP's second), and for the
+    757 hazzys decoder (turbo_profile), [7,5] unquantized Viterbi and SPA
+    the launches and device busy share of one call under torch.profiler."""
+    import numpy as np
+    from turboae_tpu_torch.classical.convcode import conv_encode_batch, make_viterbi
+    from turboae_tpu_torch.classical.interleavers import RandInterlv
+    from turboae_tpu_torch.classical.ldpc import DESIGNS, get_ldpc_code_params, make_ldpc_decoder
+    from turboae_tpu_torch.classical.trellis import Trellis, turbo757_trellis, turbo_lte_trellis
+    from turboae_tpu_torch.classical.turbo import VARIANTS, make_turbo_decoder, turbo_encode_batch
+    from turboae_tpu_torch.utils.device import nvidia_smi
+    from turboae_tpu_torch.utils.metrics import two_proportion_z
+    rng = np.random.RandomState(0)
+    B, L, rows = CLASSICAL_B, CLASSICAL_L, CLASSICAL_CPU_ROWS
+    out = {'turbo': [], 'viterbi': [], 'ldpc': [], 'profiled': {}}
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    p = RandInterlv(L, 0).p_array
+    sigma = 10 ** (-CLASSICAL_PARITY_SNR / 20)
+    for code, trellis in (('757', turbo757_trellis()), ('lte', turbo_lte_trellis())):
+        msgs = rng.randint(0, 2, (B, L))
+        rx = torch.as_tensor(2.0 * turbo_encode_batch(msgs, trellis, p) - 1.0
+                             + sigma * rng.randn(B, L, 3), dtype=torch.float32)
+        rx_dev = rx.to(dev)
+        for variant in VARIANTS:
+            dec = make_turbo_decoder(trellis, p, CLASSICAL_ITERS, variant)
+            got, ms = timed_call(lambda: dec.llr(*rx_dev.unbind(2), sigma ** 2), dev)
+            got = got.cpu()
+            ref, cpu_ms = timed_call(lambda: dec.llr(*rx[:rows].unbind(2), sigma ** 2), 'cpu')
+            mine = got[:rows]
+            firm = ref.abs() > CLASSICAL_NEAR_ZERO
+            out['turbo'].append({
+                'code': code, 'variant': variant, 'cpu_rows': rows,
+                'max_abs_llr_diff': (mine - ref).abs().max().item(),
+                'decision_agreement': ((mine > 0) == (ref > 0)).float().mean().item(),
+                'firm_decisions_equal': bool(torch.equal((mine > 0)[firm], (ref > 0)[firm])),
+                'ber': float(((got > 0).numpy() != msgs).mean()), 'ms': ms,
+                'blocks_per_s': B / ms * 1e3, 'cpu_ms': cpu_ms})
+            if (code, variant) == ('757', 'hazzys'):
+                out['profiled']['turbo_757'] = turbo_profile(trellis, p, variant, rx_dev, sigma,
+                                                             ms, dev)
+    for gens in ([7, 5], [7, 5, 6]):
+        trellis = Trellis(np.array([2]), np.array([gens]))
+        coded = conv_encode_batch(rng.randint(0, 2, (B, L)), trellis)
+        soft = (2.0 * coded - 1 + 10 ** (-2.0 / 20) * rng.randn(*coded.shape)).reshape(B, -1, trellis.n)
+        for decoding_type in ('hard', 'unquantized', 'tdist3'):
+            rx = torch.as_tensor((soft > 0).astype(float) if decoding_type == 'hard' else soft,
+                                 dtype=torch.float32)
+            rx_dev = rx.to(dev)
+            dec = make_viterbi(trellis, decoding_type)
+            dec(rx_dev)                     # warm: the first call loads kernels lazily
+            got, ms = timed_call(lambda: dec(rx_dev), dev)
+            out['viterbi'].append({'generators': gens, 'decoding_type': decoding_type,
+                                   'equal': bool(torch.equal(got.cpu(), dec(rx))), 'ms': ms})
+            if gens == [7, 5] and decoding_type == 'unquantized':
+                out['profiled']['viterbi_75'] = profile_call(lambda: dec(rx_dev), dev)
+    params = get_ldpc_code_params(os.path.join(DESIGNS, '96.33.964.txt'))
+    nv = 1.0 / (2 * 0.5 * 10 ** (2.5 / 10.0))
+    llr = torch.as_tensor(2.0 * (1.0 + np.sqrt(nv) * rng.randn(B, 96)) / nv, dtype=torch.float32)
+    llr_dev = llr.to(dev)
+    pmat = torch.as_tensor(params['pmat'], dtype=torch.float32)
+    for alg in ('SPA', 'MSA'):
+        dec = make_ldpc_decoder(params, alg, 100)
+        dec(llr_dev)                        # warm, as Viterbi's
+        (bits, out_llr), ms = timed_call(lambda: dec(llr_dev), dev)
+        bits, out_llr = bits.cpu(), out_llr.cpu()
+        ref_bits, ref_llr = dec(llr)
+        # the frames whose bits satisfy every parity check on both devices
+        both = ((pmat @ bits.T.float()) % 2 == 0).all(0) & ((pmat @ ref_bits.T.float()) % 2 == 0).all(0)
+        fe, ref_fe = int((bits.sum(dim=1) > 0).sum()), int((ref_bits.sum(dim=1) > 0).sum())
+        out['ldpc'].append({
+            'alg': alg, 'converged_both': int(both.sum()),
+            'converged_bits_equal': bool(torch.equal(bits[both], ref_bits[both])),
+            'bits_equal': bool(torch.equal(bits, ref_bits)),
+            'max_abs_llr_diff': (out_llr - ref_llr).abs().max().item(),
+            'frames_bits_differ': int((bits != ref_bits).any(dim=1).sum()),
+            'frame_errors': fe, 'cpu_frame_errors': ref_fe,
+            'z_frame_errors': two_proportion_z(fe, B, ref_fe, B), 'ms': ms})
+        if alg == 'SPA':
+            out['profiled']['ldpc_spa'] = profile_call(lambda: dec(llr_dev), dev)
+    counts = read_counts()
+    emit('classical_parity', **out, seconds=time.perf_counter() - t0, launches=counts,
+         card=nvidia_smi())
+    for r in out['turbo']:
+        check(r['max_abs_llr_diff'] < CLASSICAL_LLR_TOL and r['firm_decisions_equal'],
+              f"classical_parity turbo {r['code']} {r['variant']}: {r}")
+    for r in out['viterbi']:
+        check(r['equal'], f'classical_parity viterbi: {r}')
+    for r in out['ldpc']:
+        check(r['converged_both'] > 0 and r['converged_bits_equal'] and abs(r['z_frame_errors']) < MAX_Z,
+              f'classical_parity ldpc: {r}')
+        check(r['alg'] == 'SPA' or (r['bits_equal'] and r['max_abs_llr_diff'] < LDPC_LLR_TOL),
+              f'classical_parity ldpc: {r}')
+    check(not any(counts.values()), f'classical_parity launched a conv-stack kernel: {counts}')
+    return counts
+
+
+def classical_curve_phase(dev):
+    """Turbo-757 (hazzys, 6 iterations) through cli/turbo_benchmark.run_benchmark
+    on the card, each point's BLER held by |z| < MAX_Z to the committed
+    exact counts (bler x n_blocks): -engine torch_mc at -1.5..0 dB, K=100,
+    CURVE_BLOCKS a point, against artifacts/classical_awgn_k100.json; -engine
+    torch (host bits and noise) at -1 dB against the same; -engine torch
+    with t-dist noise (vv 3) at -1.5 dB against classical_nonawgn_k100.json;
+    -engine torch_mc at K=1000, -1 dB, K1000_BLOCKS, against
+    classical_awgn_k1000.json. Blocks/s a point from the CLI's clock."""
+    from turboae_tpu_torch.cli import turbo_benchmark
+    from turboae_tpu_torch.utils.device import nvidia_smi
+    from turboae_tpu_torch.utils.metrics import two_proportion_z
+    curves = {}
+    for name in ('classical_awgn_k100', 'classical_awgn_k1000', 'classical_nonawgn_k100'):
+        with open(os.path.join(ROOT, 'artifacts', f'{name}.json')) as f:
+            curves[name] = json.load(f)
+    k100, k1000 = curves['classical_awgn_k100'], curves['classical_awgn_k1000']
+    tdist = curves['classical_nonawgn_k100']['channels']['t-dist_vv3']
+    n100, n1000 = str(CURVE_BLOCKS), str(K1000_BLOCKS)
+    runs = (  # name, argv, reference
+        ('torch_mc_k100', ['-engine', 'torch_mc', '-snr_test_start', str(K100_POINTS[0]),
+                           '-snr_test_end', str(K100_POINTS[-1]), '-snr_points',
+                           str(len(K100_POINTS)), '-num_block', n100, '-batch_size', n100], k100),
+        ('torch_k100', ['-engine', 'torch', '-snr_test_start', '-1', '-snr_test_end', '-1',
+                        '-snr_points', '1', '-num_block', n100, '-batch_size', n100], k100),
+        ('torch_tdist_vv3', ['-engine', 'torch', '-noise_type', 't-dist', '-vv', '3',
+                             '-snr_test_start', '-1.5', '-snr_test_end', '-1.5', '-snr_points',
+                             '1', '-num_block', n100, '-batch_size', n100], tdist),
+        ('torch_mc_k1000', ['-engine', 'torch_mc', '-block_len', '1000', '-snr_test_start', '-1',
+                            '-snr_test_end', '-1', '-snr_points', '1', '-num_block', n1000,
+                            '-batch_size', n1000], k1000))
+    points = []
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    for name, argv, ref in runs:
+        res = turbo_benchmark.run_benchmark(turbo_benchmark.get_bench_args(
+            argv + ['-num_dec_iter', str(CLASSICAL_ITERS), '-variant', 'hazzys', '-seed', '0',
+                    '--device', str(dev)]))
+        for i, snr in enumerate(res['snrs']):
+            j = ref['snr'].index(snr)
+            ref_n = ref['n_blocks'][j]
+            ref_e = round(ref['bler'][j] * ref_n)
+            n = res['n_blocks'][i]
+            points.append({'run': name, 'snr': snr, 'bit_errors': res['bit_errors'][i],
+                           'block_errors': res['block_errors'][i], 'n_blocks': n,
+                           'ber': res['bers'][i], 'bler': res['blers'][i], 'ref_bler': ref['bler'][j],
+                           'ref_block_errors': ref_e, 'ref_n_blocks': ref_n,
+                           'z_bler': two_proportion_z(res['block_errors'][i], n, ref_e, ref_n),
+                           'seconds': res['seconds'][i], 'blocks_per_s': n / res['seconds'][i]})
+    counts = read_counts()
+    emit('classical_curve', points=points, seconds=time.perf_counter() - t0, launches=counts,
+         card=nvidia_smi())
+    for pt in points:
+        want = K1000_BLOCKS if pt['run'] == 'torch_mc_k1000' else CURVE_BLOCKS
+        check(pt['n_blocks'] == want, f'classical_curve: blocks {pt}')
+        check(abs(pt['z_bler']) < MAX_Z, f"classical_curve {pt['run']} at {pt['snr']} dB: {pt}")
+    check(not any(counts.values()), f'classical_curve launched a conv-stack kernel: {counts}')
+    return counts
+
+
+def ldpc_fer_phase(dev):
+    """cli/ldpc_benchmark.run, -engine torch, on the (96, 48) design at Eb/N0
+    2.5 dB (SPA, 100 iterations, LDPC_FRAMES frames in batches of
+    LDPC_BATCH, a frame-error target above that): FER within |z| < MAX_Z of
+    JAX's LDPC_REF, reported beside the reference's LDPC_COMMPY_FER."""
+    from turboae_tpu_torch.cli import ldpc_benchmark
+    from turboae_tpu_torch.utils.device import nvidia_smi
+    from turboae_tpu_torch.utils.metrics import two_proportion_z
+    sync(dev)
+    reset_counts()
+    res = ldpc_benchmark.run(ldpc_benchmark.get_args([
+        '-engine', 'torch', '-ebn0_start', '2.5', '-points', '1', '-alg', 'SPA', '-n_iters', '100',
+        '-batch', str(LDPC_BATCH), '-max_frames', str(LDPC_FRAMES), '-target_frame_errors',
+        str(LDPC_FRAMES + 1), '-seed', '0', '--device', str(dev)]))
+    counts = read_counts()
+    fe, frames = res['frame_errors'][0], res['frames'][0]
+    out = {'frame_errors': fe, 'frames': frames, 'fer': res['fers'][0], 'ber': res['bers'][0],
+           'ref_frame_errors': LDPC_REF[0], 'ref_frames': LDPC_REF[1],
+           'z_fer': two_proportion_z(fe, frames, *LDPC_REF), 'commpy_fer': LDPC_COMMPY_FER,
+           'seconds': res['seconds'][0], 'frames_per_s': frames / res['seconds'][0]}
+    emit('ldpc_fer', **out, launches=counts, card=nvidia_smi())
+    check(frames == LDPC_FRAMES, f'ldpc_fer: {frames} frames')
+    check(abs(out['z_fer']) < MAX_Z, f'ldpc_fer: {out}')
+    check(not any(counts.values()), f'ldpc_fer launched a conv-stack kernel: {counts}')
+    return counts
+
+
+def viterbi_curve_phase(dev):
+    """cli/conv_benchmark.run, -engine torch, [7,5] with unquantized metrics
+    over AWGN at 0, 2 and 4 dB, VITERBI_BLOCKS a point, on the card and the
+    same seeded run on the CPU: equal bit and block error counts."""
+    from turboae_tpu_torch.cli import conv_benchmark
+    from turboae_tpu_torch.utils.device import nvidia_smi
+    argv = ['-engine', 'torch', '-snr_test_start', '0', '-snr_test_end', '4', '-snr_points', '3',
+            '-num_block', str(VITERBI_BLOCKS), '-channel', 'awgn', '-decoding_type', 'unquantized',
+            '-seed', '0']
+    sync(dev)
+    reset_counts()
+    card = conv_benchmark.run(conv_benchmark.get_args(argv + ['--device', str(dev)]))
+    counts = read_counts()
+    cpu = conv_benchmark.run(conv_benchmark.get_args(argv + ['--device', 'cpu']))
+    keys = ('bit_errors', 'block_errors', 'n_blocks')
+    out = {'snrs': card['snrs'], 'gpu': {k: card[k] for k in keys + ('bers', 'blers', 'seconds')},
+           'cpu': {k: cpu[k] for k in keys + ('seconds',)},
+           'gpu_blocks_per_s': [VITERBI_BLOCKS / s for s in card['seconds']]}
+    emit('viterbi_curve', **out, launches=counts, card=nvidia_smi())
+    check(all(card[k] == cpu[k] for k in keys), f'viterbi_curve: card {card} cpu {cpu}')
+    check(not any(counts.values()), f'viterbi_curve launched a conv-stack kernel: {counts}')
     return counts
 
 

@@ -233,3 +233,18 @@ def test_eval_cli_writes_its_json_by_default(tmp_path, monkeypatch, capsys):
     with open(tmp_path / 'logs' / 'flagship_eval.json') as f:
         assert json.load(f) == json.loads(json.dumps(out))
     assert 'wrote logs/flagship_eval.json' in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------- the classical benchmark CLIs
+@pytest.mark.parametrize('cli,engine', [('turbo_benchmark', 'torch'), ('turbo_benchmark', 'torch_mc'),
+                                        ('conv_benchmark', 'torch'), ('ldpc_benchmark', 'torch')])
+def test_classical_clis_raise_without_gpu(cli, engine, monkeypatch, capsys):
+    """Without --device cpu each classical CLI asks for the card and raises
+    when there is none: no engine falls back to the CPU, and nothing is
+    decoded or printed before it raises."""
+    import importlib
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    mod = importlib.import_module(f'turboae_tpu_torch.cli.{cli}')
+    with pytest.raises(RuntimeError, match='cuda'):
+        mod.main(['-engine', engine])
+    assert '[testing]' not in capsys.readouterr().out

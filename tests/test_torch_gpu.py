@@ -289,3 +289,111 @@ def test_graph_steps_match_eager_steps(cuda_device, dtype, fused, opt, mode):
     graph.marks = []
     with pytest.raises(RuntimeError, match='marks'):
         graph._train_steps(mode, 2, 1)
+
+
+# ---------------------------------------------------------------- the classical device decoders
+# the f32 turbo LLRs, card against CPU, absolute: six iterations of
+# extrinsic exchange amplify the two devices' f32 rounding on a few blocks
+# (chip_smoke.py's CLASSICAL_LLR_TOL); decisions are held exactly wherever
+# |LLR| exceeds CLASSICAL_NEAR_ZERO
+CLASSICAL_LLR_TOL = 1e-2
+CLASSICAL_NEAR_ZERO = 1e-3
+
+
+def _turbo_rx(code, B, L, snr_db, seed=0):
+    import numpy as np
+    from turboae_tpu_torch.classical.interleavers import RandInterlv
+    from turboae_tpu_torch.classical.trellis import turbo757_trellis, turbo_lte_trellis
+    from turboae_tpu_torch.classical.turbo import turbo_encode_batch
+    trellis = turbo_lte_trellis() if code == 'lte' else turbo757_trellis()
+    rng = np.random.RandomState(seed)
+    p = RandInterlv(L, 0).p_array
+    sigma = 10 ** (-snr_db / 20)
+    msgs = rng.randint(0, 2, (B, L))
+    rx = 2.0 * turbo_encode_batch(msgs, trellis, p) - 1.0 + sigma * rng.randn(B, L, 3)
+    return trellis, p, sigma, torch.as_tensor(rx, dtype=torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('code', ['757', 'lte'])
+@pytest.mark.parametrize('variant', ['hazzys', 'hazzys_g', 'standard'])
+def test_turbo_decoder_on_the_card_equals_the_cpu(cuda_device, code, variant):
+    """The batched log-BCJR turbo decoder (6 iterations, B=64, L=100, -1 dB)
+    on the card against the same function on the CPU: LLRs within 1e-2,
+    decisions equal wherever |LLR| > 1e-3."""
+    from turboae_tpu_torch.classical.turbo import make_turbo_decoder
+    trellis, p, sigma, rx = _turbo_rx(code, 64, 100, -1.0)
+    dec = make_turbo_decoder(trellis, p, 6, variant)
+    ref = dec.llr(*rx.unbind(2), sigma ** 2)
+    got = dec.llr(*rx.to(cuda_device).unbind(2), sigma ** 2)
+    assert got.device.type == 'cuda'
+    assert (got.cpu() - ref).abs().max().item() < CLASSICAL_LLR_TOL
+    firm = ref.abs() > CLASSICAL_NEAR_ZERO
+    assert torch.equal((got.cpu() > 0)[firm], (ref > 0)[firm])
+
+
+@pytest.mark.gpu
+def test_turbo_mc_on_the_card_counts_errors(cuda_device):
+    """make_turbo_mc on the card: seeded runs repeat, and at -1 dB (K=100,
+    2,000 blocks) its BLER is within |z| < 4 of the committed anchor
+    (artifacts/classical_awgn_k100.json: 593 of 2,000)."""
+    from turboae_tpu_torch.classical.interleavers import RandInterlv
+    from turboae_tpu_torch.classical.trellis import turbo757_trellis
+    from turboae_tpu_torch.classical.turbo import make_turbo_mc
+    from turboae_tpu_torch.utils.metrics import two_proportion_z
+    step = make_turbo_mc(turbo757_trellis(), RandInterlv(100, 0).p_array, 6, 'hazzys', batch=2000)
+    sigma = 10 ** (1.0 / 20)
+    be, ble = step(torch.Generator(device=cuda_device).manual_seed(0), sigma)
+    again = step(torch.Generator(device=cuda_device).manual_seed(0), sigma)
+    assert be.device.type == 'cuda' and (int(be), int(ble)) == tuple(int(x) for x in again)
+    assert abs(two_proportion_z(int(ble), 2000, 593, 2000)) < 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('gens', [[7, 5], [7, 5, 6]], ids=['rate2', 'rate3'])
+@pytest.mark.parametrize('decoding_type', ['hard', 'unquantized', 'tdist3', 'tdist5'])
+def test_viterbi_on_the_card_equals_the_cpu(cuda_device, gens, decoding_type):
+    import numpy as np
+    from turboae_tpu_torch.classical.convcode import conv_encode_batch, make_viterbi
+    from turboae_tpu_torch.classical.trellis import Trellis
+    trellis = Trellis(np.array([2]), np.array([gens]))
+    rng = np.random.RandomState(1)
+    coded = conv_encode_batch(rng.randint(0, 2, (256, 100)), trellis)
+    rx = (2.0 * coded - 1 + 0.9 * rng.randn(*coded.shape)).reshape(256, -1, trellis.n)
+    if decoding_type == 'hard':
+        rx = (rx > 0).astype(float)
+    rx = torch.as_tensor(rx, dtype=torch.float32)
+    dec = make_viterbi(trellis, decoding_type)
+    got = dec(rx.to(cuda_device))
+    assert got.device.type == 'cuda' and torch.equal(got.cpu(), dec(rx))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('alg', ['SPA', 'MSA'])
+def test_ldpc_decoder_on_the_card_equals_the_cpu(cuda_device, alg):
+    """The (96, 48) design at Eb/N0 2.5 dB, B=256, 100 iterations. MSA,
+    exact arithmetic summed in one order on both devices: bits equal and
+    LLRs within 1e-4 on every frame. SPA, whose atanh near its clip turns
+    one ulp of tanh into up to ~1 of LLR: bits equal on the frames whose
+    bits satisfy the parity on both devices, frame errors within |z| < 4."""
+    import os
+
+    import numpy as np
+    from turboae_tpu_torch.classical.ldpc import DESIGNS, get_ldpc_code_params, make_ldpc_decoder
+    params = get_ldpc_code_params(os.path.join(DESIGNS, '96.33.964.txt'))
+    nv = 1.0 / (2 * 0.5 * 10 ** (2.5 / 10.0))
+    llr = 2.0 * (1.0 + np.sqrt(nv) * np.random.RandomState(2).randn(256, 96)) / nv
+    llr = torch.as_tensor(llr, dtype=torch.float32)
+    from turboae_tpu_torch.utils.metrics import two_proportion_z
+    dec = make_ldpc_decoder(params, alg, 100)
+    ref_bits, ref_llr = dec(llr)
+    bits, out = dec(llr.to(cuda_device))
+    assert bits.device.type == 'cuda'
+    bits, out = bits.cpu(), out.cpu()
+    pmat = torch.as_tensor(params['pmat'], dtype=torch.float32)
+    both = ((pmat @ bits.T.float()) % 2 == 0).all(0) & ((pmat @ ref_bits.T.float()) % 2 == 0).all(0)
+    assert int(both.sum()) > 128 and torch.equal(bits[both], ref_bits[both])
+    if alg == 'MSA':
+        assert torch.equal(bits, ref_bits) and (out - ref_llr).abs().max().item() < 1e-4
+    fe, ref_fe = (int((b.sum(dim=1) > 0).sum()) for b in (bits, ref_bits))
+    assert abs(two_proportion_z(fe, 256, ref_fe, 256)) < 4

@@ -4,11 +4,15 @@ The port's own numpy copy of the table semantics of commpy's Trellis
 (reference commpy/channelcoding/convcode.py:70-225), its dec2bitarray
 index wrap for values wider than the bit width included. Only k=1 codes
 occur in the reference (Turbo-757 G=[7,5] fb=7, Turbo-LTE G=[13,11]
-fb=13); k>1 raises. The tables are tiny (2^M x 2) and built on the host.
+fb=13); k>1 raises. The tables are tiny (2^M x 2) and built on the host;
+`device_tables` hands them to the device decoders, one copy a device.
 """
 from __future__ import annotations
 
+from typing import Callable, Dict
+
 import numpy as np
+import torch
 
 
 def dec2bitarray(in_number: int, bit_width: int) -> np.ndarray:
@@ -90,3 +94,19 @@ def turbo757_trellis() -> Trellis:
 def turbo_lte_trellis() -> Trellis:
     """Turbo-LTE component code (reference encoders.py:780-783)."""
     return Trellis(np.array([3]), np.array([[13, 11]]), feedback=13)
+
+
+def device_tables(host: Dict[str, np.ndarray]) -> Callable[[torch.device], Dict[str, torch.Tensor]]:
+    """fn(device) -> the host arrays as tensors on that device, copied once a
+    device: integer arrays as int64, floating ones as f32, bool as bool."""
+    def dtype(a):
+        a = np.asarray(a)
+        return a.astype(np.int64 if a.dtype.kind in 'iu' else np.float32 if a.dtype.kind == 'f' else a.dtype)
+    host = {k: dtype(v) for k, v in host.items()}
+    cache: Dict[torch.device, Dict[str, torch.Tensor]] = {}
+
+    def tables(device):
+        if device not in cache:
+            cache[device] = {k: torch.as_tensor(v, device=device) for k, v in host.items()}
+        return cache[device]
+    return tables
