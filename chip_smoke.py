@@ -64,7 +64,7 @@ Phases, each printing one JSON line:
                decoder step on the card against the CPU, then one epoch of
                its last leg's recipe through cli/train_flagship.main
                (--num_train_enc 0, 6 decoder epochs, lr 2e-5): the epoch to
-               523, the decoder's Adam count +60, the encoder's untouched,
+               523, the decoder's Adam count +30, the encoder's untouched,
                the loss below DEEPTURBO_DEC_LOSS_MAX, no K2 launch;
   losses       path 10: on the flagship, one f32 joint step of each of the
                nine losses on the card against the CPU; 6 Lookahead(Adam)
@@ -77,7 +77,7 @@ Phases, each printing one JSON line:
                LSTM within F32_REL_TOL, GRU gradients within 1e-4, no cuDNN
                weight-copy warning; bf16 cuDNN (the port's bf16 route)
                within KERNEL_REL_TOL of the bf16 scan; ms a call of each;
-  rnn_forward  the RNN zoo at full width from one seeded init (batch 64,
+  rnn_forward  the RNN zoo at full width from one seeded init (batch 32,
                0 dB), card against CPU: the rate-3 RNN pair, GRU and LSTM,
                rnn_sys + rate-3 decoder, the rate-2 pair, nbcjr; f32 within
                1e-4 and through cuDNN only; bf16 (cuDNN's bf16 RNN on the
@@ -121,7 +121,7 @@ Phases, each printing one JSON line:
                agreeing, exactly 12 launches;
   mod_resume   path 18: mod_ae.msgpack with its four Adam states resumed for
                one epoch of its last leg (lr 1e-4, batch 500, 1/5/1/5
-               encoder/decoder/mod/demod phase-epochs of 20 steps): each
+               encoder/decoder/mod/demod phase-epochs of 10 steps): each
                count up by its steps, each loss below MOD_LOSS_MAX; then
                cli/main_modulation.py from its params for one epoch, whose
                checkpoint has the file's layout;
@@ -179,6 +179,30 @@ Phases, each printing one JSON line:
   viterbi_curve  path 27: cli/conv_benchmark ([7,5], unquantized, AWGN, 0, 2
                and 4 dB, 20,000 blocks a point) on the card and the same
                seeded run on the CPU: equal error counts;
+  dist_train   path 28: data parallelism (ROADMAP M16), two gloo ranks on the
+               one card, each its own process (`chip_smoke.py --dist-rank`),
+               against this process alone: the flagship at full width from
+               the crown's params, f32, global batch 500 (250 rows a rank), a
+               decoder and an encoder step (losses within 1e-5 relative,
+               params within rtol 1e-4 / atol 1e-5, both ranks alike) and 5
+               timed decoder steps; a fused bf16 forward of each rank's rows
+               (12 K2 launches a rank, decisions > 99.9 % those of the one
+               process); the crown's sweep counts at -1 dB, 2,000 blocks, equal
+               but for blocks within 1e-5 of 0.5, which it prints; steps_per_call
+               2 under gloo refused;
+  native_parity  path 29: the C++ oracle (ROADMAP M15b, g++ at first use, its
+               seconds printed) against the card's decoders: Turbo-757 hazzys
+               (200 blocks, L=100, -1 dB) decisions equal but where the card's
+               |LLR| < 1e-3 (counted), [7,5] Viterbi equal; one `-engine
+               native` point of cli/turbo_benchmark (-1 dB, 10,000 blocks,
+               blocks/s) by z against classical_awgn_k100.json;
+  dist_cli     path 30: torchrun --nproc_per_node 1 (`chip_smoke.py --cli-rank`,
+               which runs cli/main.py's main after its check): one NCCL rank;
+               steps_per_call's CUDA graph under the NCCL mesh against eager
+               steps (f32 losses within 1e-5 relative); then cli/main.py
+               -mesh_shape 1 at full width (bf16, fused) trains one epoch and
+               writes its checkpoint and log; K2 counted; it runs while
+               native_parity runs here;
   conv_stack_bench  path 7: the port of scripts/bench_conv_stack.py, the only
                path of K1, with its launches read around it;
   times        CUDA-event times of each kernel, its plain version and a
@@ -192,12 +216,14 @@ from __future__ import annotations
 import json
 import math
 import os
+import subprocess
 import sys
 import time
 
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+STARTED = time.perf_counter()
 
 SWEEP_POINTS = (-1.0, 0.0)
 SWEEP_BLOCKS = 20000
@@ -233,11 +259,15 @@ DEEPTURBO_POINTS = (-1.5, -1.0, -0.5, 0.0, 0.5, 1.0, 1.5, 2.0)   # >= 20 block e
 # loss must lie below this. Fixed before the first run on the card: the JAX
 # leg's last three epochs logged 0.0376-0.0384 (artifacts/deepturbo5.out).
 DEEPTURBO_DEC_LOSS_MAX = 0.05
+# DeepTurbo's resumed epoch at 2,500 blocks (5 steps a decoder epoch), the
+# fading resume's at RESUME_NUM_BLOCK: a depth cut, as MOD_RECIPE's
+DEEPTURBO_RESUME_NUM_BLOCK = 2500
 LOSSES = ('bce', 'soft_ber', 'bce_rl', 'enc_rl', 'bce_block', 'focal', 'mse', 'maxBCE',
           'sortBCE')
 LOOKAHEAD_STEPS = 6         # across the syncs at counts 0 and 5
 LOSSES_NUM_BLOCK = 1000     # the cli/main.py run: 2 steps an epoch at batch 500
 LOSSES_BATCH = 500
+RNN_FORWARD_BATCH = 32              # rnn_forward's blocks, card and CPU (a depth cut from 64)
 GRU_SHAPE = (500, 100, 7, 100, 2)   # B, L, In, H, layers: the rate-3 RNN decoder's first biGRU
 GRU_F32_TOL = 1e-5                  # cuDNN's f32 GRU against the plain scan, relative
 RNN_EPOCH_LOSS_MAX = 0.69           # the untrained BCE, log 2; fixed before the first card run
@@ -265,9 +295,11 @@ ZOO_LR = '1e-4'
 MOD_POINTS = (-2.0, -1.0, 0.0, 1.0, 2.0)
 MOD_REF_BLOCKS = 50000              # the blocks a point of mod_tr2.out's test (RESULTS.md Round 3)
 # artifacts/mod_ae.msgpack's last leg (artifacts/mod_tr2.out, epochs
-# 141-400): every lr 1e-4, batch 500, 10,000 blocks an epoch of each phase
+# 141-400): every lr 1e-4, batch 500, 10,000 blocks an epoch of each phase;
+# resumed here at 5,000 blocks a phase-epoch (a depth cut, to keep the
+# script near 5 minutes once the data-parallel phases came in)
 MOD_RECIPE = dict(enc_lr=1e-4, dec_lr=1e-4, mod_lr=1e-4, demod_lr=1e-4, batch_size=500,
-                  num_block=10000)
+                  num_block=5000)
 # Each phase's epoch loss after one resumed epoch of that recipe must lie
 # below this; fixed before the first card run: the log's epochs 397-400
 # give 0.00114-0.00121 (enc), 0.0090-0.0096 (dec), 0.0087-0.0090 (mod),
@@ -315,10 +347,32 @@ LDPC_REF = (708, 8000)        # frame errors, frames
 LDPC_COMMPY_FER = 0.1         # what the reference's commpy test expects there (tests/test_ldpc.py)
 LDPC_FRAMES, LDPC_BATCH = 20000, 2000
 VITERBI_BLOCKS = 20000
+# data parallelism (ROADMAP M16): two gloo ranks share the card (NCCL refuses
+# two ranks on one card); the flagship's global batch splits 250 + 250
+DIST_RANKS = 2
+DIST_BATCH = 500
+DIST_TIMED_STEPS = 5
+DIST_SWEEP_BLOCKS = 2000     # one global batch of SWEEP_BATCH
+# a bf16 decision this close to 0.5 may flip with an f32 sum's order: the
+# power constraint's global statistics, reordered, can move a code across a
+# bf16 rounding, which the bf16 decoder carries to ~1e-2 of its output
+# (KERNEL_REL_TOL); the f32 tests hold such decisions at 1e-5
+DIST_NEAR = 1e-2
+# the gradients of two ranks against one process on the same card, relative
+# to each leaf's largest: the same arithmetic summed in another order (the
+# port against JAX on the CPU is held to 1e-4, tests/test_torch_train.py)
+DIST_GRAD_TOL = 1e-4
+WORKER_TIMEOUT = 240         # seconds a spawned rank may take
+# the C++ oracle (ROADMAP M15b)
+NATIVE_B = 200
+NATIVE_CURVE_BLOCKS = 10000
 
 
 def emit(phase: str, **fields):
-    print(json.dumps({'phase': phase, **fields}), flush=True)
+    """One JSON line; `elapsed_s` is the script's wall time so far, which
+    gives each phase's share of the run."""
+    print(json.dumps({'phase': phase, **fields,
+                      'elapsed_s': time.perf_counter() - STARTED}), flush=True)
 
 
 def check(cond: bool, msg: str):
@@ -524,14 +578,15 @@ def main() -> int:
         recipe=['--encoder', 'Turbo_rate3_757', '--num_train_enc', '0', '--num_train_dec', '6',
                 '--dec_lr', '2e-5', '--train_dec_channel_low', '-2.5',
                 '--train_dec_channel_high', '2.0'],
-        train_enc=0, train_dec=6, dec_loss_max=DEEPTURBO_DEC_LOSS_MAX, stacks=0)
+        train_enc=0, train_dec=6, dec_loss_max=DEEPTURBO_DEC_LOSS_MAX, stacks=0,
+        num_block=DEEPTURBO_RESUME_NUM_BLOCK)
 
     # ---- losses: path 10, the loss menu and Lookahead ----
     paths['losses'] = losses_phase(dev, gen)
 
     # ---- the RNN zoo (paths 11) and FTAE (paths 12 and 13) ----
     gru_forward_phase(dev)
-    paths['rnn_forward'] = rnn_forward_phase(dev, gen)
+    paths['rnn_forward'] = rnn_forward_phase(dev, gen, batch=RNN_FORWARD_BATCH)
     paths['rnn_train'] = rnn_train_phase(dev, gen)
     paths['ftae_curve'] = ftae_curve_phase(dev)
     paths['ftae_train'] = ftae_train_phase(dev, gen)
@@ -558,6 +613,16 @@ def main() -> int:
     paths['classical_curve'] = classical_curve_phase(dev)
     paths['ldpc_fer'] = ldpc_fer_phase(dev)
     paths['viterbi_curve'] = viterbi_curve_phase(dev)
+
+    # ---- data parallelism (M16) and the C++ oracle (M15b) ----
+    paths['dist_train'] = dist_train_phase(dev)
+    dist_cli = start_dist_cli()           # its own processes, while native_parity runs here
+    try:
+        paths['native_parity'] = native_parity_phase(dev)
+    except BaseException:
+        stop(dist_cli[0])
+        raise
+    paths['dist_cli'] = dist_cli_phase(dist_cli)
 
     # ---- times: each kernel, its plain version, a library yardstick, its bound ----
     sweep_layers = crown['dec']['iters'][0]['dec1_cnn']
@@ -766,7 +831,8 @@ FADING_RECIPE = ['--channel', 'fading', '--train_enc_channel_low', '0.5',
 
 def resume_phase(dev, gen, phase='resume', ckpt='flagship_fading.msgpack',
                  step_cfg=(('channel', 'fading'),), dec_snr=(-2.5, 2.5), recipe=FADING_RECIPE,
-                 train_enc=1, train_dec=5, dec_loss_max=RESUME_DEC_LOSS_MAX, stacks=12):
+                 train_enc=1, train_dec=5, dec_loss_max=RESUME_DEC_LOSS_MAX, stacks=12,
+                 num_block=RESUME_NUM_BLOCK):
     """A committed run resumed on the card: a step's parity with the CPU,
     then one epoch of the recipe through the training CLI (`stacks` K2
     launches a forward); returns the kernels' launch counts of the epoch."""
@@ -807,7 +873,7 @@ def resume_phase(dev, gen, phase='resume', ckpt='flagship_fading.msgpack',
         out_ckpt = os.path.join(tmp, 'resumed.msgpack')
         metrics = os.path.join(tmp, 'metrics.jsonl')
         argv = ['--resume', path, *recipe,
-                '--dtype', 'bfloat16', '--use_fused_conv', '--num_block', str(RESUME_NUM_BLOCK),
+                '--dtype', 'bfloat16', '--use_fused_conv', '--num_block', str(num_block),
                 '--batch_size', str(RESUME_BATCH), '--epochs', str(step + 1), '--val_every', '1',
                 '--ckpt', out_ckpt, '--metrics', metrics, '--device', str(dev)]
         sync(dev)
@@ -821,18 +887,18 @@ def resume_phase(dev, gen, phase='resume', ckpt='flagship_fading.msgpack',
         with open(metrics) as f:
             records = [json.loads(line) for line in f]
     epoch = [r for r in records if r['event'] == 'epoch']
-    steps = RESUME_NUM_BLOCK // RESUME_BATCH
+    steps = num_block // RESUME_BATCH
     grew = {h: int(after['opt_state'][h]['0']['count']) - counts0[h] for h in ('enc', 'dec')}
     # the epoch's training forwards, the validation's steps and the final
     # test's two passes over 12 points
     forwards = (train_enc + train_dec + 1) * steps + \
-        2 * 12 * (min(10000, RESUME_NUM_BLOCK) // RESUME_BATCH)
+        2 * 12 * (min(10000, num_block) // RESUME_BATCH)
     emit(phase, step_loss_gpu=lg, step_loss_cpu=lc, step_loss_rel=loss_rel,
          step_param_diff_rel=dp, step_counts={'gpu': [eg, cg], 'cpu': [ec, cc]},
          file_step=step, file_counts=counts0, saved_step=after['step'], counts_grew=grew,
          epoch=epoch, dec_loss=epoch[-1]['dec_loss'] if epoch else None,
          dec_loss_max=dec_loss_max, launches=counts, expected_launches=stacks * forwards,
-         seconds=seconds, train_blocks_per_s=RESUME_NUM_BLOCK * (train_enc + train_dec)
+         seconds=seconds, train_blocks_per_s=num_block * (train_enc + train_dec)
          / epoch[-1]['seconds'] if epoch else None,
          test_bler=trainer.last_test['bler'], card=nvidia_smi())
     check(loss_rel < 1e-4, f'{phase} step: loss differs from the CPU by {loss_rel}')
@@ -2380,5 +2446,429 @@ def train_step_parity(crown, crown_cpu, dev, gen, batch=PARITY_BATCH):
         check(firm_dp < 1e-2 and max_dp <= 2.002, f'{mode}: updated params differ')
 
 
+# ---------------------------------------------------------------- data parallelism (M16)
+def dist_train_work(dev, mesh, out_path=None):
+    """The data-parallel flagship at full width (TurboAE_rate3_cnn, C=100, 6
+    iterations, K=100) from the crown's params, on `mesh` or, with None, in
+    this one process: a decoder step and an encoder step, each from the
+    crown, in f32 at global batch DIST_BATCH from the generator seeded by
+    cfg.seed (loss_and_grads, then the phase's Adam step), then
+    DIST_TIMED_STEPS decoder steps timed; a fused bf16 forward of a global batch drawn on the
+    card (this rank's rows through K2); the crown's sweep counts at -1 dB,
+    DIST_SWEEP_BLOCKS blocks in one global batch (bf16, fused). Under a gloo
+    mesh, steps_per_call 2 must raise. Returns a dict; the gradients and
+    params of the two steps, the forward's rows and the sweep's outputs (this
+    rank's rows) go to out_path (torch.save) when given."""
+    from turboae_tpu_torch.cli.eval_flagship import load_flagship
+    from turboae_tpu_torch.config import Config
+    from turboae_tpu_torch.dist import mesh as dm
+    from turboae_tpu_torch.models.channel_ae import forward_ae, make_perms
+    from turboae_tpu_torch.train import sweep as sweep_mod
+    from turboae_tpu_torch.train.trainer import Trainer
+    from turboae_tpu_torch.utils.metrics import snr_db2sigma
+    crown = load_flagship(os.path.join(ROOT, 'artifacts', 'flagship.msgpack'), dev)
+    cfg = Config(batch_size=DIST_BATCH)
+    losses, grads, params = [], {}, {}
+    for mode, h in (('decoder', 'dec'), ('encoder', 'enc')):
+        tr = Trainer(cfg, dev, params=crown, mesh=mesh)
+        loss, g = tr.loss_and_grads(mode, tr._bits(), tr._noise(mode))
+        tr.opt[h].step(g[h])
+        losses.append(float(loss))
+        grads[h] = [x.cpu() for x in g[h]]
+        params[h] = [p.detach().cpu() for p in tr._leaves[h]]
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(DIST_TIMED_STEPS):
+        tr._train_step('decoder')
+    sync(dev)
+    step_ms = (time.perf_counter() - t0) / DIST_TIMED_STEPS * 1e3
+
+    fused = Config(batch_size=DIST_BATCH, dtype='bfloat16', use_fused_conv=True)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    bits = (torch.rand((DIST_BATCH, 100, 1), generator=gen, device=dev) < 0.5).float()
+    noise = snr_db2sigma(0.0) * torch.randn((DIST_BATCH, 100, 3), generator=gen, device=dev)
+    sweep_out = []
+    real = sweep_mod.error_counts
+
+    def recording(b, out):
+        sweep_out.append(out.float().cpu())
+        return real(b, out)
+    sync(dev)
+    reset_counts()
+    with dm.active(mesh), torch.inference_mode():
+        rows = [dm.shard_rows(t, mesh) for t in (bits, noise)]
+        out = forward_ae(crown, fused, *rows, make_perms(fused, dev), training=False)[0]
+    sweep_mod.error_counts = recording
+    try:
+        res = sweep_mod.sweep(crown, fused.replace(batch_size=SWEEP_BATCH), [-1.0],
+                              num_block=DIST_SWEEP_BLOCKS, device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(0), mesh=mesh)
+    finally:
+        sweep_mod.error_counts = real
+    sync(dev)
+    launches = read_counts()
+    refused = None
+    if mesh is not None and mesh.backend == 'gloo':
+        try:
+            Trainer(cfg.replace(steps_per_call=2, num_block=2 * DIST_BATCH), dev, params=crown,
+                    mesh=mesh).train_epoch(0, 'decoder', verbose=False)
+        except RuntimeError as e:
+            refused = str(e)
+    if out_path:
+        torch.save({'grads': grads, 'params': params, 'out': out.float().cpu(),
+                    'sweep_out': torch.cat(sweep_out)}, out_path)
+    return {'losses': losses, 'step_ms': step_ms, 'launches': launches,
+            'sweep': {'bit_errors': res['bit_errors'][0], 'blk_errors': res['blk_errors'][0],
+                      'n_blocks': res['n_blocks']},
+            'gloo_graph_refused': refused}
+
+
+def dist_train_phase(dev):
+    """Two gloo ranks on cuda:0, each its own process (`chip_smoke.py
+    --dist-rank`), against this process alone on the same card
+    (dist_train_work): the losses within 1e-5 relative, the gradients within
+    DIST_GRAD_TOL of each leaf's largest, the params after Adam's step within
+    rtol 1e-4 / atol 1e-5 wherever the gradient exceeds 1e-3 of its leaf's
+    largest and within 2 lr elsewhere (Adam's first step is ~lr * g / |g|,
+    which turns a reordered sum of a near-zero gradient into up to 2 lr:
+    train_step_parity's rule), both ranks alike; the fused forward's decisions
+    > 99.9 % agreeing with this process's rows; the sweep's decisions equal
+    but where this process's output lies within DIST_NEAR of 0.5 (counted
+    and printed), its counts apart by those at most; 12 K2 launches a
+    forward and a sweep batch on each rank; steps_per_call 2 under gloo
+    refused. Returns the launches of the two ranks' paths."""
+    import tempfile
+    from turboae_tpu_torch.utils.device import nvidia_smi
+    t0 = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            ref_path = os.path.join(d, 'one.pt')
+            ref = dist_train_work(dev, None, ref_path)
+            port = free_port()
+            procs = []
+            for rank in range(DIST_RANKS):
+                env = dict(os.environ, MASTER_ADDR='localhost', MASTER_PORT=str(port),
+                           RANK=str(rank), WORLD_SIZE=str(DIST_RANKS), LOCAL_RANK='0')
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), '--dist-rank',
+                     os.path.join(d, f'rank{rank}')], env=env, text=True,
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, start_new_session=True))
+            outs = wait_all(procs, 'dist_train')
+            ranks = []
+            for rank in range(DIST_RANKS):
+                with open(os.path.join(d, f'rank{rank}.json')) as f:
+                    ranks.append(json.load(f))
+                ranks[-1]['tensors'] = torch.load(os.path.join(d, f'rank{rank}.pt'))
+            one = torch.load(ref_path)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    seconds = time.perf_counter() - t0
+    loss_rel = max(abs(a - b) / abs(b) for r in ranks for a, b in zip(r['losses'], ref['losses']))
+    grad_rel = max(((a - b).abs().max() / b.abs().max()).item()
+                   for r in ranks for h in one['grads']
+                   for a, b in zip(r['tensors']['grads'][h], one['grads'][h]))
+    firm_over_tol, moved_over_lr = 0.0, 0.0
+    for r in ranks:
+        for h in one['params']:
+            for a, b, g in zip(r['tensors']['params'][h], one['params'][h], one['grads'][h]):
+                firm = g.abs() > 1e-3 * g.abs().max()
+                over = (a - b).abs() / (1e-5 + 1e-4 * b.abs())
+                firm_over_tol = max(firm_over_tol, over[firm].max().item() if firm.any() else 0.0)
+                moved_over_lr = max(moved_over_lr, (a - b).abs().max().item() / 1e-3)
+    ranks_alike = all(torch.equal(a, b) for h in one['params'] for a, b in
+                      zip(ranks[0]['tensors']['params'][h], ranks[1]['tensors']['params'][h]))
+    rows = one['out'].chunk(DIST_RANKS)
+    agree = min((r['tensors']['out'].round() == rows[i].round()).float().mean().item()
+                for i, r in enumerate(ranks))
+    fwd_diff = max((r['tensors']['out'] - rows[i]).abs().max().item() for i, r in enumerate(ranks))
+    launches = {k: sum(r['launches'][k] for r in ranks) for k in ranks[0]['launches']}
+    sweeps = [r['sweep'] for r in ranks]
+    ref_out = one['sweep_out']
+    got_out = torch.cat([r['tensors']['sweep_out'] for r in ranks])
+    flipped = ref_out.round() != got_out.round()
+    near = (ref_out - 0.5).abs() < DIST_NEAR
+    sweep_flips, flips_near = int(flipped.sum()), int((flipped & near).sum())
+    emit('dist_train', ranks=DIST_RANKS, backend='gloo', global_batch=DIST_BATCH,
+         losses_one=ref['losses'], losses_ranks=[r['losses'] for r in ranks], loss_rel=loss_rel,
+         grad_rel=grad_rel, firm_param_err_over_tol=firm_over_tol,
+         param_diff_max_over_lr=moved_over_lr, ranks_alike=ranks_alike,
+         forward_max_abs_diff=fwd_diff,
+         forward_decision_agreement=agree, sweep_one=ref['sweep'], sweep_ranks=sweeps,
+         sweep_decisions_flipped=sweep_flips, flipped_within_near=flips_near,
+         outputs_within_near=int(near.sum()), step_ms_one=ref['step_ms'],
+         step_ms_ranks=[r['step_ms'] for r in ranks], launches_one=ref['launches'],
+         launches_ranks=[r['launches'] for r in ranks],
+         gloo_graph_refused=ranks[0]['gloo_graph_refused'], seconds=seconds, card=nvidia_smi())
+    check(loss_rel < 1e-5, f'dist_train: losses {ref["losses"]} vs {[r["losses"] for r in ranks]}')
+    check(grad_rel < DIST_GRAD_TOL, f'dist_train: gradients differ by {grad_rel}')
+    check(firm_over_tol <= 1.0 and moved_over_lr <= 2.002 and ranks_alike,
+          f'dist_train: params {firm_over_tol} of the tolerance, {moved_over_lr} lr')
+    check(agree > 0.999, f'dist_train: fused forward decisions agree {agree}')
+    check(sweep_flips == flips_near, f'dist_train: {sweep_flips} sweep decisions flipped, '
+          f'{flips_near} of them within {DIST_NEAR} of 0.5')
+    for s in sweeps:
+        check(s['n_blocks'] == ref['sweep']['n_blocks'] == DIST_SWEEP_BLOCKS
+              and abs(s['blk_errors'] - ref['sweep']['blk_errors']) <= sweep_flips
+              and abs(s['bit_errors'] - ref['sweep']['bit_errors']) <= sweep_flips,
+              f'dist_train: sweep counts {sweeps} vs {ref["sweep"]}')
+    for r in ranks:
+        check(r['launches']['conv_stack_bf16'] == 12 * (1 + DIST_SWEEP_BLOCKS // SWEEP_BATCH),
+              f"dist_train: K2 launched {r['launches']} times on a rank")
+        check(r['gloo_graph_refused'] is not None and 'captured' in r['gloo_graph_refused'],
+              'dist_train: steps_per_call 2 under gloo was not refused')
+    return launches
+
+
+def dist_rank_main(out_prefix: str) -> int:
+    """`chip_smoke.py --dist-rank <prefix>`: one gloo rank of dist_train on
+    cuda:0 (RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT from the
+    environment); writes <prefix>.json and <prefix>.pt."""
+    sys.path.insert(0, ROOT)
+    from turboae_tpu_torch.dist import mesh as dm
+    from turboae_tpu_torch.utils.device import no_tf32
+    no_tf32()
+    torch.backends.cudnn.deterministic = True
+    dev = torch.device('cuda', 0)
+    rank, world, _ = dm.launch_env()
+    dm.initialize_distributed('env://', world, rank, 'gloo')
+    res = dist_train_work(dev, dm.make_mesh((world,), dev), out_prefix + '.pt')
+    with open(out_prefix + '.json', 'w') as f:
+        json.dump(res, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def nccl_graph_check(dev, mesh):
+    """steps_per_call under an NCCL mesh: GRAPH_N decoder steps a replay, 2
+    replays, against 2 * GRAPH_N eager steps of a trainer on the same mesh
+    from the same seeded init (f32, unfused, batch DIST_BATCH, cuDNN
+    deterministic): the graph is kept only if its losses lie within 1e-5
+    relative of the eager ones, as graph_steps holds a single process."""
+    from turboae_tpu_torch.config import Config
+    from turboae_tpu_torch.train.trainer import Trainer
+    from turboae_tpu_torch.utils.tree import tree_leaves
+    cfg = Config(batch_size=DIST_BATCH)
+    eager = Trainer(cfg, dev, mesh=mesh)
+    le = torch.stack([eager._train_step('decoder') for _ in range(2 * GRAPH_N)])
+    graph = Trainer(cfg, dev, mesh=mesh)
+    try:
+        lg = torch.cat(graph._train_steps('decoder', GRAPH_N, 2))
+    except Exception as e:      # reported, then failed by the phase's check
+        return {'captured': False, 'error': f'{type(e).__name__}: {e}'}
+    return {'captured': True, 'losses_eager': le.tolist(), 'losses_graph': lg.tolist(),
+            'loss_rel': ((lg - le).abs() / le.abs()).max().item(),
+            'param_rel': max(((a - b).abs().max() / b.abs().max()).item() for a, b in
+                             zip(tree_leaves(graph.params), tree_leaves(eager.params)))}
+
+
+def cli_rank_main(out_path: str, argv) -> int:
+    """`chip_smoke.py --cli-rank <out.json> <cli/main.py argv>` under torchrun:
+    joins the NCCL group on cuda:LOCAL_RANK, runs nccl_graph_check on the
+    mesh, then cli/main.py's main (which finds the group up and leaves it at
+    its end); writes the check, K2's launches in the CLI and its seconds."""
+    sys.path.insert(0, ROOT)
+    from turboae_tpu_torch.cli import main as cli_main
+    from turboae_tpu_torch.dist import mesh as dm
+    from turboae_tpu_torch.utils.device import no_tf32
+    no_tf32()
+    rank, world, local = dm.launch_env()
+    dev = torch.device('cuda', local)
+    torch.cuda.set_device(dev)
+    dm.initialize_distributed('env://', world, rank, 'nccl')
+    torch.backends.cudnn.deterministic = True
+    graph = nccl_graph_check(dev, dm.make_mesh((world,), dev))
+    torch.backends.cudnn.deterministic = False
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer = cli_main.main(list(argv))
+    sync(dev)
+    res = {'graph': graph, 'launches': read_counts(), 'seconds': time.perf_counter() - t0,
+           'mesh': [trainer.mesh.size, trainer.mesh.backend],
+           'test_bler': trainer.last_test['bler']}
+    with open(out_path, 'w') as f:
+        json.dump(res, f)
+    return 0
+
+
+def start_dist_cli():
+    """Starts dist_cli: torchrun --nproc_per_node 1 over cli_rank_main and
+    cli/main.py at full width (-mesh_shape 1, bf16, fused, one epoch of
+    2 + 2 steps at batch 500, then its test at -1 dB) in a new directory.
+    Returns (process, directory, started)."""
+    import tempfile
+    d = tempfile.mkdtemp(prefix='dist_cli_')
+    argv = ['-mesh_shape', '1', '-num_epoch', '1', '-num_train_dec', '1', '-num_block',
+            str(2 * DIST_BATCH), '-batch_size', str(DIST_BATCH), '-dtype', 'bfloat16',
+            '--use_fused_conv', '-snr_points', '1', '-snr_test_start', '-1', '-snr_test_end',
+            '-1']
+    proc = subprocess.Popen(
+        [sys.executable, '-m', 'torch.distributed.run', '--nproc_per_node', '1',
+         '--master_port', str(free_port()), os.path.abspath(__file__), '--cli-rank',
+         os.path.join(d, 'rank.json'), *argv],
+        cwd=d, text=True, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        env=dict(os.environ, PYTHONPATH=ROOT), start_new_session=True)
+    return proc, d, time.perf_counter()
+
+
+def dist_cli_phase(started):
+    """dist_cli's result: the NCCL graph check, one epoch through cli/main.py
+    whose checkpoint rank 0 wrote and which loads into the flagship's
+    template, trained away from the seeded init; K2's launches in it.
+    Returns those launches."""
+    import shutil
+    from turboae_tpu_torch.config import Config
+    from turboae_tpu_torch.train.checkpoint import load_checkpoint
+    from turboae_tpu_torch.train.trainer import Trainer
+    from turboae_tpu_torch.utils.device import nvidia_smi
+    from turboae_tpu_torch.utils.tree import tree_leaves
+    proc, d, t0 = started
+    wait_all([proc], 'dist_cli')
+    with open(os.path.join(d, 'rank.json')) as f:
+        res = json.load(f)
+    ckpts = os.listdir(os.path.join(d, 'tmp'))
+    logs = os.listdir(os.path.join(d, 'logs'))
+    init = Trainer(Config(), 'cpu')
+    init.params, init.opt_state, _ = load_checkpoint(os.path.join(d, 'tmp', ckpts[0]),
+                                                     init.params, init.opt_state)
+    fresh = Trainer(Config(), 'cpu')
+    moved = max((a - b).abs().max().item() for a, b in
+                zip(tree_leaves(init.params), tree_leaves(fresh.params)))
+    shutil.rmtree(d)
+    g = res['graph']
+    emit('dist_cli', backend='nccl', ranks=1, nccl_graph=g, checkpoints=ckpts, logs=logs,
+         adam_counts={h: init.opt[h].count for h in init.opt}, param_moved=moved,
+         test_bler=res['test_bler'], launches=res['launches'],
+         cli_seconds=res['seconds'], seconds=time.perf_counter() - t0, card=nvidia_smi())
+    check(g['captured'] and g['loss_rel'] < 1e-5, f'dist_cli: NCCL graph steps {g}')
+    check(len(ckpts) == 1 and len(logs) == 1 and moved > 0
+          and init.opt['enc'].count == init.opt['dec'].count == 2,
+          f'dist_cli: checkpoint {ckpts}, logs {logs}, moved {moved}, Adam counts '
+          f'{[o.count for o in init.opt.values()]}')
+    check(res['mesh'] == [1, 'nccl'], f"dist_cli: mesh {res['mesh']}")
+    check(res['launches']['conv_stack_bf16'] > 0, f"dist_cli: K2 launched {res['launches']}")
+    return res['launches']
+
+
+def native_parity_phase(dev):
+    """The port's C++ oracle (f64, on the host) against the card's decoders
+    (f32): g++'s build seconds; Turbo-757 hazzys (6 iterations, NATIVE_B
+    blocks of L=100 at -1 dB) decisions equal except where the card's |LLR|
+    < CLASSICAL_NEAR_ZERO, which it counts; [7,5] Viterbi (unquantized and
+    tdist3) decisions equal; one `-engine native` point of cli/turbo_benchmark
+    (-1 dB, NATIVE_CURVE_BLOCKS blocks) with its blocks/s, its BLER held by
+    |z| < MAX_Z to classical_awgn_k100.json, the anchor classical_curve uses."""
+    import numpy as np
+    from turboae_tpu_torch import native
+    from turboae_tpu_torch.classical.convcode import conv_encode_batch, make_viterbi
+    from turboae_tpu_torch.classical.interleavers import RandInterlv
+    from turboae_tpu_torch.classical.trellis import Trellis, turbo757_trellis
+    from turboae_tpu_torch.classical.turbo import make_turbo_decoder, turbo_encode_batch
+    from turboae_tpu_torch.cli import turbo_benchmark
+    from turboae_tpu_torch.utils.device import nvidia_smi
+    from turboae_tpu_torch.utils.metrics import two_proportion_z
+    t0 = time.perf_counter()
+    native.build()
+    build_s = native.last_build_seconds
+    trellis, inter = turbo757_trellis(), RandInterlv(CLASSICAL_L, 0)
+    rng = np.random.RandomState(7)
+    sigma = 10 ** (1.0 / 20)
+    msgs = rng.randint(0, 2, (NATIVE_B, CLASSICAL_L))
+    rx = 2.0 * turbo_encode_batch(msgs, trellis, inter.p_array) - 1.0 + \
+        sigma * rng.randn(NATIVE_B, CLASSICAL_L, 3)
+    host = native.native_turbo_decode_batch(rx[:, :, 0], rx[:, :, 1], rx[:, :, 2], trellis,
+                                            sigma ** 2, CLASSICAL_ITERS, inter.p_array)
+    sync(dev)
+    reset_counts()
+    llr = make_turbo_decoder(trellis, inter.p_array, CLASSICAL_ITERS, 'hazzys').llr(
+        *(torch.as_tensor(rx[:, :, i], dtype=torch.float32, device=dev) for i in range(3)),
+        sigma ** 2).cpu()
+    differ = torch.from_numpy(host).bool() != (llr > 0)
+    near = llr.abs() < CLASSICAL_NEAR_ZERO
+    vit = {}
+    conv = Trellis(np.array([2]), np.array([[7, 5]]))
+    coded = conv_encode_batch(rng.randint(0, 2, (NATIVE_B, CLASSICAL_L)), conv)
+    vrx = (2.0 * coded - 1 + 0.9 * rng.randn(*coded.shape)).reshape(NATIVE_B, -1, conv.n)
+    for metric in ('unquantized', 'tdist3'):
+        card = make_viterbi(conv, metric)(torch.as_tensor(vrx, dtype=torch.float32,
+                                                           device=dev)).cpu().numpy()
+        host_v = np.stack([native.native_viterbi(vrx[i], conv, metric) for i in range(NATIVE_B)])
+        vit[metric] = int((card != host_v).sum())
+    with open(os.path.join(ROOT, 'artifacts', 'classical_awgn_k100.json')) as f:
+        ref = json.load(f)
+    n = str(NATIVE_CURVE_BLOCKS)
+    res = turbo_benchmark.run_benchmark(turbo_benchmark.get_bench_args(
+        ['-engine', 'native', '-snr_test_start', '-1', '-snr_test_end', '-1', '-snr_points', '1',
+         '-num_block', n, '-batch_size', n, '-num_dec_iter', str(CLASSICAL_ITERS), '-seed', '0',
+         '--device', str(dev)]))
+    sync(dev)
+    counts = read_counts()
+    j = ref['snr'].index(-1.0)
+    ref_e = round(ref['bler'][j] * ref['n_blocks'][j])
+    z = two_proportion_z(res['block_errors'][0], res['n_blocks'][0], ref_e, ref['n_blocks'][j])
+    emit('native_parity', gxx_build_s=build_s, turbo_blocks=NATIVE_B,
+         turbo_decisions_differ=int(differ.sum()), turbo_near_zero=int(near.sum()),
+         turbo_differ_near_zero=int((differ & near).sum()), viterbi_differ=vit,
+         curve={'snr': -1.0, 'block_errors': res['block_errors'][0],
+                'bit_errors': res['bit_errors'][0], 'n_blocks': res['n_blocks'][0],
+                'bler': res['blers'][0], 'ref_block_errors': ref_e,
+                'ref_n_blocks': ref['n_blocks'][j], 'z_bler': z,
+                'blocks_per_s': res['n_blocks'][0] / res['seconds'][0],
+                'threads': os.cpu_count()},
+         launches=counts, seconds=time.perf_counter() - t0, card=nvidia_smi())
+    check(not bool((differ & ~near).any()), 'native_parity: turbo decisions differ away from 0')
+    check(not any(vit.values()), f'native_parity: Viterbi decisions differ {vit}')
+    check(res['n_blocks'][0] == NATIVE_CURVE_BLOCKS and abs(z) < MAX_Z,
+          f'native_parity: curve point z {z}')
+    return counts
+
+
+def free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(('localhost', 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def stop(proc):
+    """Ends a process started in its own session and every process it
+    started (torchrun's rank among them): SIGTERM, then SIGKILL after 20 s."""
+    import signal
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        try:
+            os.killpg(proc.pid, sig)
+        except ProcessLookupError:
+            break
+        try:
+            proc.communicate(timeout=20)
+            break
+        except subprocess.TimeoutExpired:
+            continue
+
+
+def wait_all(procs, phase):
+    """Each process's output, each within WORKER_TIMEOUT; on a timeout every
+    process is stopped, and on a timeout or a non-zero exit the phase fails
+    with the tail of its output."""
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=WORKER_TIMEOUT)[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                stop(q)
+            raise RuntimeError(f'check failed: {phase}: a process ran past {WORKER_TIMEOUT} s')
+    for p, out in zip(procs, outs):
+        check(p.returncode == 0, f'{phase}: a process exited {p.returncode}:\n{out[-6000:]}')
+    return outs
+
+
 if __name__ == '__main__':
+    if sys.argv[1:2] == ['--dist-rank']:
+        sys.exit(dist_rank_main(sys.argv[2]))
+    if sys.argv[1:2] == ['--cli-rank']:
+        sys.exit(cli_rank_main(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

@@ -99,11 +99,17 @@ def test_main_trains_saves_and_reloads(tmp_path, monkeypatch):
     assert max(reloaded.last_test['ber']) < 0.45
 
 
-@pytest.mark.parametrize('argv,what', [(['-mesh_shape', '2'], 'M16')])
+@pytest.mark.parametrize('argv,what', [(['-mesh_shape', '2'], 'torchrun'),
+                                       (['-shard_axis', 'time'], 'M16b'),
+                                       (['-mesh_shape', '2', '2'], 'M16b')])
 def test_main_refuses_what_is_not_ported(argv, what, tmp_path, monkeypatch):
+    """-mesh_shape outside torchrun (no WORLD_SIZE) names the launcher;
+    time-axis sharding and 2-D meshes are ROADMAP M16b. Nothing is written."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match=what):
+    monkeypatch.delenv('WORLD_SIZE', raising=False)
+    with pytest.raises(RuntimeError, match=what):
         cli_main.main([*argv, *TINY_MAIN])
+    assert not list(tmp_path.iterdir())
 
 
 # ---------------------------------------------------------------- cli/train_flagship.py

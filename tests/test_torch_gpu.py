@@ -397,3 +397,91 @@ def test_ldpc_decoder_on_the_card_equals_the_cpu(cuda_device, alg):
         assert torch.equal(bits, ref_bits) and (out - ref_llr).abs().max().item() < 1e-4
     fe, ref_fe = (int((b.sum(dim=1) > 0).sum()) for b in (bits, ref_bits))
     assert abs(two_proportion_z(fe, 256, ref_fe, 256)) < 4
+
+
+# ---------------------------------------------------------------- M15b and M16
+@pytest.mark.gpu
+def test_native_oracle_against_the_card_decoders(cuda_device):
+    """The C++ oracle (f64, host) against the card (f32): Turbo-757 hazzys
+    decisions equal wherever the card's |LLR| > 1e-3; Viterbi equal."""
+    import numpy as np
+    from turboae_tpu_torch import native
+    from turboae_tpu_torch.classical.convcode import conv_encode_batch, make_viterbi
+    from turboae_tpu_torch.classical.trellis import Trellis
+    from turboae_tpu_torch.classical.turbo import make_turbo_decoder
+    trellis, p, sigma, rx = _turbo_rx('757', 64, 100, -1.0)
+    llr = make_turbo_decoder(trellis, p, 6, 'hazzys').llr(*rx.to(cuda_device).unbind(2),
+                                                          sigma ** 2).cpu()
+    host = native.native_turbo_decode_batch(*rx.double().numpy().transpose(2, 0, 1), trellis,
+                                            sigma ** 2, 6, p)
+    firm = llr.abs() > CLASSICAL_NEAR_ZERO
+    assert torch.equal(torch.from_numpy(host).bool()[firm], (llr > 0)[firm])
+    conv = Trellis(np.array([2]), np.array([[7, 5]]))
+    rng = np.random.RandomState(3)
+    coded = conv_encode_batch(rng.randint(0, 2, (64, 100)), conv)
+    vrx = (2.0 * coded - 1 + 0.9 * rng.randn(*coded.shape)).reshape(64, -1, 2)
+    card = make_viterbi(conv, 'unquantized')(torch.as_tensor(vrx, dtype=torch.float32,
+                                                              device=cuda_device)).cpu().numpy()
+    assert (card == np.stack([native.native_viterbi(r, conv) for r in vrx])).all()
+
+
+@pytest.mark.gpu
+def test_two_gloo_ranks_on_one_card_equal_one_process(cuda_device, tmp_path, monkeypatch):
+    """tests/_torch_dist_worker.py's run at two gloo ranks, both on cuda:0,
+    against this process alone on the card, TF32 off on both sides as the
+    CLIs have it: epoch losses and each loss of the menu within 1e-5
+    relative, its gradients within 1e-4 of each leaf's largest, the params
+    after the epochs within rtol 1e-4 / atol 1e-5 (tests/test_dist.py's
+    sharded tolerance); sweep counts equal but for blocks within 1e-5 of
+    0.5; steps_per_call 2 under gloo refused."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    import numpy as np
+    import _torch_dist_worker as W
+    from turboae_tpu_torch.config import Config
+    from turboae_tpu_torch.models.channel_ae import init_ae
+    monkeypatch.setattr(torch.backends.cudnn, 'allow_tf32', False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, 'allow_tf32', False)
+    rng = np.random.RandomState(0)
+    bits = torch.from_numpy((rng.random_sample((16, 16, 1)) < 0.5).astype(np.float32))
+    noise = torch.from_numpy(rng.standard_normal((16, 16, 3)).astype(np.float32))
+    params = init_ae(torch.Generator().manual_seed(1), Config(**W.SMALL), 'cpu')
+    inputs = {'bits': bits, 'noise': noise, 'params': params,
+              'jax': {'cfg': W.SMALL, 'bits': bits, 'noise': noise, 'params': params}}
+    torch.save(inputs, tmp_path / 'inputs.pt')
+    s = socket.socket()
+    s.bind(('localhost', 0))
+    port = str(s.getsockname()[1])
+    s.close()
+    procs = [subprocess.Popen(
+        [sys.executable, W.__file__, str(tmp_path / 'inputs.pt'), str(tmp_path / 'out')],
+        env=dict(os.environ, MASTER_ADDR='localhost', MASTER_PORT=port, RANK=str(r),
+                 WORLD_SIZE='2', LOCAL_RANK='0', DIST_DEVICE='cuda'),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    assert all(p.returncode == 0 for p in procs), outs
+    got = torch.load(tmp_path / 'out0.pt')
+    ref = W.run_all(inputs, None, cuda_device)
+    assert 'cannot be captured' in got['graph_under_gloo']
+    for name in W.EPOCHS:
+        g, r = got['epochs'][name], ref['epochs'][name]
+        assert all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(g['losses'], r['losses'])), name
+        assert all(torch.allclose(a, b, rtol=1e-4, atol=1e-5)
+                   for a, b in zip(g['params'], r['params'])), name
+    for name in W.LOSSES:
+        g, r = got['losses'][name], ref['losses'][name]
+        assert abs(g['loss'] - r['loss']) <= 1e-5 * abs(r['loss']), name
+        for h in r['grads']:
+            for a, b in zip(g['grads'][h], r['grads'][h]):
+                assert (a - b).abs().max() <= 1e-4 * b.abs().max().clamp_min(1e-30), (name, h)
+    for channel, r in ref['sweep'].items():
+        g = got['sweep'][channel]
+        near = g['near'] + r['near']
+        assert all(abs(a - b) <= near for a, b in zip(g['blk_errors'], r['blk_errors']))

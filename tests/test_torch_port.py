@@ -49,7 +49,7 @@ def test_import_rule_covers_every_subpackage():
               'turboae_tpu_torch/models/deepturbo.py', 'chip_smoke.py'):
         assert f in names
     subpackages = {p.parent.name for p in PORT_FILES if p.name == '__init__.py'}
-    assert {'classical', 'models', 'train', 'kernels', 'ops', 'cli'} <= subpackages
+    assert {'classical', 'models', 'train', 'kernels', 'ops', 'cli', 'dist', 'native'} <= subpackages
 
 
 def test_ast_check_catches_forbidden_imports(tmp_path):

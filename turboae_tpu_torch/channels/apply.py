@@ -17,13 +17,18 @@ from typing import Optional
 
 import torch
 
+from ..dist import mesh as dm
+
 
 def fading_gain(shape, generator: torch.Generator, device) -> torch.Tensor:
     """Rayleigh gain normalised by the reference's sqrt(3.14 / 2), drawn on
-    the generator's device and returned on `device`."""
-    n1 = torch.randn(shape, generator=generator, device=generator.device)
-    n2 = torch.randn(shape, generator=generator, device=generator.device)
-    return (torch.sqrt(n1 ** 2 + n2 ** 2) / (3.14 / 2.0) ** 0.5).to(device)
+    the generator's device and returned on `device`; under a mesh drawn at
+    the global batch, this rank's rows kept (dist/mesh.py:rows)."""
+    def draw(s):
+        n1 = torch.randn(s, generator=generator, device=generator.device)
+        n2 = torch.randn(s, generator=generator, device=generator.device)
+        return torch.sqrt(n1 ** 2 + n2 ** 2) / (3.14 / 2.0) ** 0.5
+    return dm.rows(draw, shape).to(device)
 
 
 def apply_channel(codes: torch.Tensor, noise: torch.Tensor, channel: str,

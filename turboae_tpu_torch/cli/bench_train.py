@@ -24,8 +24,15 @@ FLOPs a step over the timed steps' seconds, and `mfu` that over the card's
 dense peak in the config's dtype (utils/flops.py:PEAKS). On a card not in
 the table, and on the CPU, `mfu` is null and `mfu_reason` says why.
 
+`--mesh_shape N` under torchrun times N data-parallel ranks (dist/mesh.py;
+NCCL, one card a rank, or gloo under --device cpu): --batch_size is then the
+global batch, `value` the blocks/s of all ranks together, and `mfu` taken
+against N cards' peak. Rank 0 prints.
+
     python -m turboae_tpu_torch.cli.bench_train [--use_fused_conv] [--batch_size 500] \
         [--steps_per_call 6]
+    python -m torch.distributed.run --nproc_per_node 4 -m turboae_tpu_torch.cli.bench_train \
+        --mesh_shape 4 --batch_size 2000
 """
 from __future__ import annotations
 
@@ -52,13 +59,14 @@ def step_flops(cfg, device) -> dict:
 
 
 def bench(batch_size: int = 500, use_fused_conv: bool = False, steps: int = 60,
-          device='cuda', steps_per_call: int = 1, **cfg_overrides) -> dict:
+          device='cuda', steps_per_call: int = 1, mesh=None, **cfg_overrides) -> dict:
     dev = resolve_device(device)
     no_tf32()
     cfg = Config(batch_size=batch_size, block_len=100, num_block=batch_size,
                  train_dec_channel_low=-1.5, train_dec_channel_high=2.0,
                  dtype='bfloat16', use_fused_conv=use_fused_conv, **cfg_overrides)
-    trainer = Trainer(cfg, dev)
+    trainer = Trainer(cfg, dev, mesh=mesh)
+    ranks = 1 if mesh is None else mesh.size
     trainer.train_epoch(0, 'decoder', verbose=False)     # warm up both phases
     trainer.train_epoch(0, 'encoder', verbose=False)
     n = steps_per_call
@@ -98,13 +106,13 @@ def bench(batch_size: int = 500, use_fused_conv: bool = False, steps: int = 60,
     return {
         'metric': 'train_blocks_per_s',
         'value': blocks_per_s,
-        'unit': 'blocks/s/GPU (rate-1/3, K=100, 6 dec iters, full train step)',
+        'unit': f'blocks/s over {ranks} rank(s) (rate-1/3, K=100, 6 dec iters, full train step)',
         'vs_baseline': blocks_per_s / BASELINE_BLOCKS_PER_S,
-        'mfu': None if peak_flops is None else flops_per_s / peak_flops,
+        'mfu': None if peak_flops is None else flops_per_s / (peak_flops * ranks),
         'mfu_reason': reason, 'peak_flops': peak_flops, 'peak_dtype': cfg.dtype,
         'tflops_per_s': flops_per_s / 1e12, 'step_flops': flops,
         'use_fused_conv': use_fused_conv, 'allow_tf32': False, 'steps_per_call': n,
-        'batch_size': batch_size, 'steps': steps, 'seconds': dt,
+        'batch_size': batch_size, 'ranks': ranks, 'steps': steps, 'seconds': dt,
         'last_loss': float(torch.cat([l.reshape(-1) for l in losses])[-1]),
         'device': name,
     }
@@ -118,10 +126,20 @@ def main(argv=None):
     p.add_argument('--steps_per_call', type=int, default=1,
                    help='> 1: time the steps as replays of CUDA graphs of this many steps')
     p.add_argument('--device', default='cuda')
+    p.add_argument('--mesh_shape', type=int, default=0,
+                   help='N > 0: N data-parallel ranks under torchrun; --batch_size is global')
     args = p.parse_args(argv)
-    out = bench(args.batch_size, args.use_fused_conv, args.steps, args.device,
-                args.steps_per_call)
-    print(json.dumps(out))
+    from .main import launch
+    device, mesh = launch(Config(mesh_shape=(args.mesh_shape,) if args.mesh_shape else ()),
+                          args.device)
+    try:
+        out = bench(args.batch_size, args.use_fused_conv, args.steps, device,
+                    args.steps_per_call, mesh=mesh)
+    finally:
+        if mesh is not None:
+            torch.distributed.destroy_process_group()
+    if mesh is None or mesh.rank == 0:
+        print(json.dumps(out))
     return out
 
 

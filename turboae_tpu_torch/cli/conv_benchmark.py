@@ -3,11 +3,12 @@ reference commpy/conv_codes_benchmark.py, and conv_codes_llcode.py through
 -tb_depth).
 
 Engines: torch, the batched Viterbi of classical/convcode.make_viterbi on
---device (the default), and numpy, the host oracle one block at a time.
+--device (the default); native, the C++ oracle of native/kernels.cpp in f64
+on the host, one block a call; and numpy, the host oracle one block at a time.
 Bits are drawn from -seed and the channel is classical/channels.corrupt_signal
-on the host, as in JAX. Only the numpy oracle has the windowed traceback:
-with -tb_depth the run switches to it and says so, as JAX's does. JAX's
-`native` engine, a C++ CPU oracle, is not ported yet: argparse refuses it.
+on the host, as in JAX, so each engine's counts equal JAX's engine of the
+same name. Only the numpy oracle has the windowed traceback: with -tb_depth
+the run switches to it and says so, as JAX's does.
 
     python -m turboae_tpu_torch.cli.conv_benchmark -snr_test_start 0 -snr_test_end 4 \\
         -snr_points 3 -num_block 20000 [--device cpu]
@@ -51,7 +52,7 @@ def get_args(argv=None):
     p.add_argument('-snr_test_start', type=float, default=0.0)
     p.add_argument('-snr_test_end', type=float, default=6.0)
     p.add_argument('-snr_points', type=int, default=4)
-    p.add_argument('-engine', choices=['torch', 'numpy'], default='torch')
+    p.add_argument('-engine', choices=['torch', 'native', 'numpy'], default='torch')
     p.add_argument('-seed', type=int, default=0)
     p.add_argument('--device', default='cuda')
     return p.parse_args(argv)
@@ -66,6 +67,7 @@ def run(args):
     from ..classical.channels import corrupt_signal
     from ..classical.convcode import conv_encode_batch, make_viterbi, viterbi_decode
     from ..classical.trellis import Trellis
+    from ..native import native_viterbi
     from ..utils.device import describe, no_tf32, resolve_device
 
     dev = resolve_device(args.device)
@@ -115,6 +117,9 @@ def run(args):
 
         if args.engine == 'torch':
             dec = decoder(torch.as_tensor(rx, dtype=torch.float32, device=dev)).cpu().numpy()
+        elif args.engine == 'native':
+            dec = np.stack([native_viterbi(rx[i], trellis, args.decoding_type)
+                            for i in range(args.num_block)])
         else:
             tb = args.tb_depth if args.tb_depth else None
             dec = np.stack([viterbi_decode(rx[i].reshape(-1), trellis, tb_depth=tb,

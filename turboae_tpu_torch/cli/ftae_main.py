@@ -10,27 +10,31 @@ package's layout) and ends with FTAETrainer.test. TF32 is off.
     python -m turboae_tpu_torch.cli.ftae_main -dec_type turboae_rnn -block_len 50
 
 `--device cpu` runs on the CPU; without it the CLI needs a GPU.
-`-mesh_shape` is not ported (ROADMAP M16).
+`-mesh_shape N` under torchrun trains data-parallel over N ranks, rank 0
+writing the checkpoint, as cli/main.py says.
 """
 from __future__ import annotations
 
 import os
 import time
 
-from .main import parse
+from .main import launch, parse, rank_zero_output
 
 
 def main(argv=None):
     cfg, device = parse(argv)
-    from ..utils.device import no_tf32, resolve_device
+    from ..utils.device import no_tf32
     no_tf32()
-    if cfg.mesh_shape:
-        raise NotImplementedError('-mesh_shape is not ported yet (ROADMAP M16)')
-    device = resolve_device(device)
+    device, mesh = launch(cfg, device)
+    with rank_zero_output(mesh):
+        return _run(cfg, device, mesh)
+
+
+def _run(cfg, device, mesh):
 
     from ..train.checkpoint import load_checkpoint, save_checkpoint
     from ..train.ftae_trainer import FTAETrainer
-    trainer = FTAETrainer(cfg, device)
+    trainer = FTAETrainer(cfg, device, mesh=mesh)
     print(cfg)
     if cfg.init_nw_weight != 'default':
         trainer.params = load_checkpoint(cfg.init_nw_weight, trainer.params)
@@ -42,7 +46,7 @@ def main(argv=None):
         for _ in range(cfg.num_train_dec):
             trainer.train_epoch(epoch, 'decoder')
 
-    if cfg.num_epoch > 0:
+    if cfg.num_epoch > 0 and (mesh is None or mesh.rank == 0):
         os.makedirs('./tmp', exist_ok=True)
         ckpt = f'./tmp/ftae_model_{int(time.time()) % 1_000_000}.msgpack'
         save_checkpoint(ckpt, trainer.params, trainer.opt_state)

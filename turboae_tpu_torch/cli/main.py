@@ -12,12 +12,24 @@ block_len_low and block_len_high (JAX cli/main.py:86-94). TF32 is off.
 
     python -m turboae_tpu_torch.cli.main -num_epoch 10 -num_block 10000
 
-`--device cpu` runs on the CPU; without it the CLI needs a GPU. Not ported
-yet: `-mesh_shape` (ROADMAP M16) raises.
+`--device cpu` runs on the CPU; without it the CLI needs a GPU.
+
+`-mesh_shape N` trains data-parallel over N ranks, one process a rank,
+launched by torchrun, which sets RANK, WORLD_SIZE and LOCAL_RANK:
+
+    python -m torch.distributed.run --nproc_per_node N -m turboae_tpu_torch.cli.main \
+        -mesh_shape N [--device cpu] ...
+
+NCCL with one card a rank (cuda:LOCAL_RANK), or gloo on the CPU under
+`--device cpu`. `-batch_size` is the global batch, which N must divide; the
+run equals the 1-rank run with the same seed. Rank 0 alone writes the log and
+the checkpoint, the file a 1-rank run writes. `-shard_axis time` and 2-D
+meshes raise (ROADMAP M16b).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -35,36 +47,81 @@ def parse(argv=None):
     return config_from_args(ns), ns.device
 
 
+def launch(cfg, device):
+    """(device, mesh) of a run: (the device, None) without -mesh_shape;
+    with it, this rank's device and the mesh over the torchrun job, whose
+    process group is joined here (NCCL, or gloo under --device cpu)."""
+    from ..dist import mesh as dm
+    from ..utils.device import resolve_device
+    if cfg.shard_axis != 'batch':
+        raise NotImplementedError(f'-shard_axis {cfg.shard_axis}: only the batch axis is '
+                                  'sharded; time-axis sharding is ROADMAP M16b')
+    if not cfg.mesh_shape:
+        return resolve_device(device), None
+    if len(cfg.mesh_shape) != 1:
+        raise NotImplementedError(f'-mesh_shape {list(cfg.mesh_shape)}: only 1-D data '
+                                  'parallelism is ported; 2-D meshes are ROADMAP M16b')
+    env = dm.launch_env()
+    if env is None:
+        raise RuntimeError('-mesh_shape needs one process a rank: launch with torchrun, '
+                           'python -m torch.distributed.run --nproc_per_node N -m '
+                           'turboae_tpu_torch.cli.main -mesh_shape N ...')
+    rank, world, local = env
+    if cfg.mesh_shape[0] != world:
+        raise ValueError(f'-mesh_shape {cfg.mesh_shape[0]} but torchrun started {world} ranks')
+    cpu = str(device) == 'cpu'
+    dm.initialize_distributed('env://', world, rank, 'gloo' if cpu else 'nccl')
+    dev = resolve_device('cpu' if cpu else f'cuda:{local}')
+    if not cpu:
+        import torch
+        torch.cuda.set_device(dev)
+    return dev, dm.make_mesh(cfg.mesh_shape, dev)
+
+
+@contextlib.contextmanager
+def rank_zero_output(mesh, log_path=None):
+    """Rank 0's stdout, teed to log_path when given; the other ranks print
+    nothing. Leaves the process group when the block ends."""
+    from ..utils.logging import Tee
+    prev = sys.stdout
+    if mesh is not None and mesh.rank != 0:
+        sys.stdout = open(os.devnull, 'w')
+    elif log_path:
+        os.makedirs(os.path.dirname(log_path), exist_ok=True)
+        sys.stdout = Tee(log_path)
+    try:
+        yield
+    finally:
+        out, sys.stdout = sys.stdout, prev
+        if out is not prev:
+            (out.log if hasattr(out, 'log') else out).close()
+        if mesh is not None:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
 def main(argv=None):
     cfg, device = parse(argv)
-    from ..utils.device import no_tf32, resolve_device
+    from ..utils.device import no_tf32
     no_tf32()
-    if cfg.mesh_shape:
-        raise NotImplementedError('-mesh_shape is not ported yet (ROADMAP M16)')
-    device = resolve_device(device)
+    device, mesh = launch(cfg, device)
 
     # stdout tee to ./logs/<id>_log.txt (reference main.py:17-27,102-107)
     ident = str(int(time.time() % 1_000_000))
-    os.makedirs('./logs', exist_ok=True)
-    from ..utils.logging import Tee
-    tee = Tee(f'./logs/{ident}_log.txt')
-    prev_stdout, sys.stdout = sys.stdout, tee
-    try:
-        return _run(cfg, ident, device)
-    finally:
-        sys.stdout = prev_stdout
-        tee.log.close()
+    with rank_zero_output(mesh, f'./logs/{ident}_log.txt'):
+        return _run(cfg, ident, device, mesh)
 
 
-def _run(cfg, ident, device):
+def _run(cfg, ident, device, mesh=None):
+    writer = mesh is None or mesh.rank == 0
     print('[ID]', ident)
     print(cfg)
 
     from ..train.checkpoint import load_checkpoint, save_checkpoint
     from ..train.trainer import Trainer
     from ..utils.logging import MetricsLogger
-    metrics = MetricsLogger(cfg.log_jsonl or None)
-    trainer = Trainer(cfg, device)
+    metrics = MetricsLogger((cfg.log_jsonl or None) if writer else None)
+    trainer = Trainer(cfg, device, mesh=mesh)
 
     if cfg.init_nw_weight != 'default':
         trainer.params = load_checkpoint(cfg.init_nw_weight, trainer.params)
@@ -92,7 +149,7 @@ def _run(cfg, ident, device):
         print('test ber trajectory', report_ber)
         print('total epoch', cfg.num_epoch)
 
-    if cfg.num_epoch > 0:
+    if cfg.num_epoch > 0 and writer:
         os.makedirs('./tmp', exist_ok=True)
         ckpt = f'./tmp/model_{ident}.msgpack'
         save_checkpoint(ckpt, trainer.params, trainer.opt_state)
@@ -108,7 +165,7 @@ def _run(cfg, ident, device):
         for L in (cfg.block_len_low, cfg.block_len_high):
             print(f'====> test at block_len {L}')
             Trainer(cfg.replace(block_len=L, is_variable_block_len=False), device,
-                    params=trainer.params).test()
+                    params=trainer.params, mesh=mesh).test()
     return trainer
 
 

@@ -8,9 +8,10 @@ Engines:
   torch_mc  bits, encoding, noise and decoding all on --device from a
             generator seeded by -seed (classical/turbo.make_turbo_mc), full
             batches of -batch_size, as JAX's `jax_mc`;
+  native    the C++ oracle of native/kernels.cpp in f64 on the host, threaded
+            over blocks (-num_threads), with the bits and noise of `torch`:
+            its counts equal JAX's `native` engine's at the same flags;
   numpy     the host oracle, one block at a time.
-JAX's `native` engine, a C++ CPU oracle, is not ported yet: argparse
-refuses it, and its -num_threads flag with it.
 
     python -m turboae_tpu_torch.cli.turbo_benchmark -block_len 100 -num_block 1000 \\
         -snr_test_start -1.5 -snr_test_end 2 -snr_points 8 -num_dec_iter 6 [--device cpu]
@@ -35,10 +36,13 @@ def get_bench_args(argv=None):
     p.add_argument('-snr_test_end', type=float, default=2.0)
     p.add_argument('-snr_points', type=int, default=8)
     p.add_argument('-batch_size', type=int, default=1000)
-    p.add_argument('-engine', choices=['torch', 'torch_mc', 'numpy'], default='torch',
+    p.add_argument('-engine', choices=['torch', 'torch_mc', 'native', 'numpy'],
+                   default='torch',
                    help='torch_mc: bits, encoding, noise and decoding on the device, '
-                        'the deep-tail engine')
+                        'the deep-tail engine; native: the C++ oracle on the host')
     p.add_argument('-variant', choices=['hazzys', 'hazzys_g'], default='hazzys')
+    p.add_argument('-num_threads', type=int, default=0,
+                   help='native engine worker threads (<=0: all cores)')
     p.add_argument('-noise_type', default='awgn',
                    help='awgn | t-dist | radar | bsc | bec | ge | ge_awgn | fading: '
                         'classical corrupt_signal semantics (reference '
@@ -67,6 +71,7 @@ def run_benchmark(args):
     from ..classical.trellis import turbo757_trellis, turbo_lte_trellis
     from ..classical.turbo import (hazzys_g_turbo_decode, hazzys_turbo_decode,
                                    make_turbo_decoder, make_turbo_mc, turbo_encode_batch)
+    from ..native import native_turbo_decode_batch
     from ..utils.device import describe, no_tf32, resolve_device
 
     dev = resolve_device(args.device)
@@ -116,6 +121,11 @@ def run_benchmark(args):
                 # f32 on the device, as JAX's jnp.asarray of float64 with x64 off
                 dec = decoder(*(torch.as_tensor(rx[:, :, i], dtype=torch.float32, device=dev)
                                 for i in range(3)), sigma ** 2).cpu().numpy()
+            elif args.engine == 'native':
+                dec = native_turbo_decode_batch(
+                    rx[:, :, 0], rx[:, :, 1], rx[:, :, 2], trellis, sigma ** 2,
+                    args.num_dec_iter, inter.p_array, variant=args.variant,
+                    num_threads=args.num_threads)
             else:
                 host_dec = hazzys_g_turbo_decode if args.variant == 'hazzys_g' \
                     else hazzys_turbo_decode

@@ -193,8 +193,8 @@ class Config:
 
     # ---- additions of the JAX package (not in the reference) ----
     dtype: str = 'float32'            # compute dtype for conv stacks: float32 | bfloat16
-    mesh_shape: Tuple[int, ...] = ()  # device mesh of the JAX package; cli/main.py refuses it (M16)
-    shard_axis: str = 'batch'         # (inert in the port) batch | time sharding
+    mesh_shape: Tuple[int, ...] = ()  # (N,): N-rank data parallelism under torchrun (dist/mesh.py)
+    shard_axis: str = 'batch'         # batch; 'time' raises (ROADMAP M16b)
     seed: int = 0                     # master PRNG seed
     legacy_noise: bool = False        # reproduce pre-2022 test-noise bug (README.md:2)
     use_fused_conv: bool = False      # decoder conv stacks through the CUDA bf16

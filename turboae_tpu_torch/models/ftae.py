@@ -28,15 +28,19 @@ Kept from the JAX package as they are, since they set its numbers:
   - `_alloc` renormalizes with no epsilon, and 'pw'/'ps' scale codes that
     block_norm_ste has already quantized, with no guard (ADVICE.md 6-7).
 The encoder stacks run unfused, as in JAX: no FTAE stack reaches K2.
+Under a mesh (dist/mesh.py) the feedback whitening's mean and std and the
+power allocation's per-position power are those of the global batch.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ..dist import mesh as dm
 from ..ops import conv1d as cv
 from ..ops import gru as rnn
 from ..ops.interleave import deinterleave, interleave
+from ..ops.power import mean_std
 from ..ops.ste import rx_quantize
 from ..utils.device import torch_dtype
 
@@ -52,8 +56,7 @@ def _fb_power_constraint(cfg, x):
     value by ~2e-3 (both committed FTAE checkpoints' fb_enc2; PERF.md §6).
     In f64 the whitened values no longer depend on the device."""
     xd = x.double()
-    m = torch.mean(xd)
-    s = torch.sqrt(torch.sum((xd - m) ** 2) / (x.numel() - 1))
+    m, s = mean_std(xd)
     xn = ((xd - m) / s).float()
     if cfg.channel_mode != 'block_norm':
         xn = rx_quantize(xn, 1.0, 2)
@@ -102,7 +105,7 @@ def _alloc(x, w, s):
     if w is None:
         return x
     xf = x.float()
-    pbar = torch.mean(xf * xf, dim=0)                         # (L, 1)
+    pbar = dm.mean(xf * xf, dim=0)                            # (L, 1)
     factor = torch.rsqrt(torch.mean(w * w * pbar) / torch.mean(pbar))
     out = x * (w * factor).to(x.dtype)
     if s is not None:

@@ -10,7 +10,8 @@ Then one of three power controls (cfg.mod_pc):
   - 'symbol_power': whitening per symbol position, statistics over the batch
     and I/Q axes, Bessel-corrected (reference modulations.py:74-81);
   - 'block_power': global whitening.
-Means are taken as XLA takes them (utils/metrics.py:f32_mean). The
+Means are taken as XLA takes them (utils/metrics.py:f32_mean), and under a
+mesh (dist/mesh.py) over the global batch. The
 demodulator maps received (B, L * n / mod_rate, 2) back to (B, L, n) through
 {'layer': 2 -> demod_num_unit with ELU, 'final': to mod_rate}.
 """
@@ -20,17 +21,16 @@ import torch
 
 from ..ops import conv1d as cv
 from ..ops.ste import mod_quantize
+from ..dist import mesh as dm
 from ..utils.device import torch_dtype
-from ..utils.metrics import f32_mean
 
 
 def _whiten(x: torch.Tensor, dims=None) -> torch.Tensor:
     """(x - mean) / Bessel std over `dims` (all axes when None), kept for
     broadcasting."""
-    mean = f32_mean(x, dims, keepdim=True)
-    sq = (x - mean) ** 2
-    ss = sq.sum() if dims is None else sq.sum(dim=dims, keepdim=True)
-    return (x - mean) / torch.sqrt(ss / (x.numel() // mean.numel() - 1))
+    mean = dm.batch_mean(x, dims, keepdim=True)
+    ss = dm.batch_sum((x - mean) ** 2, dims, keepdim=True)
+    return (x - mean) / torch.sqrt(ss / (dm.batch_count(x, dims) - 1))
 
 
 def mod_init(gen: torch.Generator, cfg, device='cpu'):

@@ -43,6 +43,8 @@ from typing import Dict, List, Optional
 
 import torch
 
+from ..dist import mesh as dm
+
 Layer = Dict[str, Dict[str, torch.Tensor]]
 
 ROUTE_CALLS = {'scan': 0, 'cudnn': 0}
@@ -187,7 +189,8 @@ def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.T
     """Inverted dropout: zero each unit with probability `rate`, scale the
     rest by 1 / (1 - rate); one uniform draw per unit from `generator`."""
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = dm.rows(lambda s: torch.rand(s, generator=generator, device=x.device),
+                   x.shape) < keep     # drawn at the global batch under a mesh
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

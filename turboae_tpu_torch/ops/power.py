@@ -2,6 +2,9 @@
 
 Whitens the whole code tensor with its global mean and Bessel-corrected
 (ddof=1) standard deviation, optionally STE-binarizes, optionally truncates.
+Under a mesh (dist/mesh.py) the statistics are those of the global batch, in
+two passes with an all-reduce after each (JAX :7-11: the reference's
+DataParallel took them per replica); the running NormStats see them too.
 """
 from __future__ import annotations
 
@@ -9,6 +12,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..dist import mesh as dm
 from .ste import ste_quantize
 
 
@@ -28,9 +32,10 @@ def init_norm_stats(device='cpu') -> NormStats:
     return NormStats(z, torch.ones((), dtype=torch.float32, device=device), z.clone())
 
 
-def _std_bessel(x: torch.Tensor) -> torch.Tensor:
-    m = torch.mean(x)
-    return torch.sqrt(torch.sum((x - m) ** 2) / (x.numel() - 1))
+def mean_std(x: torch.Tensor):
+    """The mean and the Bessel-corrected std of the global batch."""
+    m = dm.mean(x)
+    return m, torch.sqrt(dm.batch_sum((x - m) ** 2) / (dm.batch_count(x) - 1))
 
 
 def power_constraint(x: torch.Tensor, cfg, training: bool = True,
@@ -39,8 +44,7 @@ def power_constraint(x: torch.Tensor, cfg, training: bool = True,
     if cfg.no_code_norm:
         return x, stats
 
-    this_mean = torch.mean(x)
-    this_std = _std_bessel(x)
+    this_mean, this_std = mean_std(x)
     if cfg.precompute_norm_stats and stats is not None:
         cnt = stats.count + 1.0
         new_mean = (stats.mean * (cnt - 1.0) + this_mean) / cnt

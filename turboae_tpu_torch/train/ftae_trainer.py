@@ -18,6 +18,10 @@ jax.random's, so runs agree with the JAX trainer in distribution.
 `sweep` counts exact bit and block errors at each point's sigma, the
 feedback noise at its training range, as JAX's sweep does; `test` averages
 per-batch BER and BLER (JAX :184-207). The caller decides TF32.
+
+With `mesh` (dist/mesh.py) the draws are the global batch's and each rank
+keeps its rows, as in train/trainer.py; the loss and gradients, the counts
+and the rates are those of the global batch.
 """
 from __future__ import annotations
 
@@ -33,16 +37,16 @@ from ..utils.tree import tree_leaves
 from .checkpoint import groups
 from .losses import customized_loss
 from .optimizers import make_optimizer
-from .trainer import TrainerBase
+from .trainer import TrainerBase, on_mesh
 
 _MODES = {'encoder': 'enc', 'decoder': 'dec'}
 
 
 class FTAETrainer(TrainerBase):
-    def __init__(self, cfg, device='cuda', params=None):
+    def __init__(self, cfg, device='cuda', params=None, mesh=None):
         """params: a port FTAE param tree to start from (copied), else a
-        seeded init."""
-        super().__init__(cfg, device, params, init_ftae)
+        seeded init; mesh: the data-parallel mesh (dist/mesh.py) or None."""
+        super().__init__(cfg, device, params, init_ftae, mesh)
         self._leaves = {h: tree_leaves(g) for h, g in groups(self._params).items()}
         self.opt = {'enc': make_optimizer(cfg, cfg.enc_lr, self._leaves['enc']),
                     'dec': make_optimizer(cfg, cfg.dec_lr, self._leaves['dec'])}
@@ -72,7 +76,9 @@ class FTAETrainer(TrainerBase):
     def loss_and_grads(self, mode: str, bits, fwd_noise, fb_noise
                        ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """The loss and the gradients of the phase's params, in tree_leaves
-        order of its group (checkpoint.groups)."""
+        order of its group (checkpoint.groups), of the global batch given."""
+        bits, fwd_noise, fb_noise = self._rows(bits, fwd_noise, fb_noise)
+
         def loss():
             out, codes = forward_ftae(self.params, self.cfg, bits, fwd_noise, fb_noise,
                                       self.perms)
@@ -102,14 +108,18 @@ class FTAETrainer(TrainerBase):
 
     # -------------------------------------------------------------
     @torch.inference_mode()
+    @on_mesh
     def _eval_batch(self, sigma: float):
+        """(this rank's bits, its outputs) of a fresh global batch."""
         bits = self._bits()
         fwd = sample_noise(self._shape(), spec_from_cfg(self.cfg), sigma, self.generator,
                            self.device)
-        out, _ = forward_ftae(self.params, self.cfg, bits, fwd, self._fb_noise(), self.perms)
+        bits, fwd, fb = self._rows(bits, fwd, self._fb_noise())
+        out, _ = forward_ftae(self.params, self.cfg, bits, fwd, fb, self.perms)
         return bits, out
 
     @torch.inference_mode()
+    @on_mesh
     def sweep(self, snrs, num_block: Optional[int] = None, verbose: bool = True) -> dict:
         """Exact bit and block error counts at each SNR (JAX :138-181):
         num_block // batch_size batches a point, the forward channel at
@@ -137,6 +147,7 @@ class FTAETrainer(TrainerBase):
                       f'with bler {res["bler"][-1]:.6e} ({blk_e} blk errs)', flush=True)
         return res
 
+    @on_mesh
     def test(self, verbose: bool = True):
         """(snrs, ber, bler) over cfg's SNR points, per-batch rates averaged."""
         cfg = self.cfg

@@ -20,12 +20,20 @@ The other losses, each as the JAX package computes it:
   sortBCE    mean(bce) + lambda_maxBCE * the sum of the 5 largest of those
              positional means (torch.topk, JAX lax.top_k: PARITY.md "Known
              deltas").
+
+Under a mesh (dist/mesh.py) each rank returns its share of the loss, and the
+shares sum to the loss of the global batch: a batch mean becomes the rank's
+mean over the world size, bce_rl's mean(ber) and the positional means of
+maxBCE and sortBCE are global statistics, and the max or top 5 that every
+rank takes of them counts once in the sum of the shares.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+
+from ..dist import mesh as dm
 
 EPS = 1e-7
 
@@ -41,6 +49,12 @@ def _hard_errors(output: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return (torch.round(output) != torch.round(target)).float()
 
 
+def _mean(t: torch.Tensor) -> torch.Tensor:
+    """The rank's share of the global batch's mean (the mean itself with no
+    mesh): each rank holds as many rows."""
+    return dm.share(torch.mean(t))
+
+
 def customized_loss(output: torch.Tensor, target: torch.Tensor, cfg,
                     code: Optional[torch.Tensor] = None) -> torch.Tensor:
     """cfg.loss of the decoder's output (B, L, k) against the bits, a
@@ -48,33 +62,33 @@ def customized_loss(output: torch.Tensor, target: torch.Tensor, cfg,
     output = torch.clamp(output, 0.0, 1.0)
     name = cfg.loss
     if name == 'bce':
-        return torch.mean(bce_elementwise(output, target))
+        return _mean(bce_elementwise(output, target))
     if name == 'soft_ber':
-        return torch.mean(((1.0 - output) ** target) * (output ** (1.0 - target)))
+        return _mean(((1.0 - output) ** target) * (output ** (1.0 - target)))
     if name == 'bce_rl':
         bce = bce_elementwise(output, target)
         ber = _hard_errors(output, target)
-        return (cfg.ber_lambda * torch.mean((ber - torch.mean(ber)) * bce)
-                + cfg.bce_lambda * torch.mean(bce))
+        return (cfg.ber_lambda * _mean((ber - dm.mean(ber)) * bce)
+                + cfg.bce_lambda * _mean(bce))
     if name == 'enc_rl':
         if code is None:
             raise ValueError('loss enc_rl needs the code')
-        return torch.mean(_hard_errors(output, target).detach() * torch.abs(code))
+        return _mean(_hard_errors(output, target).detach() * torch.abs(code))
     if name == 'bce_block':
-        return torch.mean(torch.amax(bce_elementwise(output, target), dim=1))
+        return _mean(torch.amax(bce_elementwise(output, target), dim=1))
     if name == 'focal':
         bce = bce_elementwise(output, target)
         pt = torch.exp(-bce)
-        return torch.mean(cfg.focal_alpha * (1 - pt) ** cfg.focal_gamma * bce)
+        return _mean(cfg.focal_alpha * (1 - pt) ** cfg.focal_gamma * bce)
     if name == 'mse':
         o = torch.clamp(output, EPS, 1.0 - EPS)
-        return torch.mean((torch.log(o / (1.0 - o)) - target) ** 2)
+        return _mean((torch.log(o / (1.0 - o)) - target) ** 2)
     if name in ('maxBCE', 'sortBCE'):
         bce = bce_elementwise(output, target)
-        pos_loss = torch.mean(bce, dim=0)
+        pos_loss = dm.mean(bce, dim=0)
         if name == 'maxBCE':
             extra = torch.mean(torch.amax(pos_loss, dim=0))
         else:
             extra = torch.sum(torch.topk(pos_loss.reshape(-1), 5).values)
-        return torch.mean(bce) + cfg.lambda_maxBCE * extra
+        return _mean(bce) + cfg.lambda_maxBCE * dm.share(extra)
     raise ValueError(f'unknown loss {name}')

@@ -17,6 +17,10 @@ differ from jax.random's, so runs agree with the JAX trainer in
 distribution. `test` sweeps cfg's SNR points with fresh noise at
 sigma(snr) and averages the per-batch BER and BLER (JAX :114-147). The
 caller decides TF32.
+
+With `mesh` (dist/mesh.py) the draws are the global batch's and each rank
+keeps its rows, as in train/trainer.py; the loss and gradients and the rates
+are those of the global batch.
 """
 from __future__ import annotations
 
@@ -32,16 +36,16 @@ from ..utils.tree import tree_leaves
 from .checkpoint import groups
 from .losses import customized_loss
 from .optimizers import make_optimizer
-from .trainer import TrainerBase
+from .trainer import TrainerBase, on_mesh
 
 PHASE_LR = {'encoder': 'enc_lr', 'decoder': 'dec_lr', 'mod': 'mod_lr', 'demod': 'demod_lr'}
 
 
 class ModTrainer(TrainerBase):
-    def __init__(self, cfg, device='cuda', params=None):
+    def __init__(self, cfg, device='cuda', params=None, mesh=None):
         """params: a port modulation-AE param tree to start from (copied),
-        else a seeded init."""
-        super().__init__(cfg, device, params, init_mod_ae)
+        else a seeded init; mesh: the data-parallel mesh (dist/mesh.py) or None."""
+        super().__init__(cfg, device, params, init_mod_ae, mesh)
         self._leaves = {ph: tree_leaves(g) for ph, g in groups(self._params).items()}
         self.opt = {ph: make_optimizer(cfg, getattr(cfg, lr), self._leaves[ph])
                     for ph, lr in PHASE_LR.items()}
@@ -65,7 +69,9 @@ class ModTrainer(TrainerBase):
     def loss_and_grads(self, phase: str, bits: torch.Tensor, noise: torch.Tensor
                        ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """The loss and the gradients of the phase's params, in tree_leaves
-        order of its group (checkpoint.groups)."""
+        order of its group (checkpoint.groups), of the global batch given."""
+        bits, noise = self._rows(bits, noise)
+
         def loss():
             out, sym, _ = forward_mod_ae(self.params, self.cfg, bits, noise, self.perms,
                                          training=True, generator=self.generator)
@@ -94,10 +100,12 @@ class ModTrainer(TrainerBase):
         return avg
 
     @torch.inference_mode()
+    @on_mesh
     def _eval_batch(self, sigma: float):
         bits = self._bits()
         noise = sample_noise(self._sym_shape(), spec_from_cfg(self.cfg), sigma, self.generator,
                              self.device)
+        bits, noise = self._rows(bits, noise)
         out, _, _ = forward_mod_ae(self.params, self.cfg, bits, noise, self.perms,
                                    training=False, generator=self.generator)
         return M.errors_ber(bits, out), M.errors_bler(bits, out)

@@ -13,6 +13,10 @@ one unit noise realization of shape (batch, L, n) is drawn at the start of
 the sweep and scaled by each point's sigma for every batch of every point;
 only the bits resample. It is defined for awgn and t-dist only.
 
+With `mesh` (dist/mesh.py) every rank draws the global batch and keeps its
+rows, and the counts are summed over the ranks: the result is the 1-rank
+run's with that seed, on every rank.
+
 The caller decides TF32: library code sets no global flag (the CLIs turn it
 off, utils/device.py:no_tf32).
 """
@@ -23,6 +27,7 @@ from typing import Optional
 import torch
 
 from ..channels.noise import check_legacy_noise_channel, point_sigma, sample_noise, spec_from_cfg
+from ..dist import mesh as dm
 from ..models.channel_ae import forward_ae, make_perms
 from ..utils.device import resolve_device
 from ..utils.metrics import error_counts
@@ -39,7 +44,8 @@ def sweep_counts(params, cfg, bits: torch.Tensor, noise: torch.Tensor, perms=Non
                  generator: Optional[torch.Generator] = None):
     """Deterministic core of one batch (given the fading gain's generator):
     (bit_errors, block_errors, pos_errors) as int64 tensors, for given bits
-    (B, L, k) and noise (B, L, n)."""
+    (B, L, k) and noise (B, L, n), the global batch under a mesh in effect."""
+    bits, noise = (dm.shard_rows(t, dm.current()) for t in (bits, noise))
     if perms is None:
         perms = make_perms(cfg, bits.device)
     out, _, _ = forward_ae(params, cfg, bits, noise, perms, training=False,
@@ -49,11 +55,17 @@ def sweep_counts(params, cfg, bits: torch.Tensor, noise: torch.Tensor, perms=Non
 
 @torch.inference_mode()
 def sweep(params, cfg, snrs, num_block: Optional[int] = None, device='cuda',
-          generator: Optional[torch.Generator] = None, verbose: bool = False):
+          generator: Optional[torch.Generator] = None, verbose: bool = False, mesh=None):
     """Sweep the SNR points; returns the JAX sweep's result dict.
 
-    num_block // cfg.batch_size batches per point (at least one). Without a
-    generator, one is seeded from cfg.seed on the device."""
+    num_block // cfg.batch_size batches per point (at least one), of
+    cfg.batch_size blocks over all ranks of `mesh`. Without a generator, one
+    is seeded from cfg.seed on the device."""
+    with dm.active(mesh):
+        return _sweep(params, cfg, snrs, num_block, device, generator, verbose)
+
+
+def _sweep(params, cfg, snrs, num_block, device, generator, verbose):
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev)

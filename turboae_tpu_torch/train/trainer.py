@@ -35,6 +35,16 @@ The Config's training extras, as JAX's trainer honours them (:167-262):
   - precompute_norm_stats: `test` first runs `precompute_norm_stats` and
     threads the running mean and std through every batch of both passes.
 
+Data parallelism: with `mesh` (dist/mesh.py, one process a rank) every
+draw is made at the global batch from the generator every rank seeds alike,
+and each rank keeps its rows; the loss each rank differentiates is its share
+(train/losses.py) and the statistics of the forward are global; the
+gradients and the loss are summed over the ranks in one all-reduce a step,
+before the optimizers step, so every rank steps alike and reports what the
+1-rank run with that seed reports. `loss_and_grads`, `_train_step` and
+`_eval_batch` take the global batch. steps_per_call > 1 under a mesh is
+captured only under NCCL (gloo's collectives cannot be captured).
+
 Tracing: with `trainer.marks` set to a list, each step appends a recorded
 CUDA event after each of its phases ('sampled', 'forward', 'backward',
 'optimizer'), behind a 'start' event; cli/profile_train.py reads the device
@@ -55,6 +65,7 @@ off, utils/device.py:no_tf32).
 """
 from __future__ import annotations
 
+import functools
 import gc
 import time
 from typing import Dict, List, Optional, Tuple
@@ -64,10 +75,11 @@ import torch
 
 from ..channels.noise import (check_legacy_noise_channel, generate_noise, point_sigma,
                               sample_noise, spec_from_cfg)
+from ..dist import mesh as dm
 from ..kernels import conv_stack as ks
 from ..models.channel_ae import forward_ae, init_ae, make_perms
 from ..models.encoders import make_encoder
-from ..ops.power import init_norm_stats
+from ..ops.power import init_norm_stats, mean_std
 from ..utils import metrics as M
 from ..utils.device import resolve_device
 from ..utils.tree import tree_leaves, tree_map
@@ -75,6 +87,15 @@ from .losses import customized_loss
 from .optimizers import make_optimizer
 
 _HALVES = {'encoder': ('enc',), 'decoder': ('dec',), 'joint': ('enc', 'dec')}
+
+
+def on_mesh(method):
+    """Run a trainer method with the trainer's mesh in effect (dist/mesh.py)."""
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        with dm.active(self.mesh):
+            return method(self, *args, **kwargs)
+    return run
 
 
 def vbl_buckets(cfg, n_buckets: int = 8) -> List[int]:
@@ -88,11 +109,16 @@ class TrainerBase:
     """What every trainer shares: the config, the device, the interleavers,
     the params (a seeded init from a CPU generator, or a copy of the tree
     given), the device generator seeded with cfg.seed, and the params and
-    optimizer state assigned by copy. A subclass sets `self._leaves`
-    ({group: tree_leaves of its params}) and `self.opt` ({group: optimizer})."""
+    optimizer state assigned by copy, and the data-parallel mesh, if any. A
+    subclass sets `self._leaves` ({group: tree_leaves of its params}) and
+    `self.opt` ({group: optimizer})."""
 
-    def __init__(self, cfg, device, params, init):
+    def __init__(self, cfg, device, params, init, mesh=None):
+        if mesh is not None and cfg.batch_size % mesh.size:
+            raise ValueError(f'batch_size {cfg.batch_size} does not split over '
+                             f'{mesh.size} ranks')
         self.cfg = cfg
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.perms = make_perms(cfg, self.device)
         if params is None:
@@ -134,9 +160,25 @@ class TrainerBase:
         return (torch.rand((cfg.batch_size, cfg.block_len, cfg.code_rate_k),
                            generator=self.generator, device=self.device) < 0.5).float()
 
+    def _rows(self, *tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """This rank's rows of each global batch tensor."""
+        return tuple(dm.shard_rows(t, self.mesh) for t in tensors)
+
+    def _summed(self, loss: torch.Tensor, grads) -> torch.Tensor:
+        """The loss and the gradients (in place) summed over the ranks, in
+        one all-reduce; the loss as it is with no mesh."""
+        if self.mesh is None:
+            return loss
+        loss = loss.reshape(1).clone()
+        dm.all_reduce_([*grads, loss], self.mesh)
+        return loss[0]
+
+    @on_mesh
     def _group_loss_and_grads(self, group: str, loss_fn) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """loss_fn()'s value and its gradients of `group`'s params only, in
-        their tree_leaves order; the other groups build no graph."""
+        their tree_leaves order; the other groups build no graph. Under a mesh
+        loss_fn gives this rank's share, and both come back summed over the
+        ranks."""
         for h, leaves in self._leaves.items():
             for p in leaves:
                 p.requires_grad_(h == group)
@@ -147,13 +189,15 @@ class TrainerBase:
             for leaves in self._leaves.values():
                 for p in leaves:
                     p.requires_grad_(False)
-        return loss.detach(), list(grads)
+        grads = list(grads)
+        return self._summed(loss.detach(), grads), grads
 
 
 class Trainer(TrainerBase):
-    def __init__(self, cfg, device='cuda', params=None):
-        """params: a port param tree to start from (copied), else a seeded init."""
-        super().__init__(cfg, device, params, init_ae)
+    def __init__(self, cfg, device='cuda', params=None, mesh=None):
+        """params: a port param tree to start from (copied), else a seeded
+        init; mesh: the data-parallel mesh (dist/mesh.py) or None."""
+        super().__init__(cfg, device, params, init_ae, mesh)
         self._leaves = {h: tree_leaves(self._params[h]) for h in ('enc', 'dec')}
         self.opt = {'enc': make_optimizer(cfg, cfg.enc_lr, self._leaves['enc']),
                     'dec': make_optimizer(cfg, cfg.dec_lr, self._leaves['dec'])}
@@ -208,12 +252,15 @@ class Trainer(TrainerBase):
                                   training=True, generator=self.generator)
         return customized_loss(torch.clamp(out, 0.0, 1.0), bits, cfg, code=code)
 
+    @on_mesh
     def loss_and_grads(self, mode: str, bits: torch.Tensor, noise: torch.Tensor,
                        cfg=None, perms=None
                        ) -> Tuple[torch.Tensor, Dict[str, List[torch.Tensor]]]:
         """The loss and the gradients of the phase's params, {half: [grad per
-        leaf in tree_leaves order]}; cfg and perms default to the trainer's."""
+        leaf in tree_leaves order]}, of the global batch (bits, noise); cfg
+        and perms default to the trainer's."""
         halves = _HALVES[mode]
+        bits, noise = self._rows(bits, noise)
         for h, leaves in self._leaves.items():
             for p in leaves:
                 p.requires_grad_(h in halves)
@@ -234,12 +281,14 @@ class Trainer(TrainerBase):
             for leaves in self._leaves.values():
                 for p in leaves:
                     p.requires_grad_(False)
+        grads = list(grads)
+        loss = self._summed(loss.detach(), grads)
         out, i = {}, 0
         for h in halves:
             n = len(self._leaves[h])
-            out[h] = list(grads[i:i + n])
+            out[h] = grads[i:i + n]
             i += n
-        return loss.detach(), out
+        return loss, out
 
     def _train_step(self, mode: str, bits: Optional[torch.Tensor] = None,
                     noise: Optional[torch.Tensor] = None,
@@ -265,6 +314,10 @@ class Trainer(TrainerBase):
     def _train_steps(self, mode: str, n: int, groups: int) -> List[torch.Tensor]:
         """`groups` runs of n steps, each a (n,) tensor of losses: one replay
         of the (mode, n) CUDA graph each on the card, n eager steps on the CPU."""
+        if self.mesh is not None and self.mesh.backend != 'nccl':
+            raise RuntimeError(f'steps_per_call > 1 under a {self.mesh.backend} mesh: its '
+                               'collectives cannot be captured in a CUDA graph (use NCCL, '
+                               'or steps_per_call 1)')
         if self.device.type != 'cuda':
             return [torch.stack([self._train_step(mode) for _ in range(n)])
                     for _ in range(groups)]
@@ -302,17 +355,21 @@ class Trainer(TrainerBase):
 
     # -------------------------------------------------------------
     @torch.no_grad()
+    @on_mesh
     def _val_step(self):
         cfg = self.cfg
         bits = self._bits()
         noise = generate_noise(self._noise_shape(), cfg, self.generator, self.device,
                                snr_low=cfg.train_enc_channel_low,
                                snr_high=cfg.train_enc_channel_low)
+        bits, noise = self._rows(bits, noise)
         out, code, _ = forward_ae(self.params, cfg, bits, noise, self.perms, training=False,
                                   generator=self.generator)
         out = torch.clamp(out, 0.0, 1.0)
-        bce = customized_loss(out, bits, cfg.replace(loss='bce'), code=code)
-        custom = customized_loss(out, bits, cfg, code=code)
+        # the losses' shares, summed over the ranks
+        bce, custom = dm.all_reduce(torch.stack([
+            customized_loss(out, bits, cfg.replace(loss='bce'), code=code),
+            customized_loss(out, bits, cfg, code=code)]))
         return bce, custom, M.errors_ber(bits, out)
 
     def validate(self, verbose: bool = True) -> Tuple[float, float]:
@@ -336,12 +393,15 @@ class Trainer(TrainerBase):
                                   self.generator, self.device)
 
     @torch.inference_mode()
+    @on_mesh
     def _eval_batch(self, bits, noise, punc_mask: Optional[torch.Tensor] = None,
                     stats=None):
         """One test batch (JAX _eval_step/_eval_fixed, :315-350): ((ber, bler,
         positional ber, code power), stats); with a puncture mask (JAX
         _eval_punc, :352-366): ((punctured ber, punctured bler), stats).
-        `stats`, the precomputed norm stats, come back updated by the batch."""
+        `stats`, the precomputed norm stats, come back updated by the batch.
+        bits and noise are the global batch."""
+        bits, noise = self._rows(bits, noise)
         out, codes, stats = forward_ae(self.params, self.cfg, bits, noise, self.perms,
                                        training=False, stats=stats, generator=self.generator)
         if punc_mask is None:
@@ -351,6 +411,7 @@ class Trainer(TrainerBase):
                 M.errors_bler(bits, out, punc_mask)), stats
 
     @torch.inference_mode()
+    @on_mesh
     def precompute_norm_stats(self):
         """The encoder over n = max(1, int(num_block / batch_size * test_ratio))
         batches of fresh bits, accumulating the running mean and std of its
@@ -360,7 +421,7 @@ class Trainer(TrainerBase):
         _, enc_apply = make_encoder(cfg)
         stats = init_norm_stats(self.device)
         for _ in range(max(1, int(cfg.num_block / cfg.batch_size * cfg.test_ratio))):
-            _, stats = enc_apply(self.params['enc'], cfg, self._bits(), self.perms,
+            _, stats = enc_apply(self.params['enc'], cfg, *self._rows(self._bits()), self.perms,
                                  training=False, stats=stats)
         self.norm_stats = stats
         print('Pre-computed norm statistics mean ', float(stats.mean),
@@ -368,16 +429,16 @@ class Trainer(TrainerBase):
         return stats
 
     @torch.inference_mode()
+    @on_mesh
     def encoder_power(self, num_batches: int) -> float:
         """Mean over batches of the encoder output's std, Bessel-corrected
         (JAX :510-529, reference trainer.py:238-248)."""
         _, enc_apply = make_encoder(self.cfg)
         total = 0.0
         for _ in range(num_batches):
-            codes, _ = enc_apply(self.params['enc'], self.cfg, self._bits(), self.perms,
-                                 training=False)
-            codes = codes.float()
-            total += float(torch.sqrt(((codes - codes.mean()) ** 2).sum() / (codes.numel() - 1)))
+            codes, _ = enc_apply(self.params['enc'], self.cfg, *self._rows(self._bits()),
+                                 self.perms, training=False)
+            total += float(mean_std(codes.float())[1])
         return total / num_batches
 
     def test(self, verbose: bool = True):

@@ -4,6 +4,8 @@
 Decisions are the rounded probabilities. The sweep's error counts are exact
 integers computed on the device (JAX train/trainer.py:417-424); the rate
 helpers return f32 device scalars or vectors, as Trainer.test averages them.
+Under a mesh (dist/mesh.py) the counts and the means over the batch axis are
+those of the global batch, on every rank alike.
 """
 from __future__ import annotations
 
@@ -12,6 +14,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from ..dist import mesh as dm
 
 
 def snr_db2sigma(snr_db: float) -> float:
@@ -49,8 +53,9 @@ def error_counts(bits: torch.Tensor, out: torch.Tensor):
     """
     t, p = _decisions(bits, out)
     err = t != p
-    pos = err.sum(dim=0)
-    return pos.sum(), err.any(dim=1).sum(), pos
+    counts = dm.all_reduce(torch.cat([err.sum(dim=0), err.any(dim=1).sum().reshape(1)]))
+    pos = counts[:-1]
+    return pos.sum(), counts[-1], pos
 
 
 def wilson_ci(errors: int, n: int, z: float = 1.96):
@@ -75,14 +80,14 @@ def two_proportion_z(e1: int, n1: int, e2: int, n2: int) -> float:
 def errors_ber(y_true: torch.Tensor, y_pred: torch.Tensor) -> torch.Tensor:
     """Mean disagreement of the rounded bits, a scalar tensor (JAX utils/metrics.py:13-17)."""
     t, p = _decisions(y_true, y_pred)
-    return f32_mean((t != p).float())
+    return dm.batch_mean((t != p).float())
 
 
 def errors_ber_pos(y_true: torch.Tensor, y_pred: torch.Tensor) -> torch.Tensor:
     """Positional BER: the error rate of each position over the batch
     (JAX utils/metrics.py:41-45)."""
     t, p = _decisions(y_true, y_pred)
-    return f32_mean((t != p).float(), dim=0)
+    return dm.batch_mean((t != p).float(), dim=0)
 
 
 def errors_ber_punctured(y_true: torch.Tensor, y_pred: torch.Tensor,
@@ -100,7 +105,7 @@ def errors_ber_list(y_true: torch.Tensor, y_pred: torch.Tensor) -> torch.Tensor:
 
 def code_power(codes: torch.Tensor) -> torch.Tensor:
     """Per-position mean |code|^2, over channels then batch (JAX utils/metrics.py:48-51)."""
-    return f32_mean(f32_mean(codes.float().abs() ** 2, dim=2), dim=0)
+    return dm.batch_mean(f32_mean(codes.float().abs() ** 2, dim=2), dim=0)
 
 
 def errors_bler(y_true: torch.Tensor, y_pred: torch.Tensor,
@@ -111,4 +116,4 @@ def errors_bler(y_true: torch.Tensor, y_pred: torch.Tensor,
     err = (t - p).abs()
     if punc_mask is not None:
         err = err * punc_mask[None, :]
-    return f32_mean((err.sum(dim=1) > 0).float())
+    return dm.batch_mean((err.sum(dim=1) > 0).float())
