@@ -190,6 +190,26 @@ Phases, each printing one JSON line:
                process); the crown's sweep counts at -1 dB, 2,000 blocks, equal
                but for blocks within 1e-5 of 0.5, which it prints; steps_per_call
                2 under gloo refused;
+  k1000_curve  path 31: artifacts/flagship_k1000.msgpack through
+               cli/eval_flagship.evaluate (--block_len 1000, bf16, K2, AWGN,
+               batch 2000) at 0 and 0.5 dB, 20,000 blocks a point, held to
+               artifacts/eval_k1000.json by the BLER z test; its blocks/s
+               beside the TPU's, which the file holds (marked as the TPU's);
+  time_shard   path 32: time-axis sharding (ROADMAP M16b), two gloo ranks on
+               the one card (`chip_smoke.py --dist-rank ... time_shard`) under
+               shard_axis 'time' against this process alone, the K=1000
+               flagship at full width from its file, global batch 32: an f32
+               decoder and encoder step under dist_train's tolerances and Adam
+               rule, both ranks alike; the bf16 forward through K2 on each
+               rank's halo windows (500 + 10 positions; 12 launches a rank),
+               its decisions equal but within 1e-2 of 0.5 (counted, printed);
+               one sweep batch at 0 dB, its counts apart by its such flips;
+  mesh_2d      path 33: a (2, 2) mesh ('data', 'model') of four gloo ranks
+               on the card (`... mesh_2d`), the batch over the data axis,
+               from the crown: an f32 decoder step at global batch 500 and a
+               fused forward (12 K2 launches a rank); the two replicas of each
+               data index bit-equal, the step against this process alone
+               under dist_train's tolerances;
   native_parity  path 29: the C++ oracle (ROADMAP M15b, g++ at first use, its
                seconds printed) against the card's decoders: Turbo-757 hazzys
                (200 blocks, L=100, -1 dB) decisions equal but where the card's
@@ -363,6 +383,12 @@ DIST_NEAR = 1e-2
 # port against JAX on the CPU is held to 1e-4, tests/test_torch_train.py)
 DIST_GRAD_TOL = 1e-4
 WORKER_TIMEOUT = 240         # seconds a spawned rank may take
+# the K=1000 flagship (ROADMAP M16b): its curve, and its time-sharded step
+K1000_POINTS = (0.0, 0.5)    # eval_k1000.json: BLER 0.2714 and 0.10429 there
+TIME_RANKS = 2
+TIME_BATCH = 32              # global batch of the time-sharded K=1000 steps
+TIME_TIMED_STEPS = 3
+MESH_2D = (2, 2)             # ('data', 'model'): four gloo ranks, two replicas a share
 # the C++ oracle (ROADMAP M15b)
 NATIVE_B = 200
 NATIVE_CURVE_BLOCKS = 10000
@@ -616,6 +642,23 @@ def main() -> int:
 
     # ---- data parallelism (M16) and the C++ oracle (M15b) ----
     paths['dist_train'] = dist_train_phase(dev)
+
+    # ---- the K=1000 flagship's curve; time-axis sharding and a 2-D mesh (M16b) ----
+    with open(os.path.join(ROOT, 'artifacts', 'eval_k1000.json')) as f:
+        tpu_rate = json.load(f)['eval_blocks_per_s']
+    paths['k1000_curve'] = curve_phase(
+        'k1000_curve', dev, 'flagship_k1000.msgpack', 'eval_k1000.json',
+        ['--block_len', '1000'], snrs=K1000_POINTS,
+        tpu_blocks_per_s_of_eval_k1000_json=tpu_rate)
+    sharded = start_sharded()             # their ranks start while this process works
+    try:
+        paths['time_shard'] = time_shard_phase(dev, sharded['time_shard'])
+        paths['mesh_2d'] = mesh_2d_phase(dev, sharded['mesh_2d'])
+    except BaseException:
+        for procs, _, _ in sharded.values():
+            for proc in procs:
+                stop(proc)
+        raise
     dist_cli = start_dist_cli()           # its own processes, while native_parity runs here
     try:
         paths['native_parity'] = native_parity_phase(dev)
@@ -732,10 +775,11 @@ def channels_phase(dev):
         check(abs(v - w) <= t, f'channels {k}: {v} against {w} +- {t}')
 
 
-def curve_phase(phase, dev, ckpt, ref_name, flags, snrs=SWEEP_POINTS, stacks=12):
+def curve_phase(phase, dev, ckpt, ref_name, flags, snrs=SWEEP_POINTS, stacks=12, **fields):
     """Evenly spaced points of a committed curve through
     cli/eval_flagship.evaluate at the sweep's settings, `stacks` K2 launches
-    a batch; returns the kernels' launch counts of the run."""
+    a batch; returns the kernels' launch counts of the run. `fields` go into
+    the phase's line."""
     from turboae_tpu_torch.cli import eval_flagship
     from turboae_tpu_torch.train import sweep as sweep_mod
     from turboae_tpu_torch.utils.device import nvidia_smi
@@ -771,7 +815,7 @@ def curve_phase(phase, dev, ckpt, ref_name, flags, snrs=SWEEP_POINTS, stacks=12)
     emit(phase, ckpt=ckpt, flags=flags, points=points, legacy_noise=out['legacy_noise'],
          z_n=LEGACY_N if out['legacy_noise'] else 'n_blocks', noise_draws=len(draws),
          launches=counts, expected_launches=expected, blocks_per_s=out['eval_blocks_per_s'],
-         device=out['device'], card=nvidia_smi())
+         device=out['device'], card=nvidia_smi(), **fields)
     check(out['snr'] == list(snrs), f'{phase}: points {out["snr"]}')
     check(counts['conv_stack_bf16'] == expected,
           f"{phase}: conv_stack_bf16 launched {counts['conv_stack_bf16']} times, not {expected}")
@@ -2545,37 +2589,15 @@ def dist_train_phase(dev):
         with tempfile.TemporaryDirectory() as d:
             ref_path = os.path.join(d, 'one.pt')
             ref = dist_train_work(dev, None, ref_path)
-            port = free_port()
-            procs = []
-            for rank in range(DIST_RANKS):
-                env = dict(os.environ, MASTER_ADDR='localhost', MASTER_PORT=str(port),
-                           RANK=str(rank), WORLD_SIZE=str(DIST_RANKS), LOCAL_RANK='0')
-                procs.append(subprocess.Popen(
-                    [sys.executable, os.path.abspath(__file__), '--dist-rank',
-                     os.path.join(d, f'rank{rank}')], env=env, text=True,
-                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, start_new_session=True))
-            outs = wait_all(procs, 'dist_train')
-            ranks = []
-            for rank in range(DIST_RANKS):
-                with open(os.path.join(d, f'rank{rank}.json')) as f:
-                    ranks.append(json.load(f))
-                ranks[-1]['tensors'] = torch.load(os.path.join(d, f'rank{rank}.pt'))
+            ranks = rank_results(start_ranks('dist_train', DIST_RANKS, d), 'dist_train', d)
             one = torch.load(ref_path)
     finally:
         torch.backends.cudnn.deterministic = False
     seconds = time.perf_counter() - t0
-    loss_rel = max(abs(a - b) / abs(b) for r in ranks for a, b in zip(r['losses'], ref['losses']))
-    grad_rel = max(((a - b).abs().max() / b.abs().max()).item()
-                   for r in ranks for h in one['grads']
-                   for a, b in zip(r['tensors']['grads'][h], one['grads'][h]))
-    firm_over_tol, moved_over_lr = 0.0, 0.0
-    for r in ranks:
-        for h in one['params']:
-            for a, b, g in zip(r['tensors']['params'][h], one['params'][h], one['grads'][h]):
-                firm = g.abs() > 1e-3 * g.abs().max()
-                over = (a - b).abs() / (1e-5 + 1e-4 * b.abs())
-                firm_over_tol = max(firm_over_tol, over[firm].max().item() if firm.any() else 0.0)
-                moved_over_lr = max(moved_over_lr, (a - b).abs().max().item() / 1e-3)
+    agreement = step_agreement(ranks, ref['losses'], one)
+    loss_rel, grad_rel = agreement['loss_rel'], agreement['grad_rel']
+    firm_over_tol = agreement['firm_param_err_over_tol']
+    moved_over_lr = agreement['param_diff_max_over_lr']
     ranks_alike = all(torch.equal(a, b) for h in one['params'] for a, b in
                       zip(ranks[0]['tensors']['params'][h], ranks[1]['tensors']['params'][h]))
     rows = one['out'].chunk(DIST_RANKS)
@@ -2584,11 +2606,8 @@ def dist_train_phase(dev):
     fwd_diff = max((r['tensors']['out'] - rows[i]).abs().max().item() for i, r in enumerate(ranks))
     launches = {k: sum(r['launches'][k] for r in ranks) for k in ranks[0]['launches']}
     sweeps = [r['sweep'] for r in ranks]
-    ref_out = one['sweep_out']
-    got_out = torch.cat([r['tensors']['sweep_out'] for r in ranks])
-    flipped = ref_out.round() != got_out.round()
-    near = (ref_out - 0.5).abs() < DIST_NEAR
-    sweep_flips, flips_near = int(flipped.sum()), int((flipped & near).sum())
+    sweep_flips, flips_near, outputs_near = _decisions_apart(
+        torch.cat([r['tensors']['sweep_out'] for r in ranks]), one['sweep_out'])
     emit('dist_train', ranks=DIST_RANKS, backend='gloo', global_batch=DIST_BATCH,
          losses_one=ref['losses'], losses_ranks=[r['losses'] for r in ranks], loss_rel=loss_rel,
          grad_rel=grad_rel, firm_param_err_over_tol=firm_over_tol,
@@ -2596,7 +2615,7 @@ def dist_train_phase(dev):
          forward_max_abs_diff=fwd_diff,
          forward_decision_agreement=agree, sweep_one=ref['sweep'], sweep_ranks=sweeps,
          sweep_decisions_flipped=sweep_flips, flipped_within_near=flips_near,
-         outputs_within_near=int(near.sum()), step_ms_one=ref['step_ms'],
+         outputs_within_near=outputs_near, step_ms_one=ref['step_ms'],
          step_ms_ranks=[r['step_ms'] for r in ranks], launches_one=ref['launches'],
          launches_ranks=[r['launches'] for r in ranks],
          gloo_graph_refused=ranks[0]['gloo_graph_refused'], seconds=seconds, card=nvidia_smi())
@@ -2620,10 +2639,61 @@ def dist_train_phase(dev):
     return launches
 
 
-def dist_rank_main(out_prefix: str) -> int:
-    """`chip_smoke.py --dist-rank <prefix>`: one gloo rank of dist_train on
-    cuda:0 (RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT from the
-    environment); writes <prefix>.json and <prefix>.pt."""
+def step_agreement(ranks, ref_losses, one, lr=1e-3) -> dict:
+    """The ranks' losses, gradients and params after Adam's step against one
+    process's: the losses' largest relative difference, the gradients'
+    largest difference relative to each leaf's largest, the params'
+    difference over rtol 1e-4 / atol 1e-5 where the gradient exceeds 1e-3 of
+    its leaf's largest, and over lr anywhere (Adam's first step is ~lr * g /
+    |g|: a reordered sum of a near-zero gradient moves it by up to 2 lr)."""
+    loss_rel = max(abs(a - b) / abs(b) for r in ranks for a, b in zip(r['losses'], ref_losses))
+    grad_rel = max(((a - b).abs().max() / b.abs().max()).item()
+                   for r in ranks for h in one['grads']
+                   for a, b in zip(r['tensors']['grads'][h], one['grads'][h]))
+    firm_over_tol, moved_over_lr = 0.0, 0.0
+    for r in ranks:
+        for h in one['params']:
+            for a, b, g in zip(r['tensors']['params'][h], one['params'][h], one['grads'][h]):
+                firm = g.abs() > 1e-3 * g.abs().max()
+                over = (a - b).abs() / (1e-5 + 1e-4 * b.abs())
+                firm_over_tol = max(firm_over_tol, over[firm].max().item() if firm.any() else 0.0)
+                moved_over_lr = max(moved_over_lr, (a - b).abs().max().item() / lr)
+    return {'loss_rel': loss_rel, 'grad_rel': grad_rel, 'firm_param_err_over_tol': firm_over_tol,
+            'param_diff_max_over_lr': moved_over_lr}
+
+
+def start_ranks(work: str, world: int, d: str):
+    """Starts `world` gloo ranks of `work` on cuda:0, each its own process
+    (`chip_smoke.py --dist-rank <d>/<work><rank> <work>`), writing into d."""
+    port = free_port()
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, MASTER_ADDR='localhost', MASTER_PORT=str(port),
+                   RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK='0')
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), '--dist-rank',
+             os.path.join(d, f'{work}{rank}'), work], env=env, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, start_new_session=True))
+    return procs
+
+
+def rank_results(procs, work: str, d: str) -> list:
+    """Each rank's result (its JSON, with its tensors under 'tensors') once
+    every process has ended; fails the phase as wait_all does."""
+    wait_all(procs, work)
+    ranks = []
+    for rank in range(len(procs)):
+        with open(os.path.join(d, f'{work}{rank}.json')) as f:
+            ranks.append(json.load(f))
+        ranks[-1]['tensors'] = torch.load(os.path.join(d, f'{work}{rank}.pt'))
+    return ranks
+
+
+def dist_rank_main(out_prefix: str, work: str = 'dist_train') -> int:
+    """`chip_smoke.py --dist-rank <prefix> <work>`: one gloo rank of
+    dist_train, time_shard or mesh_2d on cuda:0 (RANK, WORLD_SIZE,
+    MASTER_ADDR and MASTER_PORT from the environment); writes <prefix>.json
+    and <prefix>.pt."""
     sys.path.insert(0, ROOT)
     from turboae_tpu_torch.dist import mesh as dm
     from turboae_tpu_torch.utils.device import no_tf32
@@ -2632,11 +2702,249 @@ def dist_rank_main(out_prefix: str) -> int:
     dev = torch.device('cuda', 0)
     rank, world, _ = dm.launch_env()
     dm.initialize_distributed('env://', world, rank, 'gloo')
-    res = dist_train_work(dev, dm.make_mesh((world,), dev), out_prefix + '.pt')
+    fn, shape = {'dist_train': (dist_train_work, (world,)),
+                 'time_shard': (time_shard_work, (world,)),
+                 'mesh_2d': (mesh_2d_work, MESH_2D)}[work]
+    res = fn(dev, dm.make_mesh(shape, dev), out_prefix + '.pt')
     with open(out_prefix + '.json', 'w') as f:
         json.dump(res, f)
     torch.distributed.destroy_process_group()
     return 0
+
+
+# ---------------------------------------------------------------- sequence parallelism, 2-D meshes (M16b)
+def _decisions_apart(got, ref):
+    """(decisions flipped, of them within DIST_NEAR of 0.5 in ref, outputs
+    within DIST_NEAR of 0.5) of two outputs of the same blocks."""
+    flipped = got.round() != ref.round()
+    near = (ref - 0.5).abs() < DIST_NEAR
+    return int(flipped.sum()), int((flipped & near).sum()), int(near.sum())
+
+
+def time_shard_work(dev, mesh, out_path=None):
+    """The K=1000 flagship (artifacts/flagship_k1000.msgpack: C=100, 6
+    iterations, 5-layer stacks) under shard_axis 'time' on `mesh`, or with
+    None in this one process: a decoder and an encoder step from the file's
+    params in f32 at global batch TIME_BATCH (loss_and_grads, then the
+    phase's Adam step), TIME_TIMED_STEPS decoder steps timed; the bf16
+    forward through K2 on this rank's halo windows of a global batch drawn
+    on the card (its positions of the output kept); one sweep batch at 0 dB
+    (bf16, fused). Returns a dict; the gradients, params and outputs go to
+    out_path (torch.save) when given."""
+    from turboae_tpu_torch.cli.eval_flagship import load_flagship
+    from turboae_tpu_torch.config import Config
+    from turboae_tpu_torch.dist import mesh as dm
+    from turboae_tpu_torch.models.channel_ae import forward_ae, make_perms
+    from turboae_tpu_torch.train import sweep as sweep_mod
+    from turboae_tpu_torch.train.trainer import Trainer
+    from turboae_tpu_torch.utils.metrics import snr_db2sigma
+    k1000 = load_flagship(os.path.join(ROOT, 'artifacts', 'flagship_k1000.msgpack'), dev)
+    cfg = Config(batch_size=TIME_BATCH, block_len=1000, shard_axis='time')
+    losses, grads, params = [], {}, {}
+    for mode, h in (('decoder', 'dec'), ('encoder', 'enc')):
+        tr = Trainer(cfg, dev, params=k1000, mesh=mesh)
+        loss, g = tr.loss_and_grads(mode, tr._bits(), tr._noise(mode))
+        tr.opt[h].step(g[h])
+        losses.append(float(loss))
+        grads[h] = [x.cpu() for x in g[h]]
+        params[h] = [p.detach().cpu() for p in tr._leaves[h]]
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(TIME_TIMED_STEPS):
+        tr._train_step('decoder')
+    sync(dev)
+    step_ms = (time.perf_counter() - t0) / TIME_TIMED_STEPS * 1e3
+
+    fused = cfg.replace(dtype='bfloat16', use_fused_conv=True)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    bits = (torch.rand((TIME_BATCH, 1000, 1), generator=gen, device=dev) < 0.5).float()
+    noise = snr_db2sigma(0.0) * torch.randn((TIME_BATCH, 1000, 3), generator=gen, device=dev)
+    sweep_out = []
+    real = sweep_mod.error_counts
+
+    def recording(b, out):
+        sweep_out.append(out.float().cpu())
+        return real(b, out)
+    sync(dev)
+    reset_counts()
+    tmesh = dm.along(mesh, 'time')
+    with dm.active(tmesh), torch.inference_mode():
+        rows = [dm.shard_rows(t, tmesh) for t in (bits, noise)]
+        out = forward_ae(k1000, fused, *rows, make_perms(fused, dev), training=False)[0]
+    sync(dev)
+    forward_launches = read_counts()
+    sweep_mod.error_counts = recording
+    try:
+        res = sweep_mod.sweep(k1000, fused, [0.0], num_block=TIME_BATCH, device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(0), mesh=mesh)
+    finally:
+        sweep_mod.error_counts = real
+    sync(dev)
+    launches = read_counts()
+    if out_path:
+        torch.save({'grads': grads, 'params': params, 'out': out.float().cpu(),
+                    'sweep_out': torch.cat(sweep_out)}, out_path)
+    return {'losses': losses, 'step_ms': step_ms, 'launches': launches,
+            'forward_launches': forward_launches,
+            'positions': list(out.shape[1:2]),
+            'sweep': {'bit_errors': res['bit_errors'][0], 'blk_errors': res['blk_errors'][0],
+                      'n_blocks': res['n_blocks']}}
+
+
+def mesh_2d_work(dev, mesh, out_path=None):
+    """The crown at full width on a (2, 2) mesh (the batch over the data
+    axis, two replicas of each share), or with None in this one process: an
+    f32 decoder step from the crown at global batch DIST_BATCH
+    (loss_and_grads, then Adam's step), and a fused bf16 forward of this
+    rank's rows of a global batch drawn on the card (K2). Returns a dict;
+    the gradients, params and output go to out_path when given."""
+    from turboae_tpu_torch.cli.eval_flagship import load_flagship
+    from turboae_tpu_torch.config import Config
+    from turboae_tpu_torch.dist import mesh as dm
+    from turboae_tpu_torch.models.channel_ae import forward_ae, make_perms
+    from turboae_tpu_torch.train.trainer import Trainer
+    from turboae_tpu_torch.utils.metrics import snr_db2sigma
+    crown = load_flagship(os.path.join(ROOT, 'artifacts', 'flagship.msgpack'), dev)
+    tr = Trainer(Config(batch_size=DIST_BATCH), dev, params=crown, mesh=mesh)
+    loss, g = tr.loss_and_grads('decoder', tr._bits(), tr._noise('decoder'))
+    tr.opt['dec'].step(g['dec'])
+    fused = Config(batch_size=DIST_BATCH, dtype='bfloat16', use_fused_conv=True)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    bits = (torch.rand((DIST_BATCH, 100, 1), generator=gen, device=dev) < 0.5).float()
+    noise = snr_db2sigma(0.0) * torch.randn((DIST_BATCH, 100, 3), generator=gen, device=dev)
+    sync(dev)
+    reset_counts()
+    with dm.active(mesh), torch.inference_mode():
+        rows = [dm.shard_rows(t, mesh) for t in (bits, noise)]
+        out = forward_ae(crown, fused, *rows, make_perms(fused, dev), training=False)[0]
+    sync(dev)
+    if out_path:
+        torch.save({'grads': {'dec': [x.cpu() for x in g['dec']]},
+                    'params': {'dec': [p.detach().cpu() for p in tr._leaves['dec']]},
+                    'out': out.float().cpu()}, out_path)
+    return {'losses': [float(loss)], 'launches': read_counts(),
+            'coords': None if mesh is None else [mesh.data, mesh.model]}
+
+
+def time_shard_phase(dev, started):
+    """Two gloo ranks on cuda:0 under shard_axis 'time' (`chip_smoke.py
+    --dist-rank ... time_shard`, started with start_ranks) against this
+    process alone (time_shard_work): the f32 steps under dist_train's
+    tolerances and its Adam rule; the bf16 forward's decisions (the ranks'
+    positions side by side) equal but where this process's output lies
+    within DIST_NEAR of 0.5 (counted and printed); the sweep batch's counts
+    apart by the sweep's such flips at most; 12 K2 launches a forward on
+    each rank, on its halo windows (500 + 10 positions). Returns the ranks'
+    launches."""
+    import shutil
+    from turboae_tpu_torch.utils.device import nvidia_smi
+    procs, d, t0 = started
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref = time_shard_work(dev, None, os.path.join(d, 'one.pt'))
+        ranks = rank_results(procs, 'time_shard', d)
+        one = torch.load(os.path.join(d, 'one.pt'))
+    finally:
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(d, ignore_errors=True)
+    agreement = step_agreement(ranks, ref['losses'], one)
+    ranks_alike = all(torch.equal(a, b) for h in one['params'] for a, b in
+                      zip(ranks[0]['tensors']['params'][h], ranks[1]['tensors']['params'][h]))
+    fwd = _decisions_apart(torch.cat([r['tensors']['out'] for r in ranks], dim=1), one['out'])
+    sw = _decisions_apart(torch.cat([r['tensors']['sweep_out'] for r in ranks], dim=1),
+                          one['sweep_out'])
+    launches = {k: sum(r['launches'][k] for r in ranks) for k in ranks[0]['launches']}
+    sweeps = [r['sweep'] for r in ranks]
+    emit('time_shard', ranks=TIME_RANKS, backend='gloo', shard_axis='time', block_len=1000,
+         global_batch=TIME_BATCH, positions_per_rank=[r['positions'] for r in ranks],
+         losses_one=ref['losses'], losses_ranks=[r['losses'] for r in ranks], **agreement,
+         ranks_alike=ranks_alike, forward_flipped=fwd[0], forward_flipped_within_near=fwd[1],
+         forward_outputs_within_near=fwd[2], sweep_one=ref['sweep'], sweep_ranks=sweeps,
+         sweep_flipped=sw[0], sweep_flipped_within_near=sw[1],
+         step_ms_one=ref['step_ms'], step_ms_ranks=[r['step_ms'] for r in ranks],
+         launches_one=ref['launches'], launches_ranks=[r['launches'] for r in ranks],
+         seconds=time.perf_counter() - t0, card=nvidia_smi())
+    check(agreement['loss_rel'] < 1e-5, f'time_shard: losses {ref["losses"]} vs '
+          f'{[r["losses"] for r in ranks]}')
+    check(agreement['grad_rel'] < DIST_GRAD_TOL, f'time_shard: gradients {agreement}')
+    check(agreement['firm_param_err_over_tol'] <= 1.0
+          and agreement['param_diff_max_over_lr'] <= 2.002 and ranks_alike,
+          f'time_shard: params {agreement}, ranks alike {ranks_alike}')
+    check(all(r['positions'] == [1000 // TIME_RANKS] for r in ranks),
+          f"time_shard: positions {[r['positions'] for r in ranks]}")
+    check(fwd[0] == fwd[1], f'time_shard: {fwd[0]} forward decisions flipped, {fwd[1]} '
+          f'of them within {DIST_NEAR} of 0.5')
+    check(sw[0] == sw[1], f'time_shard: {sw[0]} sweep decisions flipped, {sw[1]} near 0.5')
+    for s in sweeps:
+        check(s['n_blocks'] == ref['sweep']['n_blocks'] == TIME_BATCH
+              and abs(s['blk_errors'] - ref['sweep']['blk_errors']) <= sw[0]
+              and abs(s['bit_errors'] - ref['sweep']['bit_errors']) <= sw[0],
+              f'time_shard: sweep counts {sweeps} vs {ref["sweep"]}')
+    for r in ranks:
+        check(r['forward_launches']['conv_stack_bf16'] == 12
+              and r['launches']['conv_stack_bf16'] == 24,
+              f"time_shard: K2 launched {r['forward_launches']}, {r['launches']} on a rank")
+    return launches
+
+
+def mesh_2d_phase(dev, started):
+    """Four gloo ranks on cuda:0 on a (2, 2) mesh (`chip_smoke.py
+    --dist-rank ... mesh_2d`) against this process alone (mesh_2d_work):
+    the two replicas of each data index bit-equal (loss, gradients, params,
+    forward); the decoder step under dist_train's tolerances and Adam rule;
+    the fused forward's decisions > 99.9 % those of this process's rows of
+    that data index; 12 K2 launches a rank. Returns the ranks' launches."""
+    import shutil
+    from turboae_tpu_torch.utils.device import nvidia_smi
+    procs, d, t0 = started
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref = mesh_2d_work(dev, None, os.path.join(d, 'one.pt'))
+        ranks = rank_results(procs, 'mesh_2d', d)
+        one = torch.load(os.path.join(d, 'one.pt'))
+    finally:
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(d, ignore_errors=True)
+    n, m = MESH_2D
+
+    def same(a, b):
+        ta, tb = a['tensors'], b['tensors']
+        return (a['losses'] == b['losses'] and torch.equal(ta['out'], tb['out'])
+                and all(torch.equal(x, y) for k in ('grads', 'params')
+                        for x, y in zip(ta[k]['dec'], tb[k]['dec'])))
+    replicas_equal = [same(ranks[i * m], ranks[i * m + j]) for i in range(n) for j in range(1, m)]
+    agreement = step_agreement(ranks, ref['losses'], one)
+    rows = one['out'].chunk(n)
+    agree = min((r['tensors']['out'].round() == rows[r['coords'][0]].round()).float().mean().item()
+                for r in ranks)
+    launches = {k: sum(r['launches'][k] for r in ranks) for k in ranks[0]['launches']}
+    emit('mesh_2d', mesh=list(MESH_2D), backend='gloo', global_batch=DIST_BATCH,
+         coords=[r['coords'] for r in ranks], replicas_bit_equal=replicas_equal,
+         losses_one=ref['losses'], losses_ranks=[r['losses'] for r in ranks], **agreement,
+         forward_decision_agreement=agree, launches_one=ref['launches'],
+         launches_ranks=[r['launches'] for r in ranks], seconds=time.perf_counter() - t0,
+         card=nvidia_smi())
+    check([r['coords'] for r in ranks] == [[i, j] for i in range(n) for j in range(m)],
+          f"mesh_2d: coordinates {[r['coords'] for r in ranks]}")
+    check(all(replicas_equal), f'mesh_2d: replicas differ {replicas_equal}')
+    check(agreement['loss_rel'] < 1e-5 and agreement['grad_rel'] < DIST_GRAD_TOL
+          and agreement['firm_param_err_over_tol'] <= 1.0
+          and agreement['param_diff_max_over_lr'] <= 2.002, f'mesh_2d: {agreement}')
+    check(agree > 0.999, f'mesh_2d: fused forward decisions agree {agree}')
+    for r in ranks:
+        check(r['launches']['conv_stack_bf16'] == 12, f"mesh_2d: K2 launched {r['launches']}")
+    return launches
+
+
+def start_sharded():
+    """Starts time_shard's and mesh_2d's ranks, each set in its own new
+    directory: {work: (processes, directory, started)}."""
+    import tempfile
+    out = {}
+    for work, world in (('time_shard', TIME_RANKS), ('mesh_2d', MESH_2D[0] * MESH_2D[1])):
+        d = tempfile.mkdtemp(prefix=f'{work}_')
+        out[work] = (start_ranks(work, world, d), d, time.perf_counter())
+    return out
 
 
 def nccl_graph_check(dev, mesh):
@@ -2868,7 +3176,7 @@ def wait_all(procs, phase):
 
 if __name__ == '__main__':
     if sys.argv[1:2] == ['--dist-rank']:
-        sys.exit(dist_rank_main(sys.argv[2]))
+        sys.exit(dist_rank_main(*sys.argv[2:4]))
     if sys.argv[1:2] == ['--cli-rank']:
         sys.exit(cli_rank_main(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

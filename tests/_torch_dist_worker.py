@@ -46,10 +46,11 @@ def _flat(params):
     return [t.detach().cpu() for t in tree_leaves(params)]
 
 
-def epochs(mesh, device):
+def epochs(mesh, device, names=tuple(EPOCHS), **common):
+    """The epochs `names` (EPOCHS), each config with the `common` fields."""
     out = {}
-    for name, extra in EPOCHS.items():
-        cfg = Config(**SMALL, snr_points=2, **extra)
+    for name in names:
+        cfg = Config(**SMALL, snr_points=2, **EPOCHS[name], **common)
         tr = Trainer(cfg, device, mesh=mesh)
         losses = [tr.train_epoch(0, 'decoder', verbose=False),
                   tr.train_epoch(0, 'encoder', verbose=False)]
@@ -60,11 +61,12 @@ def epochs(mesh, device):
     return out
 
 
-def losses(inputs, mesh, device):
+def losses(inputs, mesh, device, **common):
     """Each loss's joint loss_and_grads on the host-drawn batch."""
     out = {}
     for name in LOSSES:
-        tr = Trainer(Config(**SMALL, loss=name), device, params=inputs['params'], mesh=mesh)
+        tr = Trainer(Config(**SMALL, loss=name, **common), device, params=inputs['params'],
+                     mesh=mesh)
         loss, grads = tr.loss_and_grads('joint', inputs['bits'].to(device),
                                         inputs['noise'].to(device))
         out[name] = {'loss': float(loss), 'grads': {h: [g.cpu() for g in gs]
@@ -72,11 +74,11 @@ def losses(inputs, mesh, device):
     return out
 
 
-def jax_inputs(inputs, mesh, device):
+def jax_inputs(inputs, mesh, device, **common):
     """loss_and_grads of each mode on the batch and params the test made with
     the JAX package (converted), to be held against JAX's 8-device mesh."""
     j = inputs['jax']
-    tr = Trainer(Config(**j['cfg']), device, params=j['params'], mesh=mesh)
+    tr = Trainer(Config(**j['cfg'], **common), device, params=j['params'], mesh=mesh)
     out = {}
     for mode in ('encoder', 'decoder', 'joint'):
         loss, grads = tr.loss_and_grads(mode, j['bits'].to(device), j['noise'].to(device))
@@ -85,7 +87,7 @@ def jax_inputs(inputs, mesh, device):
     return out
 
 
-def sweeps(inputs, mesh, device):
+def sweeps(inputs, mesh, device, channels=('awgn', 'fading'), **common):
     """sweep's exact counts, the crown-like params given, AWGN and fading;
     beside them the blocks of each run with an output within NEAR of 0.5."""
     near = []
@@ -98,8 +100,8 @@ def sweeps(inputs, mesh, device):
     sweep_mod.error_counts = recording
     try:
         out = {}
-        for channel in ('awgn', 'fading'):
-            cfg = Config(**SMALL, channel=channel)
+        for channel in channels:
+            cfg = Config(**SMALL, channel=channel, **common)
             del near[:]
             res = sweep_mod.sweep(inputs['params'], cfg, [-1.0, 1.0], num_block=64,
                                   device=device, mesh=mesh)
@@ -111,8 +113,8 @@ def sweeps(inputs, mesh, device):
     return out
 
 
-def ftae(mesh, device):
-    cfg = Config(**SMALL, ftae_power_alloc='pos_phase', dec_type='turboae_cnn')
+def ftae(mesh, device, **common):
+    cfg = Config(**SMALL, ftae_power_alloc='pos_phase', dec_type='turboae_cnn', **common)
     tr = FTAETrainer(cfg, device, mesh=mesh)
     losses = [float(tr._train_step('encoder')), float(tr._train_step('decoder'))]
     res = tr.sweep([0.0], num_block=32, verbose=False)
@@ -120,10 +122,10 @@ def ftae(mesh, device):
             'counts': [res['bit_errors'], res['blk_errors']]}
 
 
-def mod(mesh, device):
+def mod(mesh, device, pcs=('symbol_power', 'qpsk'), **common):
     out = {}
-    for pc in ('symbol_power', 'qpsk'):
-        cfg = Config(**SMALL, mod_rate=2, mod_pc=pc, snr_points=1)
+    for pc in pcs:
+        cfg = Config(**SMALL, mod_rate=2, mod_pc=pc, snr_points=1, **common)
         tr = ModTrainer(cfg, device, mesh=mesh)
         losses = [float(tr._train_step(ph)) for ph in ('encoder', 'decoder', 'mod', 'demod')]
         _, ber, bler = tr.test(verbose=False)

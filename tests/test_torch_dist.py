@@ -129,10 +129,12 @@ def assert_params_close(got, ref):
 # ---------------------------------------------------------------- the mesh
 def test_make_mesh_semantics(tmp_path, monkeypatch):
     assert dm.make_mesh(()) is None
-    with pytest.raises(NotImplementedError, match='M16b'):
-        dm.make_mesh((2, 2))
+    with pytest.raises(ValueError, match='at most two'):
+        dm.make_mesh((2, 2, 1))                             # JAX names two axes
     with pytest.raises(RuntimeError, match='torchrun'):
         dm.make_mesh((2,))                                  # no process group
+    with pytest.raises(RuntimeError, match='torchrun'):
+        dm.make_mesh((2, 2))
     assert dm.initialize_distributed() is False             # one process: a no-op
     assert dm.initialize_distributed(None, 1, 0, 'gloo') is False
     with pytest.raises(ValueError, match='backend'):
@@ -148,6 +150,12 @@ def test_make_mesh_semantics(tmp_path, monkeypatch):
                                                                     torch.device('cpu'))
         with pytest.raises(ValueError, match='needs 2 ranks'):
             dm.make_mesh((2,))
+        with pytest.raises(ValueError, match=r'mesh \(1, 2\) needs 2 ranks'):
+            dm.make_mesh((1, 2))
+        flat = dm.make_mesh((1, 1), shard_axis='time')     # a 2-D mesh of one rank
+        assert (flat.shape, flat.size, flat.replicas, flat.data, flat.model,
+                flat.shard_axis, flat.axis) == ((1, 1), 1, 1, 0, 0, 'time', 1)
+        assert flat.data_group is torch.distributed.group.WORLD
         x = torch.arange(6.0)
         assert torch.equal(dm.shard_rows(x, mesh), x)
         with dm.active(mesh):                       # a 1-rank mesh sums over itself
@@ -349,6 +357,10 @@ def test_cli_nccl_with_too_few_cards_raises(cli, tmp_path, monkeypatch):
         cli.main(['-mesh_shape', '2', *argv])
     with pytest.raises(ValueError, match='torchrun started 2 ranks'):
         cli.main(['-mesh_shape', '3', *argv])
-    with pytest.raises(NotImplementedError, match='M16b'):
+    with pytest.raises(ValueError, match='needs 4 ranks but torchrun started 2 ranks'):
+        cli.main(['-mesh_shape', '2', '2', *argv])
+    with pytest.raises(RuntimeError, match='NCCL needs one card a rank'):  # time: no M16b raise
         cli.main(['-mesh_shape', '2', '-shard_axis', 'time', *argv])
+    with pytest.raises(ValueError, match='shard_axis'):
+        cli.main(['-mesh_shape', '2', '-shard_axis', 'model', *argv])
     assert not list(tmp_path.iterdir())

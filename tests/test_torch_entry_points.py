@@ -99,15 +99,20 @@ def test_main_trains_saves_and_reloads(tmp_path, monkeypatch):
     assert max(reloaded.last_test['ber']) < 0.45
 
 
-@pytest.mark.parametrize('argv,what', [(['-mesh_shape', '2'], 'torchrun'),
-                                       (['-shard_axis', 'time'], 'M16b'),
-                                       (['-mesh_shape', '2', '2'], 'M16b')])
-def test_main_refuses_what_is_not_ported(argv, what, tmp_path, monkeypatch):
-    """-mesh_shape outside torchrun (no WORLD_SIZE) names the launcher;
-    time-axis sharding and 2-D meshes are ROADMAP M16b. Nothing is written."""
+@pytest.mark.parametrize('argv,error,what', [
+    (['-mesh_shape', '2'], RuntimeError, 'torchrun'),
+    (['-mesh_shape', '2', '-shard_axis', 'time'], RuntimeError, 'torchrun'),
+    (['-mesh_shape', '2', '2'], RuntimeError, 'torchrun'),
+    (['-shard_axis', 'model'], ValueError, 'shard_axis'),
+    (['-mesh_shape', '2', '2', '2'], ValueError, 'at most two')])
+def test_main_refuses_what_is_not_ported(argv, error, what, tmp_path, monkeypatch):
+    """-mesh_shape outside torchrun (no WORLD_SIZE) names the launcher, for
+    time-axis sharding and 2-D meshes too; an axis other than batch or time,
+    and a mesh of more than ('data', 'model'), are refused. Nothing is
+    written."""
     monkeypatch.chdir(tmp_path)
     monkeypatch.delenv('WORLD_SIZE', raising=False)
-    with pytest.raises(RuntimeError, match=what):
+    with pytest.raises(error, match=what):
         cli_main.main([*argv, *TINY_MAIN])
     assert not list(tmp_path.iterdir())
 

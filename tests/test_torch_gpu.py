@@ -92,6 +92,32 @@ def test_long_block_is_windowed_in_one_launch(cuda_device, f32):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize('ranks', [2, 4])
+def test_k2_on_halo_windows_equals_the_whole_block(cuda_device, ranks):
+    """K2 on each time-sharded rank's halo window (dist/mesh.py:halo_apply:
+    positions [s - 10, e + 10) of L=1000, cut to the block) equals K2 on the
+    whole block in the rows the rank keeps, as the flagship's decoder runs
+    it under shard_axis 'time' (halo num_layer * (K // 2) = 10)."""
+    from turboae_tpu_torch.ops.conv1d import halo
+    layers = _stack(5, 7, 100, 5, cuda_device)
+    x = torch.randn((16, 1000, 7), generator=torch.Generator().manual_seed(3)).to(cuda_device)
+    whole = ks.conv_stack_bf16(layers, x).float()
+    h, n = halo(layers), 1000 // ranks
+    assert h == 10
+    for d in range(ranks):
+        s, e = d * n, (d + 1) * n
+        lo, hi = max(s - h, 0), min(e + h, 1000)
+        before = ks.conv_stack_bf16.launches
+        got = ks.conv_stack_bf16(layers, x[:, lo:hi])[:, s - lo:e - lo].float()
+        torch.cuda.synchronize()
+        assert ks.conv_stack_bf16.launches == before + 1
+        ref = whole[:, s:e]
+        assert ((got - ref).abs().max() / ref.abs().max()).item() < REL_TOL, d
+        assert ((got - ks.conv_stack_bf16_plain(layers, x)[:, s:e].float()).abs().max()
+                / ref.abs().max()).item() < REL_TOL
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize('B,L,cin,c,k,nl', [
     (500, 100, 7, 100, 5, 5), (37, 100, 7, 100, 5, 1), (64, 100, 7, 100, 1, 3),
     (333, 100, 7, 100, 5, 5), (5, 23, 3, 30, 3, 2), (4, 500, 7, 100, 5, 2),

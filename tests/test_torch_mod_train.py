@@ -124,13 +124,18 @@ def test_main_modulation_saves_a_checkpoint_jax_reads(tmp_path, monkeypatch, cap
 
 
 def test_main_modulation_refuses_mesh_and_needs_a_gpu(monkeypatch):
-    """-mesh_shape outside torchrun names the launcher, -shard_axis time
-    names ROADMAP M16b; without --device cpu and a GPU it raises."""
+    """-mesh_shape outside torchrun names the launcher, for a 2-D mesh and
+    -shard_axis time too (which this CLI takes and shards the batch under,
+    as JAX does); an unknown axis is refused; without --device cpu and a GPU
+    it raises."""
     monkeypatch.delenv('WORLD_SIZE', raising=False)
     with pytest.raises(RuntimeError, match='torchrun'):
         main_modulation.main(['--device', 'cpu', '-mesh_shape', '2', *TINY_CLI])
-    with pytest.raises(NotImplementedError, match='M16b'):
-        main_modulation.main(['--device', 'cpu', '-shard_axis', 'time', *TINY_CLI])
+    with pytest.raises(RuntimeError, match='torchrun'):
+        main_modulation.main(['--device', 'cpu', '-mesh_shape', '2', '2', '-shard_axis', 'time',
+                              *TINY_CLI])
+    with pytest.raises(ValueError, match='shard_axis'):
+        main_modulation.main(['--device', 'cpu', '-shard_axis', 'model', *TINY_CLI])
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='cuda'):
         main_modulation.main(['-num_epoch', '0', *TINY_CLI])

@@ -24,15 +24,16 @@ FLOPs a step over the timed steps' seconds, and `mfu` that over the card's
 dense peak in the config's dtype (utils/flops.py:PEAKS). On a card not in
 the table, and on the CPU, `mfu` is null and `mfu_reason` says why.
 
-`--mesh_shape N` under torchrun times N data-parallel ranks (dist/mesh.py;
-NCCL, one card a rank, or gloo under --device cpu): --batch_size is then the
+`--mesh_shape N [M]` under torchrun times N (N * M) ranks (dist/mesh.py;
+NCCL, one card a rank, or gloo under --device cpu), sharding the batch or,
+with `--shard_axis time`, every block's positions: --batch_size is then the
 global batch, `value` the blocks/s of all ranks together, and `mfu` taken
-against N cards' peak. Rank 0 prints.
+against all the cards' peak (replicas included). Rank 0 prints.
 
     python -m turboae_tpu_torch.cli.bench_train [--use_fused_conv] [--batch_size 500] \
         [--steps_per_call 6]
     python -m torch.distributed.run --nproc_per_node 4 -m turboae_tpu_torch.cli.bench_train \
-        --mesh_shape 4 --batch_size 2000
+        --mesh_shape 4 --batch_size 2000 [--shard_axis time]
 """
 from __future__ import annotations
 
@@ -66,7 +67,7 @@ def bench(batch_size: int = 500, use_fused_conv: bool = False, steps: int = 60,
                  train_dec_channel_low=-1.5, train_dec_channel_high=2.0,
                  dtype='bfloat16', use_fused_conv=use_fused_conv, **cfg_overrides)
     trainer = Trainer(cfg, dev, mesh=mesh)
-    ranks = 1 if mesh is None else mesh.size
+    ranks = 1 if mesh is None else mesh.size * mesh.replicas
     trainer.train_epoch(0, 'decoder', verbose=False)     # warm up both phases
     trainer.train_epoch(0, 'encoder', verbose=False)
     n = steps_per_call
@@ -112,7 +113,8 @@ def bench(batch_size: int = 500, use_fused_conv: bool = False, steps: int = 60,
         'mfu_reason': reason, 'peak_flops': peak_flops, 'peak_dtype': cfg.dtype,
         'tflops_per_s': flops_per_s / 1e12, 'step_flops': flops,
         'use_fused_conv': use_fused_conv, 'allow_tf32': False, 'steps_per_call': n,
-        'batch_size': batch_size, 'ranks': ranks, 'steps': steps, 'seconds': dt,
+        'batch_size': batch_size, 'ranks': ranks, 'shard_axis': cfg.shard_axis,
+        'steps': steps, 'seconds': dt,
         'last_loss': float(torch.cat([l.reshape(-1) for l in losses])[-1]),
         'device': name,
     }
@@ -126,15 +128,16 @@ def main(argv=None):
     p.add_argument('--steps_per_call', type=int, default=1,
                    help='> 1: time the steps as replays of CUDA graphs of this many steps')
     p.add_argument('--device', default='cuda')
-    p.add_argument('--mesh_shape', type=int, default=0,
-                   help='N > 0: N data-parallel ranks under torchrun; --batch_size is global')
+    p.add_argument('--mesh_shape', type=int, nargs='*', default=[],
+                   help='N [M]: N (N * M) ranks under torchrun; --batch_size is global')
+    p.add_argument('--shard_axis', default='batch', help='batch | time')
     args = p.parse_args(argv)
     from .main import launch
-    device, mesh = launch(Config(mesh_shape=(args.mesh_shape,) if args.mesh_shape else ()),
-                          args.device)
+    device, mesh = launch(Config(mesh_shape=tuple(args.mesh_shape),
+                                 shard_axis=args.shard_axis), args.device)
     try:
         out = bench(args.batch_size, args.use_fused_conv, args.steps, device,
-                    args.steps_per_call, mesh=mesh)
+                    args.steps_per_call, mesh=mesh, shard_axis=args.shard_axis)
     finally:
         if mesh is not None:
             torch.distributed.destroy_process_group()

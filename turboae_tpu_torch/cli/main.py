@@ -14,17 +14,20 @@ block_len_low and block_len_high (JAX cli/main.py:86-94). TF32 is off.
 
 `--device cpu` runs on the CPU; without it the CLI needs a GPU.
 
-`-mesh_shape N` trains data-parallel over N ranks, one process a rank,
-launched by torchrun, which sets RANK, WORLD_SIZE and LOCAL_RANK:
+`-mesh_shape N` trains over N ranks, one process a rank, launched by
+torchrun, which sets RANK, WORLD_SIZE and LOCAL_RANK:
 
     python -m torch.distributed.run --nproc_per_node N -m turboae_tpu_torch.cli.main \
-        -mesh_shape N [--device cpu] ...
+        -mesh_shape N [-shard_axis time] [--device cpu] ...
 
 NCCL with one card a rank (cuda:LOCAL_RANK), or gloo on the CPU under
-`--device cpu`. `-batch_size` is the global batch, which N must divide; the
-run equals the 1-rank run with the same seed. Rank 0 alone writes the log and
-the checkpoint, the file a 1-rank run writes. `-shard_axis time` and 2-D
-meshes raise (ROADMAP M16b).
+`--device cpu`. `-shard_axis batch` (the default) splits the global batch
+`-batch_size` over the N ranks; `-shard_axis time` splits every block's
+`-block_len` positions (dist/mesh.py). N must divide the sharded length; the
+run equals the 1-rank run with the same seed. `-mesh_shape N M` takes N * M
+ranks: the data axis of N, and M replicas of each share (JAX's ('data',
+'model') mesh, whose model axis shards nothing). Rank 0 alone writes the log
+and the checkpoint, the file a 1-rank run writes.
 """
 from __future__ import annotations
 
@@ -49,33 +52,37 @@ def parse(argv=None):
 
 def launch(cfg, device):
     """(device, mesh) of a run: (the device, None) without -mesh_shape;
-    with it, this rank's device and the mesh over the torchrun job, whose
-    process group is joined here (NCCL, or gloo under --device cpu)."""
+    with it, this rank's device and the mesh over the torchrun job, sharding
+    cfg.shard_axis, whose process group is joined here (NCCL, or gloo under
+    --device cpu)."""
+    import math
+
     from ..dist import mesh as dm
     from ..utils.device import resolve_device
-    if cfg.shard_axis != 'batch':
-        raise NotImplementedError(f'-shard_axis {cfg.shard_axis}: only the batch axis is '
-                                  'sharded; time-axis sharding is ROADMAP M16b')
+    if cfg.shard_axis not in dm.AXES:
+        raise ValueError(f'-shard_axis must be one of {dm.AXES}, got {cfg.shard_axis!r}')
     if not cfg.mesh_shape:
         return resolve_device(device), None
-    if len(cfg.mesh_shape) != 1:
-        raise NotImplementedError(f'-mesh_shape {list(cfg.mesh_shape)}: only 1-D data '
-                                  'parallelism is ported; 2-D meshes are ROADMAP M16b')
+    if len(cfg.mesh_shape) > 2:
+        raise ValueError(f'-mesh_shape {list(cfg.mesh_shape)}: at most two axes, '
+                         '(data, model)')
     env = dm.launch_env()
     if env is None:
         raise RuntimeError('-mesh_shape needs one process a rank: launch with torchrun, '
                            'python -m torch.distributed.run --nproc_per_node N -m '
                            'turboae_tpu_torch.cli.main -mesh_shape N ...')
     rank, world, local = env
-    if cfg.mesh_shape[0] != world:
-        raise ValueError(f'-mesh_shape {cfg.mesh_shape[0]} but torchrun started {world} ranks')
+    need = math.prod(cfg.mesh_shape)
+    if need != world:
+        raise ValueError(f'-mesh_shape {" ".join(map(str, cfg.mesh_shape))} needs {need} ranks '
+                         f'but torchrun started {world} ranks')
     cpu = str(device) == 'cpu'
     dm.initialize_distributed('env://', world, rank, 'gloo' if cpu else 'nccl')
     dev = resolve_device('cpu' if cpu else f'cuda:{local}')
     if not cpu:
         import torch
         torch.cuda.set_device(dev)
-    return dev, dm.make_mesh(cfg.mesh_shape, dev)
+    return dev, dm.make_mesh(cfg.mesh_shape, dev, cfg.shard_axis)
 
 
 @contextlib.contextmanager

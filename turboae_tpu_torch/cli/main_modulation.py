@@ -11,8 +11,9 @@ the JAX package's layout) and ends with ModTrainer.test. TF32 is off.
     python -m turboae_tpu_torch.cli.main_modulation -mod_rate 2 -mod_pc block_power
 
 `--device cpu` runs on the CPU; without it the CLI needs a GPU.
-`-mesh_shape N` under torchrun trains data-parallel over N ranks, rank 0
-writing the checkpoint, as cli/main.py says.
+`-mesh_shape N` (or `N M`) under torchrun trains over N (N * M) ranks, rank 0
+writing the checkpoint, as cli/main.py says. The batch is sharded whatever
+`-shard_axis` says, as in JAX.
 """
 from __future__ import annotations
 

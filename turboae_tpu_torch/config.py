@@ -11,8 +11,9 @@ Port meanings of the accelerator fields:
     stacks (every encoder but 'TurboAE_rate3_cnn') never fuse, as in JAX;
   - steps_per_call > 1 runs that many optimizer steps as one replay of a
     CUDA graph (train/trainer.py);
-  - shard_axis and scan_unroll are inert here; a non-empty mesh_shape
-    (ROADMAP M16) is refused by the CLIs.
+  - mesh_shape (N,) or (N, M) and shard_axis 'batch' | 'time' shard the
+    training over torchrun's ranks (dist/mesh.py, cli/main.py); scan_unroll
+    is inert here.
 
 `get_args` parses the reference's flag surface into a `Config`, as the JAX
 package's does: booleans are `--flag` (store_true), every other field is
@@ -193,8 +194,8 @@ class Config:
 
     # ---- additions of the JAX package (not in the reference) ----
     dtype: str = 'float32'            # compute dtype for conv stacks: float32 | bfloat16
-    mesh_shape: Tuple[int, ...] = ()  # (N,): N-rank data parallelism under torchrun (dist/mesh.py)
-    shard_axis: str = 'batch'         # batch; 'time' raises (ROADMAP M16b)
+    mesh_shape: Tuple[int, ...] = ()  # (N,) or (N, M) ranks under torchrun (dist/mesh.py)
+    shard_axis: str = 'batch'         # batch | time: the axis the mesh's data axis shards
     seed: int = 0                     # master PRNG seed
     legacy_noise: bool = False        # reproduce pre-2022 test-noise bug (README.md:2)
     use_fused_conv: bool = False      # decoder conv stacks through the CUDA bf16

@@ -1,2 +1,2 @@
-from .mesh import (Mesh, active, initialize_distributed, launch_env, make_mesh,  # noqa: F401
-                   shard_rows)
+from .mesh import (Mesh, active, along, initialize_distributed, launch_env,  # noqa: F401
+                   make_mesh, shard_rows)

@@ -35,6 +35,13 @@ ops/gru.py) in place of the conv stacks, with heads from 2 * dec_num_unit.
 nbcjr_rate3 shares one biGRU and head over every iteration:
 {'rnn', 'out', 'final'}.
 
+Under a mesh that shards time (dist/mesh.py) every 1D conv stack runs over
+this rank's halo window (`_halo`: the stack's input gathered along time, a
+window of its receptive field beyond this rank's positions, the kept rows
+cropped), fused stacks included; the interleavers gather their narrow
+inputs (ops/interleave.py); the biRNNs (ops/gru.py) and the 2D decoders run
+on the whole block (`whole_time`).
+
 Every apply takes `training` and a `generator`. Only DEC_LargeRNN reads
 them: in training with cfg.dropout > 0 it drops units after the first
 layer of each biRNN and on each head before dec_act, with masks drawn from
@@ -46,6 +53,7 @@ from __future__ import annotations
 
 import torch
 
+from ..dist import mesh as dm
 from ..kernels.conv_stack import fused_stack_apply_bf16
 from ..ops import conv1d as cv
 from ..ops import gru as rnn
@@ -74,6 +82,12 @@ def largecnn_init(gen: torch.Generator, cfg, device='cpu'):
     return {'iters': iters}
 
 
+def _halo(stackf):
+    """stackf(layers, x) over this rank's halo window under a time-sharded
+    mesh (dist/mesh.py:halo_apply); stackf itself otherwise."""
+    return lambda layers, x: dm.halo_apply(lambda t: stackf(layers, t), x, cv.halo(layers))
+
+
 def largecnn_apply(params, cfg, received, perms, training=False, generator=None) -> torch.Tensor:
     """received (B, L, 3) -> (B, L, 1) sigmoid bit estimates.
 
@@ -88,7 +102,7 @@ def largecnn_apply(params, cfg, received, perms, training=False, generator=None)
     else:
         def stackf(layers, x):
             return cv.stack_apply(layers, x, compute_dtype=dt)
-    return _cnn_iterations(params, cfg, stackf, received[:, :, 0:1], received[:, :, 1:2],
+    return _cnn_iterations(params, cfg, _halo(stackf), received[:, :, 0:1], received[:, :, 1:2],
                            received[:, :, 2:3], perms)
 
 
@@ -264,7 +278,7 @@ def plain_cnn_init(gen: torch.Generator, cfg, device='cpu'):
 
 def _plain_stack(cfg):
     dt = torch_dtype(cfg.dtype)
-    return lambda layers, x: cv.stack_apply(layers, x, compute_dtype=dt)
+    return _halo(lambda layers, x: cv.stack_apply(layers, x, compute_dtype=dt))
 
 
 def largecnn2int_apply(params, cfg, received, perms, training=False, generator=None):
@@ -322,7 +336,7 @@ def cnn_rate3_init(gen: torch.Generator, cfg, device='cpu'):
 def cnn_rate3_apply(params, cfg, received, perms, training=False, generator=None):
     """sigmoid(head(stack(received))) (JAX decoders.py:427-430)."""
     dt = torch_dtype(cfg.dtype)
-    h = cv.stack_apply(params['cnn'], received, compute_dtype=dt)
+    h = _plain_stack(cfg)(params['cnn'], received)
     return torch.sigmoid(cv.linear_apply(params['lin'], h, compute_dtype=dt))
 
 
@@ -352,6 +366,10 @@ def largecnn2d_init(gen: torch.Generator, cfg, device='cpu'):
 def largecnn2d_apply(params, cfg, received, perms, training=False, generator=None):
     """DEC_LargeCNN2D (JAX decoders.py:511-560): received (B, L, 3) as a
     (B, S, S, 3) image -> (B, L, code_rate_k)."""
+    return dm.whole_time(lambda full: _largecnn2d(params, cfg, full, perms), received)
+
+
+def _largecnn2d(params, cfg, received, perms):
     dt = torch_dtype(cfg.dtype)
     _, stack = _stack2d(cfg)
     s, b = cfg.img_size, received.shape[0]
@@ -397,6 +415,10 @@ def cnn2d_init(gen: torch.Generator, cfg, device='cpu'):
 def cnn2d_apply(params, cfg, received, perms, training=False, generator=None):
     """sigmoid(ELU(out(dec(image)))): the out stack applies its ELU before the
     sigmoid (JAX decoders.py:573-582)."""
+    return dm.whole_time(lambda full: _cnn2d(params, cfg, full), received)
+
+
+def _cnn2d(params, cfg, received):
     dt = torch_dtype(cfg.dtype)
     _, stack = _stack2d(cfg)
     s, b = cfg.img_size, received.shape[0]

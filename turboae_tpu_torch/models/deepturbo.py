@@ -4,7 +4,8 @@
 Encoder keys 'Turbo_rate3_757' (M=2, G=[7,5], fb=7) and 'Turbo_rate3_lte'
 (M=3, G=[13,11], fb=13). The encoder has no params. Its codes are BPSK
 2c - 1 in f32 with no power constraint (encoders.py:767); `stats` passes
-through.
+through. Under a mesh that shards time the trellis runs on the whole block
+(dist/mesh.py:whole_time).
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch
 
 from ..classical.trellis import turbo757_trellis, turbo_lte_trellis
 from ..classical.turbo import make_turbo_encoder
+from ..dist import mesh as dm
 
 
 @lru_cache(maxsize=4)
@@ -28,5 +30,6 @@ def turbo_enc_init(gen: torch.Generator, cfg, device='cpu'):
 def turbo_enc_apply(params, cfg, x, perms, training=True, stats=None):
     """x (B, L, k) bits -> ((B, L, 3) codes [sys, par1, par2], stats)."""
     encode = _cached_encoder('lte' if cfg.encoder == 'Turbo_rate3_lte' else '757')
-    codes = encode(torch.round(x[:, :, 0]).long(), perms['p1']).float()
+    codes = dm.whole_time(
+        lambda full: encode(torch.round(full[:, :, 0]).long(), perms['p1']).float(), x)
     return 2.0 * codes - 1.0, stats

@@ -24,6 +24,10 @@ cfg.enc_rnn), 'TurboAE_rate3_rnn_sys' (a hard systematic bit and two
 parity branches) and 'TurboAE_rate2_rnn' (two branches, always GRU). They
 read the raw bits, with no BPSK map, as the reference does.
 
+Under a mesh that shards time (dist/mesh.py) a CNN branch's stack runs over
+this rank's halo window (`halo_apply`); the 2D codes and the biRNNs have no
+local form over time and run on the whole block (`whole_time`).
+
 `make_encoder(cfg)` gives (init, apply) for cfg.encoder; DeepTurbo's fixed
 classical encoders come from models/deepturbo.py. An unknown key raises
 ValueError, as in JAX.
@@ -32,6 +36,7 @@ from __future__ import annotations
 
 import torch
 
+from ..dist import mesh as dm
 from ..ops import conv1d as cv
 from ..ops import gru as rnn
 from ..ops.activations import activation
@@ -63,7 +68,8 @@ def intercnn_init(gen: torch.Generator, cfg, device='cpu'):
 def _branch_apply(p, cfg, x, is_dense: bool):
     dt = torch_dtype(cfg.dtype)
     stack = cv.dense_stack_apply if is_dense else cv.stack_apply
-    h = stack(p['cnn'], x, compute_dtype=dt)
+    # under a time-sharded mesh, over this rank's halo window
+    h = dm.halo_apply(lambda t: stack(p['cnn'], t, compute_dtype=dt), x, cv.halo(p['cnn']))
     return activation(cfg.enc_act)(cv.linear_apply(p['lin'], h, compute_dtype=dt))
 
 
@@ -171,8 +177,12 @@ def _cnn2d_apply(interleaved: bool):
     """ENC_interCNN2D (interleaved: b3 reads the pixel-interleaved image,
     raw heads; JAX encoders.py:299-321) or ENC_CNN2D (enc_act on the heads;
     :329-342). The image is the block reshaped row-major to (B, img_size,
-    img_size, k); the codes are reshaped back to (B, block_len, 3)."""
+    img_size, k); the codes are reshaped back to (B, block_len, 3). Under a
+    time-sharded mesh it runs on the whole block (dist/mesh.py:whole_time)."""
     def apply(params, cfg, x, perms, training=True, stats=None):
+        return dm.whole_time(lambda full: _apply(params, cfg, full, perms, training, stats), x)
+
+    def _apply(params, cfg, x, perms, training, stats):
         dt = torch_dtype(cfg.dtype)
         stack = cv.dense_stack2d_apply if dense2d(cfg) else cv.stack2d_apply
         head_act = (lambda h: h) if interleaved else activation(cfg.enc_act)

@@ -74,6 +74,12 @@ def conv1d_apply(p: Layer, x: torch.Tensor, compute_dtype=torch.float32) -> torc
     return y.transpose(1, 2) + p['b'].to(compute_dtype)
 
 
+def halo(layers: List[Layer]) -> int:
+    """How far a same-length stack's output reads its input along time: the
+    sum of the layers' K // 2 (dist/mesh.py:halo_apply)."""
+    return sum(p['w'].shape[-1] // 2 for p in layers)
+
+
 def stack_apply(layers: List[Layer], x: torch.Tensor, act=F.elu,
                 no_act: bool = False, compute_dtype=torch.float32) -> torch.Tensor:
     """SameShapeConv1d: conv then activation, layer after layer."""

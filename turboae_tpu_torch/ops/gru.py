@@ -34,6 +34,12 @@ or one layer there is none.
 
 ROUTE_CALLS counts the layer calls of each route, so a caller can see which
 one ran.
+
+A recurrence over time has no local form over a rank's positions: under a
+mesh that shards time (dist/mesh.py) `birnn_apply` gathers its input, runs
+on the whole block with no mesh in effect (its dropout masks drawn at the
+whole block's shape, as the 1-rank run draws them) and keeps this rank's
+positions (`whole_time`).
 """
 from __future__ import annotations
 
@@ -206,6 +212,11 @@ def birnn_apply(layers: List[Layer], x: torch.Tensor, kind: str = 'gru',
                 generator: Optional[torch.Generator] = None,
                 route: Optional[str] = None) -> torch.Tensor:
     """(B, L, In) -> (B, L, 2H) f32 (f64 for the f64 scan)."""
+    return dm.whole_time(lambda full: _birnn(layers, full, kind, compute_dtype, dropout,
+                                             generator, route), x)
+
+
+def _birnn(layers, x, kind, compute_dtype, dropout, generator, route):
     r = _route(x, route)
     for i, layer in enumerate(layers):
         ROUTE_CALLS[r] += 1

@@ -20,7 +20,9 @@ feedback noise at its training range, as JAX's sweep does; `test` averages
 per-batch BER and BLER (JAX :184-207). The caller decides TF32.
 
 With `mesh` (dist/mesh.py) the draws are the global batch's and each rank
-keeps its rows, as in train/trainer.py; the loss and gradients, the counts
+keeps its rows, as in train/trainer.py. The batch axis is sharded whatever
+cfg.shard_axis says, as JAX's trainer constrains P('data') here
+(ftae_trainer.py:53-57, mod_trainer.py:49-53); the loss and gradients, the counts
 and the rates are those of the global batch.
 """
 from __future__ import annotations
@@ -46,7 +48,7 @@ class FTAETrainer(TrainerBase):
     def __init__(self, cfg, device='cuda', params=None, mesh=None):
         """params: a port FTAE param tree to start from (copied), else a
         seeded init; mesh: the data-parallel mesh (dist/mesh.py) or None."""
-        super().__init__(cfg, device, params, init_ftae, mesh)
+        super().__init__(cfg, device, params, init_ftae, mesh, 'batch')
         self._leaves = {h: tree_leaves(g) for h, g in groups(self._params).items()}
         self.opt = {'enc': make_optimizer(cfg, cfg.enc_lr, self._leaves['enc']),
                     'dec': make_optimizer(cfg, cfg.dec_lr, self._leaves['dec'])}

@@ -25,7 +25,10 @@ Under a mesh (dist/mesh.py) each rank returns its share of the loss, and the
 shares sum to the loss of the global batch: a batch mean becomes the rank's
 mean over the world size, bce_rl's mean(ber) and the positional means of
 maxBCE and sortBCE are global statistics, and the max or top 5 that every
-rank takes of them counts once in the sum of the shares.
+rank takes of them counts once in the sum of the shares. Under a mesh that
+shards time a rank holds its positions of every block: the positional means
+are local, and the max or top 5 over positions, like bce_block's max over a
+block, is taken of their gather along time (dist/mesh.py:gather_time).
 """
 from __future__ import annotations
 
@@ -75,7 +78,7 @@ def customized_loss(output: torch.Tensor, target: torch.Tensor, cfg,
             raise ValueError('loss enc_rl needs the code')
         return _mean(_hard_errors(output, target).detach() * torch.abs(code))
     if name == 'bce_block':
-        return _mean(torch.amax(bce_elementwise(output, target), dim=1))
+        return _mean(torch.amax(dm.gather_time(bce_elementwise(output, target)), dim=1))
     if name == 'focal':
         bce = bce_elementwise(output, target)
         pt = torch.exp(-bce)
@@ -85,7 +88,7 @@ def customized_loss(output: torch.Tensor, target: torch.Tensor, cfg,
         return _mean((torch.log(o / (1.0 - o)) - target) ** 2)
     if name in ('maxBCE', 'sortBCE'):
         bce = bce_elementwise(output, target)
-        pos_loss = dm.mean(bce, dim=0)
+        pos_loss = dm.gather_time(dm.mean(bce, dim=0), dim=0)
         if name == 'maxBCE':
             extra = torch.mean(torch.amax(pos_loss, dim=0))
         else:

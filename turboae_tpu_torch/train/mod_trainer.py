@@ -19,7 +19,9 @@ sigma(snr) and averages the per-batch BER and BLER (JAX :114-147). The
 caller decides TF32.
 
 With `mesh` (dist/mesh.py) the draws are the global batch's and each rank
-keeps its rows, as in train/trainer.py; the loss and gradients and the rates
+keeps its rows, as in train/trainer.py. The batch axis is sharded whatever
+cfg.shard_axis says, as JAX's trainer constrains P('data') here
+(ftae_trainer.py:53-57, mod_trainer.py:49-53); the loss and gradients and the rates
 are those of the global batch.
 """
 from __future__ import annotations
@@ -45,7 +47,7 @@ class ModTrainer(TrainerBase):
     def __init__(self, cfg, device='cuda', params=None, mesh=None):
         """params: a port modulation-AE param tree to start from (copied),
         else a seeded init; mesh: the data-parallel mesh (dist/mesh.py) or None."""
-        super().__init__(cfg, device, params, init_mod_ae, mesh)
+        super().__init__(cfg, device, params, init_mod_ae, mesh, 'batch')
         self._leaves = {ph: tree_leaves(g) for ph, g in groups(self._params).items()}
         self.opt = {ph: make_optimizer(cfg, getattr(cfg, lr), self._leaves[ph])
                     for ph, lr in PHASE_LR.items()}

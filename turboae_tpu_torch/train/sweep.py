@@ -14,7 +14,8 @@ the sweep and scaled by each point's sigma for every batch of every point;
 only the bits resample. It is defined for awgn and t-dist only.
 
 With `mesh` (dist/mesh.py) every rank draws the global batch and keeps its
-rows, and the counts are summed over the ranks: the result is the 1-rank
+share along cfg.shard_axis (its blocks, or its positions of every block),
+and the counts are summed over the data group: the result is the 1-rank
 run's with that seed, on every rank.
 
 The caller decides TF32: library code sets no global flag (the CLIs turn it
@@ -44,7 +45,8 @@ def sweep_counts(params, cfg, bits: torch.Tensor, noise: torch.Tensor, perms=Non
                  generator: Optional[torch.Generator] = None):
     """Deterministic core of one batch (given the fading gain's generator):
     (bit_errors, block_errors, pos_errors) as int64 tensors, for given bits
-    (B, L, k) and noise (B, L, n), the global batch under a mesh in effect."""
+    (B, L, k) and noise (B, L, n), the global batch under a mesh in effect
+    (this rank's share along its axis is kept)."""
     bits, noise = (dm.shard_rows(t, dm.current()) for t in (bits, noise))
     if perms is None:
         perms = make_perms(cfg, bits.device)
@@ -61,7 +63,7 @@ def sweep(params, cfg, snrs, num_block: Optional[int] = None, device='cuda',
     num_block // cfg.batch_size batches per point (at least one), of
     cfg.batch_size blocks over all ranks of `mesh`. Without a generator, one
     is seeded from cfg.seed on the device."""
-    with dm.active(mesh):
+    with dm.active(dm.along(mesh, cfg.shard_axis)):
         return _sweep(params, cfg, snrs, num_block, device, generator, verbose)
 
 

@@ -35,15 +35,19 @@ The Config's training extras, as JAX's trainer honours them (:167-262):
   - precompute_norm_stats: `test` first runs `precompute_norm_stats` and
     threads the running mean and std through every batch of both passes.
 
-Data parallelism: with `mesh` (dist/mesh.py, one process a rank) every
-draw is made at the global batch from the generator every rank seeds alike,
-and each rank keeps its rows; the loss each rank differentiates is its share
-(train/losses.py) and the statistics of the forward are global; the
-gradients and the loss are summed over the ranks in one all-reduce a step,
-before the optimizers step, so every rank steps alike and reports what the
-1-rank run with that seed reports. `loss_and_grads`, `_train_step` and
-`_eval_batch` take the global batch. steps_per_call > 1 under a mesh is
-captured only under NCCL (gloo's collectives cannot be captured).
+Data and sequence parallelism: with `mesh` (dist/mesh.py, one process a
+rank) every draw is made at the global batch from the generator every rank
+seeds alike, and each rank keeps its share along cfg.shard_axis: its blocks
+('batch', JAX's P('data')) or its positions of every block ('time', JAX's
+P(None, 'data'), trainer.py:95-106), whose length the data axis must divide.
+The loss each rank differentiates is its share (train/losses.py) and the
+statistics of the forward are global; the gradients and the loss are summed
+over the data group in one all-reduce a step, before the optimizers step,
+so every rank steps alike and reports what the 1-rank run with that seed
+reports (the replicas of a 2-D mesh do the same arithmetic, bit for bit).
+`loss_and_grads`, `_train_step` and `_eval_batch` take the global batch.
+steps_per_call > 1 under a mesh is captured only under NCCL (gloo's
+collectives cannot be captured).
 
 Tracing: with `trainer.marks` set to a list, each step appends a recorded
 CUDA event after each of its phases ('sampled', 'forward', 'backward',
@@ -109,14 +113,18 @@ class TrainerBase:
     """What every trainer shares: the config, the device, the interleavers,
     the params (a seeded init from a CPU generator, or a copy of the tree
     given), the device generator seeded with cfg.seed, and the params and
-    optimizer state assigned by copy, and the data-parallel mesh, if any. A
-    subclass sets `self._leaves` ({group: tree_leaves of its params}) and
-    `self.opt` ({group: optimizer})."""
+    optimizer state assigned by copy, and the mesh, if any, sharding
+    `shard_axis` (whose length it must divide). A subclass sets
+    `self._leaves` ({group: tree_leaves of its params}) and `self.opt`
+    ({group: optimizer})."""
 
-    def __init__(self, cfg, device, params, init, mesh=None):
-        if mesh is not None and cfg.batch_size % mesh.size:
-            raise ValueError(f'batch_size {cfg.batch_size} does not split over '
-                             f'{mesh.size} ranks')
+    def __init__(self, cfg, device, params, init, mesh=None, shard_axis='batch'):
+        mesh = dm.along(mesh, shard_axis)
+        if mesh is not None:
+            name, n = (('block_len', cfg.block_len) if shard_axis == 'time'
+                       else ('batch_size', cfg.batch_size))
+            if n % mesh.size:
+                raise ValueError(f'{name} {n} does not split over {mesh.size} ranks')
         self.cfg = cfg
         self.mesh = mesh
         self.device = resolve_device(device)
@@ -161,12 +169,12 @@ class TrainerBase:
                            generator=self.generator, device=self.device) < 0.5).float()
 
     def _rows(self, *tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        """This rank's rows of each global batch tensor."""
+        """This rank's share of each global batch tensor along the mesh's axis."""
         return tuple(dm.shard_rows(t, self.mesh) for t in tensors)
 
     def _summed(self, loss: torch.Tensor, grads) -> torch.Tensor:
-        """The loss and the gradients (in place) summed over the ranks, in
-        one all-reduce; the loss as it is with no mesh."""
+        """The loss and the gradients (in place) summed over the data group,
+        in one all-reduce; the loss as it is with no mesh."""
         if self.mesh is None:
             return loss
         loss = loss.reshape(1).clone()
@@ -196,8 +204,9 @@ class TrainerBase:
 class Trainer(TrainerBase):
     def __init__(self, cfg, device='cuda', params=None, mesh=None):
         """params: a port param tree to start from (copied), else a seeded
-        init; mesh: the data-parallel mesh (dist/mesh.py) or None."""
-        super().__init__(cfg, device, params, init_ae, mesh)
+        init; mesh: the mesh (dist/mesh.py) or None, sharding
+        cfg.shard_axis."""
+        super().__init__(cfg, device, params, init_ae, mesh, cfg.shard_axis)
         self._leaves = {h: tree_leaves(self._params[h]) for h in ('enc', 'dec')}
         self.opt = {'enc': make_optimizer(cfg, cfg.enc_lr, self._leaves['enc']),
                     'dec': make_optimizer(cfg, cfg.dec_lr, self._leaves['dec'])}

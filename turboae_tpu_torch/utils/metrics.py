@@ -4,8 +4,11 @@
 Decisions are the rounded probabilities. The sweep's error counts are exact
 integers computed on the device (JAX train/trainer.py:417-424); the rate
 helpers return f32 device scalars or vectors, as Trainer.test averages them.
-Under a mesh (dist/mesh.py) the counts and the means over the batch axis are
-those of the global batch, on every rank alike.
+Under a mesh (dist/mesh.py) the counts and the rates are those of the global
+batch, on every rank alike. Under a mesh that shards time a rank holds its
+positions of every block: the positional counts and rates are gathered along
+time, and a block's error is an OR over the ranks (its per-rank error counts
+all-reduced, then > 0).
 """
 from __future__ import annotations
 
@@ -53,6 +56,9 @@ def error_counts(bits: torch.Tensor, out: torch.Tensor):
     """
     t, p = _decisions(bits, out)
     err = t != p
+    if dm.time_sharded():
+        pos = dm.gather_time(err.sum(dim=0), dim=0)
+        return pos.sum(), (dm.all_reduce(err.sum(dim=1)) > 0).sum(), pos
     counts = dm.all_reduce(torch.cat([err.sum(dim=0), err.any(dim=1).sum().reshape(1)]))
     pos = counts[:-1]
     return pos.sum(), counts[-1], pos
@@ -87,7 +93,7 @@ def errors_ber_pos(y_true: torch.Tensor, y_pred: torch.Tensor) -> torch.Tensor:
     """Positional BER: the error rate of each position over the batch
     (JAX utils/metrics.py:41-45)."""
     t, p = _decisions(y_true, y_pred)
-    return dm.batch_mean((t != p).float(), dim=0)
+    return dm.gather_time(dm.batch_mean((t != p).float(), dim=0), dim=0)
 
 
 def errors_ber_punctured(y_true: torch.Tensor, y_pred: torch.Tensor,
@@ -105,7 +111,8 @@ def errors_ber_list(y_true: torch.Tensor, y_pred: torch.Tensor) -> torch.Tensor:
 
 def code_power(codes: torch.Tensor) -> torch.Tensor:
     """Per-position mean |code|^2, over channels then batch (JAX utils/metrics.py:48-51)."""
-    return dm.batch_mean(f32_mean(codes.float().abs() ** 2, dim=2), dim=0)
+    return dm.gather_time(dm.batch_mean(f32_mean(codes.float().abs() ** 2, dim=2), dim=0),
+                          dim=0)
 
 
 def errors_bler(y_true: torch.Tensor, y_pred: torch.Tensor,
@@ -115,5 +122,9 @@ def errors_bler(y_true: torch.Tensor, y_pred: torch.Tensor,
     t, p = _decisions(y_true, y_pred)
     err = (t - p).abs()
     if punc_mask is not None:
-        err = err * punc_mask[None, :]
-    return dm.batch_mean((err.sum(dim=1) > 0).float())
+        s, e = dm.time_slice(err.shape[1])
+        err = err * punc_mask[None, s:e]
+    per_block = err.sum(dim=1)
+    if dm.time_sharded():
+        per_block = dm.all_reduce(per_block)
+    return dm.batch_mean((per_block > 0).float())
