@@ -7,14 +7,19 @@ Phases, each printing one JSON line:
   device       the card (nvidia-smi name and power limit, torch's name);
   build        nvcc build of every CUDA source of the port, all in parallel
                (seconds; ~0 if cached); per kernel, ptxas's registers, shared
-               memory and spills and the HMMA/HGMMA count of `cuobjdump -sass`
-               (cuobjdump from beside nvcc); both kernels must show
-               tensor-core instructions and no spills;
+               memory, spills and warnings and the HMMA (mma.sync) and HGMMA
+               (wgmma) counts of `cuobjdump -sass` (cuobjdump from beside
+               nvcc); K2's kernels must show HGMMA, K1's either, and none
+               may spill;
   kernel_check each kernel against its plain PyTorch version on the card, at
                its path's shape and at edge shapes (one or two layers, K=1, odd
                B, C and L that are no multiple of the kernel's tile, odd C,
-               C=128 and 256, a partly filled last block) and at the
-               long-block shape L=1000 that the wrappers window;
+               C=128 and 256, a partly filled last block; for K2 also B=1001,
+               whose blocks of 2 rows fill their tiles in part, and C=300 in
+               two column groups) and at the
+               long-block shape L=1000 that the wrappers window; K2's plan
+               (rows and blocks, warpgroups, wgmma width, ring stages) beside
+               each of its cases;
   forward      the crown checkpoint's forward on the card against the port's
                own forward on the CPU, on the same small input;
   crown_sweep  main path 1: the crown's bf16 evaluation sweep through the
@@ -227,6 +232,14 @@ Phases, each printing one JSON line:
                path of K1, with its launches read around it;
   times        CUDA-event times of each kernel, its plain version and a
                PyTorch library yardstick, beside the card's bound;
+  atn_curve, radar_curve, binary_curve  paths 34-36: artifacts/flagship_
+               {atn,radar,binary}.msgpack through cli/eval_flagship.evaluate
+               (bf16, K2, batch 2000) at -1 and 0 dB, 20,000 blocks a point,
+               with the flags tests/test_torch_curves_{awgn,channels}.py pass
+               (t-dist vv 3; radar; block_norm_ste), held to
+               artifacts/eval_{atn,radar,binary}.json by the BLER z test;
+               last, since the whole set of checkpoints that the script
+               reads passes what one copy to the card may hold;
 then the nvidia-smi line, the kernels' summary line, and last
 {"ok": true, "device": {...}}. Any failed check raises: the script exits
 non-zero and prints no result. Without a GPU it exits non-zero at once.
@@ -248,11 +261,13 @@ STARTED = time.perf_counter()
 SWEEP_POINTS = (-1.0, 0.0)
 SWEEP_BLOCKS = 20000
 SWEEP_BATCH = 2000
+MAIN_SHAPE = (SWEEP_BATCH, 100, 7, 100, 5, 5)   # K2 on the sweep: B, L, Cin, C, K, layers
 MAX_Z = 4.0
 KERNEL_REL_TOL = 1e-2       # bf16 tolerance of the Pallas kernel tests (tests/test_kernels.py:33-41)
 F32_REL_TOL = 2e-5          # f32 tolerance of the Pallas kernel tests (tests/test_kernels.py:25-30)
 
 TRAIN_BATCH = 500
+BENCH_SHAPE = (TRAIN_BATCH, 100, 7, 100, 5, 5)  # the conv-stack bench's and training's
 TRAIN_NUM_BLOCK = 25000     # scripts/train_flagship.py defaults: 50 steps per epoch
 # The last decoder epoch's mean loss (what scripts/train_flagship.py logs as
 # dec_loss) must lie below this after one epoch of the recipe. Fixed before
@@ -392,6 +407,13 @@ MESH_2D = (2, 2)             # ('data', 'model'): four gloo ranks, two replicas 
 # the C++ oracle (ROADMAP M15b)
 NATIVE_B = 200
 NATIVE_CURVE_BLOCKS = 10000
+# the bf16 curves of the flagship's architecture that K2 carries (12 stacks a
+# batch), at SWEEP_POINTS, with the flags tests/test_torch_curves_{awgn,channels}.py pass
+OWED_CURVES = (
+    ('atn_curve', 'flagship_atn.msgpack', 'eval_atn.json', ['--channel', 't-dist', '--vv', '3']),
+    ('radar_curve', 'flagship_radar.msgpack', 'eval_radar.json', ['--channel', 'radar']),
+    ('binary_curve', 'flagship_binary.msgpack', 'eval_binary.json',
+     ['--test_channel_mode', 'block_norm_ste']))
 
 
 def emit(phase: str, **fields):
@@ -428,10 +450,8 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from turboae_tpu_torch.cli.eval_flagship import load_flagship
     from turboae_tpu_torch.config import Config
-    from turboae_tpu_torch.kernels import build
     from turboae_tpu_torch.kernels import conv_stack as ks
     from turboae_tpu_torch.models.channel_ae import forward_ae, make_perms
-    from turboae_tpu_torch.ops.conv1d import stack_init
     from turboae_tpu_torch.train.sweep import params_to, sweep
     from turboae_tpu_torch.utils.device import no_tf32, nvidia_smi
     from turboae_tpu_torch.utils.metrics import snr_db2sigma, two_proportion_z
@@ -448,65 +468,12 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda, python=sys.version.split()[0])
 
     # ---- build ----
-    t0 = time.perf_counter()
-    built = build.build(list(ks.LIBRARIES))
-    libraries = {}
-    for name, lib in built.items():
-        ptxas = build.ptxas_report(lib.log)
-        tensor_core = build.tensor_core_counts(build.sass(lib.path))
-        libraries[name] = {'seconds': lib.seconds, 'cached': lib.seconds == 0.0,
-                           'kernels': {k: {**ptxas.get(k, {}), 'hmma_hgmma': n}
-                                       for k, n in tensor_core.items()}}
-    emit('build', seconds=time.perf_counter() - t0, libraries=libraries)
-    for name, lib in libraries.items():
-        found = lib['kernels']
-        check(bool(found) and all(v['hmma_hgmma'] > 0 for v in found.values()),
-              f'{name} has no tensor-core instruction (HMMA/HGMMA) in its SASS')
-        check(all('spill_stores' in v and v['spill_stores'] == v['spill_loads'] == 0
-                  for v in found.values()), f'ptxas reports spills (or nothing) for {name}')
+    build_phase()
 
     # ---- kernel_check: each kernel against its plain version on the card ----
     crown = load_flagship(os.path.join(ROOT, 'artifacts', 'flagship.msgpack'), dev)
     gen = torch.Generator().manual_seed(0)
-    main_shape = (SWEEP_BATCH, 100, 7, 100, 5, 5)     # B, L, Cin, C, K, layers
-    bench_shape = (TRAIN_BATCH, 100, 7, 100, 5, 5)    # the conv-stack bench's, training's
-    edge = [('one_layer', (2000, 100, 7, 100, 5, 1)), ('two_layers', (500, 100, 7, 100, 5, 2)),
-            ('k1', (256, 100, 7, 100, 1, 3)), ('odd_b', (333, 100, 7, 100, 5, 5)),
-            ('ragged', (5, 23, 3, 30, 3, 2)), ('long_block_l1000', (16, 1000, 7, 100, 5, 5))]
-    # the tensor-core block layout of both kernels: odd C, one and several
-    # column groups of warps, a last block that holds one of its three rows
-    block_edge = [('odd_c', (500, 100, 7, 25, 5, 5)), ('c128', (500, 100, 7, 128, 5, 5)),
-                  ('c256', (500, 100, 7, 256, 5, 5)), ('partial_block', (334, 100, 7, 100, 5, 5))]
-    # the bucket lengths of a variable-block-length epoch, the crown's stack
-    vbl = [(f'vbl_l{L}', (VBL_BATCH, L, 7, 100, 5, 5), crown['dec']['iters'][0]['dec1_cnn'])
-           for L in VBL_BUCKETS]
-    kernels = {  # name: (wrapper, plain, tolerance, cases)
-        'conv_stack_bf16': (ks.conv_stack_bf16, ks.conv_stack_bf16_plain, KERNEL_REL_TOL,
-                            [('main_path', main_shape, crown['dec']['iters'][0]['dec1_cnn'])]
-                            + [(n, sh, None) for n, sh in edge + block_edge if n != 'two_layers']
-                            + vbl),
-        'conv_stack_f32': (ks.conv_stack_f32, ks.conv_stack_f32_plain, F32_REL_TOL,
-                           [('bench', bench_shape, None)]
-                           + [(n, sh, None) for n, sh in edge + block_edge]),
-    }
-    max_abs = {}
-    for kname, (wrapper, plain, tol, cases) in kernels.items():
-        for name, (B, L, cin, c, k, nl), layers in cases:
-            layers = layers or stack_init(gen, nl, cin, c, k, dev)
-            x = torch.randn((B, L, cin), generator=gen).to(dev)
-            before = wrapper.launches
-            got = wrapper(layers, x)
-            ref = plain(layers, x)
-            torch.cuda.synchronize()
-            check(wrapper.launches == before + 1, f'{kname} {name}: not one launch')
-            check(got.shape == (B, L, c) and got.dtype == ref.dtype, f'{kname} {name}: shape/dtype')
-            check(bool(torch.isfinite(got.float()).all()), f'{kname} {name}: non-finite output')
-            err = (got.float() - ref.float()).abs().max().item()
-            rel = err / ref.float().abs().max().item()
-            emit('kernel_check', kernel=kname, case=name, shape=[B, L, cin, c, k, nl],
-                 max_abs_err=err, max_rel_err=rel, tol=tol)
-            check(rel < tol, f'{kname} {name}: relative error {rel} >= {tol}')
-            max_abs[kname] = max(max_abs.get(kname, 0.0), err)
+    max_abs = kernel_check_phase(crown, gen, dev)
 
     # ---- forward: the crown on the card against the port on the CPU ----
     crown_cpu = params_to(crown, 'cpu')
@@ -671,14 +638,18 @@ def main() -> int:
     sweep_layers = crown['dec']['iters'][0]['dec1_cnn']
     times = {
         ('conv_stack_bf16', 'sweep'): time_kernel(ks.conv_stack_bf16, ks.conv_stack_bf16_plain,
-                                                  torch.bfloat16, main_shape, sweep_layers, gen, dev),
+                                                  torch.bfloat16, MAIN_SHAPE, sweep_layers, gen, dev),
         ('conv_stack_bf16', 'train'): time_kernel(ks.conv_stack_bf16, ks.conv_stack_bf16_plain,
-                                                  torch.bfloat16, bench_shape, sweep_layers, gen, dev),
+                                                  torch.bfloat16, BENCH_SHAPE, sweep_layers, gen, dev),
         ('conv_stack_f32', 'bench'): time_kernel(ks.conv_stack_f32, ks.conv_stack_f32_plain,
-                                                 torch.float32, bench_shape, None, gen, dev),
+                                                 torch.float32, BENCH_SHAPE, None, gen, dev),
     }
     for (kname, at), t in times.items():
         emit('times', kernel=kname, at=at, **t, card=smi)
+
+    # ---- the ATN, radar and binary curves (paths 34-36), through K2 ----
+    for phase, ckpt, ref_name, flags in OWED_CURVES:
+        paths[phase] = curve_phase(phase, dev, ckpt, ref_name, flags)
 
     # ---- summary ----
     print(smi, flush=True)
@@ -700,6 +671,96 @@ def main() -> int:
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,
                                              'count': torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def build_phase():
+    """Builds every CUDA source in parallel and reads, per kernel, ptxas's
+    registers, shared memory, spills and warnings and the SASS's HMMA
+    (mma.sync) and HGMMA (wgmma) counts. K2's kernels must run on wgmma
+    (HGMMA > 0), K1's on the tensor cores by either path; none may spill."""
+    from turboae_tpu_torch.kernels import build
+    from turboae_tpu_torch.kernels import conv_stack as ks
+    t0 = time.perf_counter()
+    built = build.build(list(ks.LIBRARIES))
+    libraries = {}
+    for name, lib in built.items():
+        ptxas = build.ptxas_report(lib.log)
+        tensor_core = build.tensor_core_counts(build.sass(lib.path))
+        libraries[name] = {'seconds': lib.seconds, 'cached': lib.seconds == 0.0,
+                           'kernels': {k: {**ptxas.get(k, {}), **n} for k, n in tensor_core.items()},
+                           'warnings': [ln.strip() for ln in lib.log.splitlines()
+                                        if 'warning' in ln.lower()]}
+    emit('build', seconds=time.perf_counter() - t0, libraries=libraries)
+    for name, lib in libraries.items():
+        found = lib['kernels']
+        check(bool(found), f'{name}: no kernel in its SASS')
+        if name == 'conv_stack_bf16':
+            check(all(v['hgmma'] > 0 for v in found.values()),
+                  f'{name} has a kernel with no HGMMA (wgmma) in its SASS')
+        else:
+            check(all(v['hmma'] + v['hgmma'] > 0 for v in found.values()),
+                  f'{name} has no tensor-core instruction (HMMA/HGMMA) in its SASS')
+        check(all('spill_stores' in v and v['spill_stores'] == v['spill_loads'] == 0
+                  for v in found.values()), f'ptxas reports spills (or nothing) for {name}')
+    return libraries
+
+
+def kernel_check_phase(crown, gen, dev):
+    """Each kernel against its plain version on the card at its paths'
+    shapes and at edge shapes; returns each kernel's largest absolute error."""
+    from turboae_tpu_torch.kernels import conv_stack as ks
+    from turboae_tpu_torch.ops.conv1d import stack_init
+    edge = [('one_layer', (2000, 100, 7, 100, 5, 1)), ('two_layers', (500, 100, 7, 100, 5, 2)),
+            ('k1', (256, 100, 7, 100, 1, 3)), ('odd_b', (333, 100, 7, 100, 5, 5)),
+            ('ragged', (5, 23, 3, 30, 3, 2)), ('long_block_l1000', (16, 1000, 7, 100, 5, 5))]
+    # the tensor-core block layout of both kernels: odd C, one and several
+    # column groups of warps, a last block that holds one of its three rows
+    block_edge = [('odd_c', (500, 100, 7, 25, 5, 5)), ('c128', (500, 100, 7, 128, 5, 5)),
+                  ('c256', (500, 100, 7, 256, 5, 5)), ('partial_block', (334, 100, 7, 100, 5, 5))]
+    # K2's plan at B=1001: 396 blocks (three rounds of 132) of 2 or 3 rows,
+    # so blocks of 2 rows leave their fourth m64 tile partly filled and their
+    # fifth warpgroup without a product
+    k2_edge = [('partial_rows_b1001', (1001, 100, 7, 100, 5, 5)),
+               ('c300_two_groups', (500, 40, 7, 300, 5, 5))]   # two column groups of n256
+    # the bucket lengths of a variable-block-length epoch, the crown's stack
+    vbl = [(f'vbl_l{L}', (VBL_BATCH, L, 7, 100, 5, 5), crown['dec']['iters'][0]['dec1_cnn'])
+           for L in VBL_BUCKETS]
+    kernels = {  # name: (wrapper, plain, tolerance, cases)
+        'conv_stack_bf16': (ks.conv_stack_bf16, ks.conv_stack_bf16_plain, KERNEL_REL_TOL,
+                            [('main_path', MAIN_SHAPE, crown['dec']['iters'][0]['dec1_cnn'])]
+                            + [(n, sh, None) for n, sh in edge + block_edge + k2_edge
+                               if n != 'two_layers']
+                            + vbl),
+        'conv_stack_f32': (ks.conv_stack_f32, ks.conv_stack_f32_plain, F32_REL_TOL,
+                           [('bench', BENCH_SHAPE, None)]
+                           + [(n, sh, None) for n, sh in edge + block_edge]),
+    }
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    max_abs = {}
+    for kname, (wrapper, plain, tol, cases) in kernels.items():
+        for name, (B, L, cin, c, k, nl), layers in cases:
+            layers = layers or stack_init(gen, nl, cin, c, k, dev)
+            x = torch.randn((B, L, cin), generator=gen).to(dev)
+            before = wrapper.launches
+            got = wrapper(layers, x)
+            ref = plain(layers, x)
+            torch.cuda.synchronize()
+            check(wrapper.launches == before + 1, f'{kname} {name}: not one launch')
+            check(got.shape == (B, L, c) and got.dtype == ref.dtype, f'{kname} {name}: shape/dtype')
+            check(bool(torch.isfinite(got.float()).all()), f'{kname} {name}: non-finite output')
+            err = (got.float() - ref.float()).abs().max().item()
+            rel = err / ref.float().abs().max().item()
+            plan = {}
+            if kname == 'conv_stack_bf16':
+                kp = ks.k2_plan(B, L, cin, c, k, nl, n_sm)
+                plan = {'plan': {f: getattr(kp, f) for f in ('R', 'G', 'nc', 'N', 'ngroups',
+                                                             'stages', 'smem')}
+                        if kp else {'windowed_rows': ks.k2_max_rows(cin, c, k, nl)}}
+            emit('kernel_check', kernel=kname, case=name, shape=[B, L, cin, c, k, nl],
+                 max_abs_err=err, max_rel_err=rel, tol=tol, **plan)
+            check(rel < tol, f'{kname} {name}: relative error {rel} >= {tol}')
+            max_abs[kname] = max(max_abs.get(kname, 0.0), err)
+    return max_abs
 
 
 def train_epoch_phase(cfg, dev):

@@ -69,6 +69,39 @@ def test_k1_variants_apply_to_the_source():
     assert 'cvt.rna.tf32.f32 %0' in texts['cvt_rna'] and 'cvt.rna.tf32.f32 %0' not in src
 
 
+def test_k2_variants_apply_to_the_source():
+    """cli/k2_variants.py times K2 against variants of its own source: each
+    substitution must still find its text in the shipped kernel, once."""
+    from turboae_tpu_torch.cli import k2_variants
+    src = k2_variants.SOURCE.read_text()
+    texts = k2_variants.variant_sources(src)
+    assert set(texts) == {'k4', 'wg4', 'one_in_flight', 'two_in_flight'}
+    assert len({src, *texts.values()}) == 5
+    for name in ('one_in_flight', 'two_in_flight'):
+        assert 'wgmma.wait_group.sync.aligned 1' in texts[name]
+    assert 'wgmma.wait_group.sync.aligned 1' not in src
+
+
+def test_k2_plan_variants():
+    """Its plan variants at B=2000 on 132 SMs: the rule K2 had (3 rows, 667
+    blocks, a sixth round of 7), one row fewer (1000 blocks), and rings of 2
+    and 3 stages; each fits a block."""
+    from turboae_tpu_torch.cli import k2_variants
+    from turboae_tpu_torch.kernels import conv_stack as ks
+    plan = ks.k2_plan(2000, 100, 7, 100, 5, 5, n_sm=132)
+    v = k2_variants.plan_variants(plan, 2000)
+    assert (v['rows_ceil'].R, v['rows_ceil'].G) == (3, 667)
+    assert (v['rows_less'].R, v['rows_less'].G) == (2, 1000)
+    assert (v['stages2'].stages, v['stages3'].stages, plan.stages) == (2, 3, 4)
+    assert all(p.fits() for p in v.values())
+    # wg4: at most four m64 tiles a block, so 2 rows at L=100; none at L=270
+    wg4 = k2_variants.variant_plan('wg4', plan, 2000)
+    assert (wg4.R, wg4.G, wg4.nc) == (2, 1000, 4)
+    assert k2_variants.variant_plan('k4', plan, 2000) is plan
+    assert k2_variants.variant_plan('wg4', ks.k2_plan(8000, 270, 7, 100, 5, 5, n_sm=132),
+                                    8000) is None
+
+
 def test_k1_variants_tf32_planes():
     """The presplit variant's weight planes: TF32 big and small parts, low 13
     bits zero, whose sum is the weight to 2^-22 relative."""

@@ -43,11 +43,13 @@ def _stack(nl, cin, c, k, device, seed=0):
     (2000, 100, 7, 100, 5, 5), (37, 100, 7, 100, 5, 1), (64, 100, 7, 100, 1, 3),
     (333, 100, 7, 100, 5, 5), (5, 23, 3, 30, 3, 2), (4, 500, 7, 100, 5, 2),
     (500, 100, 7, 25, 5, 5), (250, 100, 7, 128, 5, 5), (100, 100, 7, 256, 5, 5),
-    (334, 100, 7, 100, 5, 5)])
+    (334, 100, 7, 100, 5, 5), (1001, 100, 7, 100, 5, 5), (64, 40, 7, 300, 5, 2)])
 def test_kernel_matches_plain(cuda_device, B, L, cin, c, k, nl):
-    """K2 against its plain version; the last four cases: odd C, two and three
-    column groups of warps (C=128, 256), and B=334 with three rows a block,
-    which leaves the last block holding one."""
+    """K2 against its plain version; the last six cases: odd C (wgmma n32),
+    n128 and n256 (C=128, 256), B=334 and 1001, whose rows the plan spreads
+    over whole rounds of blocks of 2 or 3 rows, so blocks of 2 leave their
+    fourth m64 tile partly filled and their fifth warpgroup idle, and C=300
+    in two column groups of n256."""
     layers = _stack(nl, cin, c, k, cuda_device)
     x = torch.randn((B, L, cin), generator=torch.Generator().manual_seed(1)).to(cuda_device)
     before = ks.conv_stack_bf16.launches
@@ -76,8 +78,8 @@ def test_kernel_refuses_too_much_shared_memory(cuda_device):
 @pytest.mark.parametrize('f32', [False, True], ids=['K2', 'K1'])
 def test_long_block_is_windowed_in_one_launch(cuda_device, f32):
     """L=1000, C=100, K=5, 5 layers: a whole row does not fit in one block
-    (the rows 12 warps cover); the wrapper windows the time axis and
-    launches once."""
+    (K2: the rows five m64 tiles cover; K1: those 12 warps cover); the
+    wrapper windows the time axis and launches once."""
     layers = _stack(5, 7, 100, 5, cuda_device)
     x = torch.randn((6, 1000, 7), generator=torch.Generator().manual_seed(2)).to(cuda_device)
     kernel = ks.conv_stack_f32 if f32 else ks.conv_stack_bf16

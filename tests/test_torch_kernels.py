@@ -56,32 +56,76 @@ def test_wrapper_refuses_other_devices():
         ks.conv_stack_bf16(tl, torch.from_numpy(x).to('meta'))
 
 
+def _k2_unpack(chunks, plan):
+    """K2's packed weight chunks (..., ngroups, nch, N*64) read back as the
+    kernel's wgmma reads them: for k16 step ks of chunk (g, c) the
+    descriptor starts 32*ks bytes into the chunk, with 1024 bytes between
+    8-row groups of N and 128 between the rows of a group; value (k, n) of
+    the step lies at that address plus 2*k, with the 128-byte swizzle applied
+    (address bits 4-6 ^= bits 7-9). Returns the dense (..., nch*64,
+    ngroups*N) W'."""
+    N, ng = plan.N, plan.ngroups
+    nch = chunks.shape[-2]
+    ks, k, n = torch.arange(4).view(4, 1, 1), torch.arange(16).view(1, 16, 1), torch.arange(N)
+    addr = 32 * ks + n // 8 * 1024 + n % 8 * 128 + 2 * k           # (4, 16, N) bytes
+    addr = addr ^ ((addr >> 7) & 7) << 4
+    steps = chunks[..., addr // 2]                                  # (..., ng, nch, 4, 16, N)
+    lead = chunks.shape[:-3]
+    d = len(lead)              # to (..., nch, 4, 16, ng, N): row c*64 + 16*ks + k, column g*N + n
+    return steps.permute(*range(d), d + 1, d + 2, d + 3, d, d + 4).reshape(*lead, nch * 64, ng * N)
+
+
 def test_pack_weights_layout():
-    """K2 reads W'[k*S + ci, c] == W[c, ci, k] (S0 for layer 0), zero where
-    ci or c >= C and in the rows from K*S up to Kc, over the SW = 104
-    columns that one group of 13 n8 tiles covers; K1's packer, like K2's,
-    gives no hidden-layer weights for one layer."""
+    """K2 reads W'[k*S + ci, c] == W[c, ci, k] (S0 for layer 0) through
+    wgmma's descriptor over 128-byte-swizzled, K-major chunks of 64 rows and
+    N = 32 columns (C = 10): zero where ci or c >= C and in the rows from
+    K*S up to the chunks' end; value (k, n) of a chunk at (n//8)*512 +
+    (n%8)*64 + ((k//8) ^ (n%8))*8 + k%8; biases f32, zero beyond C. K1's
+    packer, like K2's, gives no hidden-layer weights for one layer."""
     _, tl, _ = _mk(3, 5, c=10)
     plan = ks.k2_layout(20, 7, 10, 5, 3, R=2)
-    assert (plan.S, plan.S0, plan.SW, plan.Kc, plan.Kc0) == (24, 8, 104, 128, 48)
+    assert (plan.S, plan.S0, plan.N, plan.ngroups, plan.Kc, plan.Kc0) == (24, 8, 32, 1, 128, 48)
     w0, b0, wr, br = ks.pack_weights_bf16(tl, plan)
-    assert w0.shape == (48, 104) and b0.shape == (104,)
-    assert wr.shape == (2, 128, 104) and br.shape == (2, 104)
+    assert w0.shape == (1, 1, 32 * 64) and b0.shape == (32,)
+    assert wr.shape == (2, 1, 2, 32 * 64) and br.shape == (2, 32)
     assert w0.dtype == wr.dtype == torch.bfloat16 and b0.dtype == br.dtype == torch.float32
+    w = tl[2]['w'].to(torch.bfloat16)
+    row = 3 * 24 + 4                         # tap 3, channel 4: chunk 1, row 12
+    for c in range(10):
+        at = c // 8 * 512 + c % 8 * 64 + ((12 // 8) ^ (c % 8)) * 8 + 12 % 8
+        assert wr[1, 0, row // 64, at] == w[c, 4, 3]
+    d0, dr = _k2_unpack(w0, plan), _k2_unpack(wr, plan)
+    assert d0.shape == (64, 32) and dr.shape == (2, 128, 32)
     w = tl[0]['w'].to(torch.bfloat16)
     for k in range(5):
         for ci in range(7):
-            assert torch.equal(w0[k * 8 + ci, :10], w[:, ci, k])
-        assert not w0[k * 8 + 7].any()
-    assert torch.equal(wr[1, 3 * 24 + 4, :10], tl[2]['w'].to(torch.bfloat16)[:, 4, 3])
+            assert torch.equal(d0[k * 8 + ci, :10], w[:, ci, k])
+        assert not d0[k * 8 + 7].any()
+    assert torch.equal(dr[1, 3 * 24 + 4, :10], tl[2]['w'].to(torch.bfloat16)[:, 4, 3])
     assert torch.equal(br[0, :10], tl[1]['b'].float())
     pad_rows = torch.tensor([k * 24 + ci for k in range(5) for ci in range(10, 24)]
                             + list(range(120, 128)))
-    assert not wr[:, pad_rows].any() and not w0[40:].any()
-    assert not w0[:, 10:].any() and not wr[:, :, 10:].any()
+    assert not dr[:, pad_rows].any() and not d0[40:].any()
+    assert not d0[:, 10:].any() and not dr[:, :, 10:].any()
     assert not b0[10:].any() and not br[:, 10:].any()
     assert ks.pack_weights_bf16(tl[:1], plan)[2] is None
     assert ks.pack_weights(tl[:1], ks.k1_layout(20, 7, 10, 5, 1, R=2))[2] is None
+
+
+def test_k2_wide_weights_take_column_groups():
+    """Above 256 channels K2's weights split into column groups (C = 300:
+    two of N = 256, here at a short L that fits), each group's chunks
+    following the last's; the descriptor's reading gives W' back."""
+    _, tl, _ = _mk(2, 3, c=300)
+    plan = ks.k2_layout(12, 7, 300, 3, 2, R=1)
+    assert (plan.N, plan.ngroups, plan.S, plan.Kc) == (256, 2, 312, 944)
+    w0, b0, wr, br = ks.pack_weights_bf16(tl, plan)
+    assert wr.shape == (1, 2, 15, 256 * 64) and br.shape == (1, 512)
+    d = _k2_unpack(wr, plan)[0]
+    w = tl[1]['w'].to(torch.bfloat16)
+    assert torch.equal(d[2 * 312 + 299, :300], w[:, 299, 2])
+    assert torch.equal(d[1 * 312 + 7, 256:300], w[256:, 7, 1])
+    assert not d[:, 300:].any() and not br[0, 300:].any()
 
 
 def test_smem_bytes_and_limit():
@@ -90,9 +134,12 @@ def test_smem_bytes_and_limit():
     of stride 12, a ring of 3 x 104 weight rows of 64 columns at stride 68,
     and five f32 biases; three rows at B=2000 (ten warps, a ring of 32
     columns: 64 would not fit); four rows take 13 warps. K2 at the
-    decoder's shape: three batch rows a block, ten warps of 2 x 13 tiles,
-    two bf16 buffers of 325 rows of stride 104, x's buffer of 325 rows of
-    stride 8, a ring of 3 x 64 weight rows and five f32 biases."""
+    decoder's shape: three batch rows a block in five warpgroups of one m64
+    x n104 tile (308 rows of the fold), two bf16 buffers of 325 rows of
+    stride 104, x's buffer of 325 rows of stride 8, a ring of four 13,312-byte
+    chunks (64 rows of 104 columns), five f32 biases and eight mbarriers,
+    after up to 1024 bytes that align the ring; four rows need seven
+    warpgroups, two more than one SM's registers hold at n104."""
     k1 = ks.k1_plan(500, 100, 7, 100, 5, 5, n_sm=132)
     assert (k1.R, k1.mtiles, k1.nwarps, k1.kch, k1.SK) == (2, 14, 7, 64, 68)
     assert (k1.rows_alloc, k1.rows_alloc0) == (229, 229)
@@ -103,49 +150,90 @@ def test_smem_bytes_and_limit():
     assert big.smem <= ks.SMEM_LIMIT
     assert not ks.k1_layout(100, 7, 100, 5, 5, R=4).fits()      # 13 warps
     plan = ks.k2_plan(2000, 100, 7, 100, 5, 5, n_sm=132)
-    assert (plan.R, plan.mtiles, plan.nwarps, plan.kch) == (3, 20, 10, 4)
-    assert (plan.rows_alloc, plan.rows_alloc0) == (325, 325)
-    assert plan.smem == 2 * (2 * 325 * 104 + 325 * 8 + 3 * 64 * 104) + 4 * 5 * 104
-    assert plan.smem < ks.SMEM_LIMIT
-    wide = ks.k2_layout(100, 7, 128, 5, 5, R=1)     # 17 n8 tiles: two column groups
-    assert (wide.S, wide.ngroups, wide.SW, wide.mtiles, wide.nwarps) == (136, 2, 216, 8, 8)
-    assert not ks.k2_layout(100, 7, 100, 5, 5, R=4).fits()      # 13 warps
+    assert (plan.R, plan.G, plan.nc, plan.N, plan.ngroups, plan.stages) == (3, 792, 5, 104, 1, 4)
+    assert (plan.Kc, plan.Kc0, plan.rows_alloc, plan.rows_alloc0) == (528, 48, 325, 325)
+    assert plan.smem == (1024 + 4 * 104 * 128 + 2 * (2 * 325 * 104 + 325 * 8)
+                         + 4 * 5 * 104 + 16 * 4) == 196816
+    assert plan.smem <= ks.SMEM_LIMIT
+    assert len(plan.as_ints()) == 18
+    four = ks.k2_layout(100, 7, 100, 5, 5, R=4)
+    assert four.nc == 7 and not four.fits()
+    # the wgmma width and column groups of each channel count
+    assert [ks.k2_width(c) for c in (7, 25, 30, 64, 100, 104, 128, 200, 256, 300, 1000)] == [
+        (32, 1), (32, 1), (32, 1), (104, 1), (104, 1), (104, 1), (128, 1), (256, 1), (256, 1),
+        (256, 2), (256, 4)]
+    wide = [ks.k2_plan(500, 100, 7, c, 5, 5, n_sm=132) for c in (25, 128, 256)]
+    assert [(p.N, p.nc, p.R, p.stages) for p in wide] == [(32, 7, 4, 4), (128, 4, 2, 4),
+                                                         (256, 2, 1, 2)]
     assert ks.k2_plan(2, 100, 7, 100, 5, 5, n_sm=1).R == 2       # never more rows than B
-    # on 132 SMs: the fewest rows that keep the fewest rounds of blocks
-    assert [ks.k2_plan(B, 100, 7, 100, 5, 5, n_sm=132).R
-            for B in (2000, 500, 334, 64)] == [3, 2, 3, 1]
     assert ks.k2_plan(1, 400, 7, 100, 5, 5, n_sm=132) is None    # windowed
     assert [ks.k2_stride(c) for c in (7, 25, 30, 100, 128, 256)] == [8, 40, 40, 104, 136, 264]
 
 
+@pytest.mark.parametrize('B', [2000, 1001, 500, 334, 333, 64, 7, 1])
+@pytest.mark.parametrize('L,c', [(100, 100), (100, 25), (100, 128), (100, 256), (37, 100),
+                                 (270, 100), (23, 30)])
+def test_k2_plan_fills_whole_rounds(B, L, c):
+    """K2's rounds rule: with Rmax the most rows a block of the layout holds,
+    ceil(B / (n_sm * Rmax)) rounds of blocks over 132 SMs, in G blocks that
+    fill every round (or one block a row), the rows shared out evenly (each
+    block ceil(B/G) or one fewer, never more than R, R never above Rmax);
+    every plan fits a block's 227 KB and its registers."""
+    plan = ks.k2_plan(B, L, 7, c, 5, 5, n_sm=132)
+    r_max = 1
+    while ks.k2_layout(L, 7, c, 5, 5, r_max + 1).fits() and r_max < B:
+        r_max += 1
+    rounds = -(-B // (132 * r_max))
+    assert plan.G == min(B, 132 * rounds) and plan.R <= r_max
+    sizes = [(i + 1) * B // plan.G - i * B // plan.G for i in range(plan.G)]
+    assert sum(sizes) == B and max(sizes) == plan.R and min(sizes) >= plan.R - 1
+    assert plan.fits() and plan.smem <= ks.SMEM_LIMIT == 232448
+    assert plan.nc * 64 >= plan.R * plan.P - 4 and plan.nc <= ks.K2_WIDTHS[plan.N]
+    # at the decoder's shape: whole rounds where the one-block-a-row rule
+    # left a sixth round of 7 blocks at B=2000
+    if (L, c) == (100, 100):
+        assert (plan.R, plan.G) == {2000: (3, 792), 1001: (3, 396), 500: (2, 264),
+                                    334: (3, 132), 333: (3, 132), 64: (1, 64), 7: (1, 7),
+                                    1: (1, 1)}[B]
+
+
 def _k2_model(layers, x, plan):
-    """K2's arithmetic in K2's own layout, on the CPU: per block, the R batch
-    rows in one flat, zeroed, halo-padded buffer of stride S0 (then S); each
-    layer the product of the strided A view (row m = [m*S, m*S + Kc)) with
-    W' in f32, bias, ELU and bf16, written to the rows the kernel's epilogue
-    writes (valid rows, shifted by K//2); the output read back from them.
-    The contraction is cut at the taps (and at K*S, before the tail rows),
-    which sums in the plain version's order."""
+    """K2's arithmetic in K2's own layout, on the CPU: block i takes batch
+    rows [i*B//G, (i+1)*B//G) into one flat, zeroed, halo-padded buffer of
+    stride S0 (then S); each layer the product of the strided A view (row m
+    = [m*S, m*S + Kc)) over the m64 tiles that hold a row of the block with
+    W' as wgmma reads it from the swizzled chunks (`_k2_unpack`), in f32;
+    bias, ELU and bf16 over the N-wide column groups, written to the rows
+    and columns the kernel's epilogue writes (valid rows, shifted by K//2;
+    columns below S); the output read back from them. The contraction is
+    cut at the taps (and at K*S, before the tail rows), which sums in the
+    plain version's order."""
     w0, b0, wr, br = ks.pack_weights_bf16(layers, plan)
+    dense0 = _k2_unpack(w0, plan)
+    dense = _k2_unpack(wr, plan) if wr is not None else None
     B, L, Cin = x.shape
-    R, P, pad, S = plan.R, plan.P, plan.K // 2, plan.S
-    m = torch.arange(16 * plan.mtiles)
+    P, pad, S, GN = plan.P, plan.K // 2, plan.S, plan.ngroups * plan.N
     outs = []
-    for r0 in range(0, B, R):
-        Rv = min(R, B - r0)
+    for i in range(plan.G):
+        r0, r1 = i * B // plan.G, (i + 1) * B // plan.G
+        Rv = r1 - r0
+        assert 1 <= Rv <= plan.R
+        tiles = -(-(Rv * P - (plan.K - 1)) // 64)
+        assert tiles <= plan.nc
+        m = torch.arange(64 * tiles)
         valid = (m // P < Rv) & (m % P < L)
         src = torch.zeros(plan.rows_alloc0 * plan.S0, dtype=torch.bfloat16)
         for r in range(Rv):
             src.view(-1, plan.S0)[r * P + pad:r * P + pad + L, :Cin] = x[r0 + r].to(torch.bfloat16)
-        for i in range(plan.num_layer):
-            Ss, Kc = (plan.S0, plan.Kc0) if i == 0 else (S, plan.Kc)
-            W, b = (w0, b0) if i == 0 else (wr[i - 1], br[i - 1])
-            A = torch.as_strided(src, (16 * plan.mtiles, Kc), (Ss, 1))
+        for j in range(plan.num_layer):
+            Ss, Kc = (plan.S0, plan.Kc0) if j == 0 else (S, plan.Kc)
+            W, b = (dense0, b0) if j == 0 else (dense[j - 1], br[j - 1])
+            A = torch.as_strided(src, (64 * tiles, Kc), (Ss, 1))
             cuts = [k * Ss for k in range(plan.K + 1)] + [Kc]
             v = sum(A[:, a:e].float() @ W[a:e].float() for a, e in zip(cuts, cuts[1:]) if e > a)
-            y = torch.nn.functional.elu(v + b).to(torch.bfloat16)[:, :S]
+            y = torch.nn.functional.elu(v + b).to(torch.bfloat16)[:, :min(S, GN)]
             src = torch.zeros(plan.rows_alloc * S, dtype=torch.bfloat16)
-            src.view(-1, S)[m[valid] + pad] = y[valid]
+            src.view(-1, S)[m[valid] + pad, :y.shape[1]] = y[valid]
         res = src.view(-1, S)
         outs += [res[r * P + pad:r * P + pad + L, :plan.C] for r in range(Rv)]
     return torch.stack(outs)
@@ -153,19 +241,38 @@ def _k2_model(layers, x, plan):
 
 @pytest.mark.parametrize('num_layer', [1, 2, 5])
 @pytest.mark.parametrize('k', [1, 3, 5])
-@pytest.mark.parametrize('c', [30, 25, 100, 128])
+@pytest.mark.parametrize('c', [30, 25, 100, 128, 256])
 def test_k2_layout_model_equals_plain(c, k, num_layer):
-    """The kernel's layout, packer and row mask, run on the CPU, give the
-    plain version's output (1e-5 relative): B = 2R + 1 leaves the last block
-    partly filled wherever the plan holds more than one row."""
+    """The kernel's layout, swizzled packer, descriptor reads and row mask,
+    run on the CPU, give the plain version's output (1e-5 relative): B =
+    2 Rmax + 1 rows over two SMs leaves blocks of fewer rows than the plan
+    holds, and m64 tiles the rows fill in part, wherever a block holds more
+    than one row."""
     _, tl, _ = _mk(num_layer, k, c=c)
-    plan = ks.k2_plan(1000, 100, 7, c, k, num_layer, n_sm=132)
-    B = 2 * plan.R + 1
+    r_max = 1
+    while ks.k2_layout(100, 7, c, k, num_layer, r_max + 1).fits():
+        r_max += 1
+    B = 2 * r_max + 1
+    plan = ks.k2_plan(B, 100, 7, c, k, num_layer, n_sm=2)
     x = torch.from_numpy(np.random.RandomState(3).standard_normal((B, 100, 7)).astype(np.float32))
     got = _k2_model(tl, x, plan)
     ref = ks.conv_stack_bf16_plain(tl, x)
     assert got.shape == ref.shape == (B, 100, c) and got.dtype == torch.bfloat16
     assert rel_err(got, ref.float().numpy()) < 1e-5
+
+
+@pytest.mark.parametrize('k', [3, 5])
+def test_k2_layout_model_two_column_groups(k):
+    """Above 256 channels (C = 300, two groups of n256) a layer runs its
+    column groups one after another, each from its own chunks and into its
+    own columns of the next buffer; at L = 40, where such a block fits, the
+    model equals the plain version (1e-5 relative)."""
+    _, tl, _ = _mk(2, k, c=300)
+    plan = ks.k2_plan(3, 40, 7, 300, k, 2, n_sm=2)
+    assert (plan.N, plan.ngroups, plan.stages) == (256, 2, 4)
+    x = torch.from_numpy(np.random.RandomState(4).standard_normal((3, 40, 7)).astype(np.float32))
+    got = _k2_model(tl, x, plan)
+    assert rel_err(got, ks.conv_stack_bf16_plain(tl, x).float().numpy()) < 1e-5
 
 
 def test_backward_recomputes_unfused_f32():
@@ -383,8 +490,10 @@ def test_windowed_stack_equals_the_whole_stack(num_layer, k):
 
 def test_long_block_window_at_the_k1000_shape():
     """At L=1000, C=100, K=5 and 5 layers no block holds a whole row, so the
-    wrappers window: K1 and K2 alike (the rows 12 warps of 32 rows cover)
-    into 3 windows of 354; the main path's L=100 fits in one."""
+    wrappers window: K1 (the rows 12 warps of 32 rows cover) into 3 windows
+    of 354, K2 (the rows five m64 tiles cover) into 4 windows of 270, one
+    row a block; the time-sharded halo windows of up to 510 positions into
+    2 of 275; the main path's L=100 fits in one."""
     assert ks.k1_plan(16, 100, 7, 100, 5, 5, n_sm=132) is not None
     assert ks.k1_plan(16, 1000, 7, 100, 5, 5, n_sm=132) is None
     assert ks.k1_max_rows(7, 100, 5, 5) == 384
@@ -392,11 +501,17 @@ def test_long_block_window_at_the_k1000_shape():
     assert (idx_in.numel() // r, r) == (3, 354)
     plan = ks.k1_plan(16 * 3, r, 7, 100, 5, 5, n_sm=132)
     assert plan.R == 1 and plan.smem <= ks.SMEM_LIMIT
+    assert ks.k2_plan(16, 100, 7, 100, 5, 5, n_sm=132) is not None
     assert ks.k2_plan(16, 1000, 7, 100, 5, 5, n_sm=132) is None
-    assert ks.k2_max_rows(7, 100, 5, 5) == 384
+    assert ks.k2_max_rows(7, 100, 5, 5) == 320
     idx_in, _, r = ks.window_plan(1000, ks.k2_max_rows(7, 100, 5, 5), 10)
-    assert (idx_in.numel() // r, r) == (3, 354)
-    assert ks.k2_plan(16 * 3, r, 7, 100, 5, 5, n_sm=132).R == 1
+    assert (idx_in.numel() // r, r) == (4, 270)
+    plan = ks.k2_plan(2000 * 4, r, 7, 100, 5, 5, n_sm=132)
+    assert (plan.R, plan.G, plan.nc) == (1, 8000, 5) and plan.fits()
+    idx_in, _, r = ks.window_plan(510, ks.k2_max_rows(7, 100, 5, 5), 10)
+    assert (idx_in.numel() // r, r) == (2, 275)
+    assert ks.k2_plan(16 * 2, r, 7, 100, 5, 5, n_sm=132).R == 1
+    assert ks.k2_max_rows(7, 1000, 51, 2) == 0            # refused: see window_plan
     _, tl, x = _mk(5, 5, c=100, B=2, L=1000)
     xt = torch.from_numpy(x)
     np.testing.assert_allclose(
@@ -413,7 +528,8 @@ def test_conv_stack_work_counts():
 
 def test_build_reports_parse_ptxas_and_sass():
     """What chip_smoke.py's build phase reads: ptxas's per-kernel registers,
-    shared memory and spills, and the HMMA/HGMMA count per kernel of SASS."""
+    shared memory and spills, and the HMMA (mma.sync) and HGMMA (wgmma)
+    counts per kernel of SASS, apart."""
     from turboae_tpu_torch.kernels import build
     log = """ptxas info    : 0 bytes gmem
 ptxas info    : Compiling entry function '_Z3fooPf' for 'sm_90a'
@@ -435,6 +551,13 @@ ptxas info    : Used 32 registers, used 0 barriers, 360 bytes cmem[0]
         /*0a70*/               @P0 HMMA.16816.F32.BF16 R28, R12, R22, R28 ;
 \t\tFunction : _Z3barv
         /*0010*/                   FFMA R1, R2, R3, R1 ;
-        /*0020*/                   HGMMA.64x104x16.F32.BF16 R24, gdesc[UR4], R24 ;
+        /*0020*/                   HGMMA.64x104x16.F32.BF16 R24, R152, gdesc[UR4], R24 ;
+\t\tFunction : _Z3bazv
+        /*0010*/                   HGMMA.64x256x16.F32.BF16 R24, R200, gdesc[UR8], RZ, !UPT ;
+        /*0020*/                   WARPGROUP.ARRIVE ;
+        /*0030*/                   HGMMA.64x256x16.F32.BF16 R24, R204, gdesc[UR8], R24, gsb0 ;
+        /*0040*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
 """
-    assert build.tensor_core_counts(sass) == {'_Z3fooPf': 2, '_Z3barv': 1}
+    assert build.tensor_core_counts(sass) == {'_Z3fooPf': {'hmma': 2, 'hgmma': 0},
+                                              '_Z3barv': {'hmma': 0, 'hgmma': 1},
+                                              '_Z3bazv': {'hmma': 1, 'hgmma': 2}}

@@ -131,17 +131,21 @@ def ptxas_report(log: str) -> Dict[str, Dict[str, int]]:
     return out
 
 
-def tensor_core_counts(sass: str) -> Dict[str, int]:
-    """Per kernel in `cuobjdump -sass` output, its HMMA and HGMMA instructions."""
-    out: Dict[str, int] = {}
+def tensor_core_counts(sass: str) -> Dict[str, Dict[str, int]]:
+    """Per kernel in `cuobjdump -sass` output, its tensor-core instructions:
+    HMMA (mma.sync, Ampere's warp-level path) and HGMMA (wgmma, Hopper's
+    warpgroup path), apart."""
+    out: Dict[str, Dict[str, int]] = {}
     name = None
     for line in sass.splitlines():
         m = re.match(r'\s*Function : (\S+)', line)
         if m:
             name = m.group(1)
-            out[name] = 0
-        elif name is not None and re.search(r'\bHG?MMA\b', line):
-            out[name] += 1
+            out[name] = {'hmma': 0, 'hgmma': 0}
+        elif name is not None:
+            m = re.search(r'\b(HG?MMA)\b', line)
+            if m:
+                out[name][m.group(1).lower()] += 1
     return out
 
 

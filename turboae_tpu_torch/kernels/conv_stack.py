@@ -13,9 +13,11 @@
     `_stack_kernel_im2col`, exposed as `fused_stack_apply_bf16`). CUDA source
     `csrc/conv_stack_bf16.cu`. x is rounded to bf16; bf16 operands, f32
     accumulation, f32 bias and ELU, bf16 between layers and at the output.
-    It runs on the tensor cores (mma.sync m16n8k16) over a block of several
-    batch rows laid out as one flat buffer (`K2Plan`, `k2_plan`), with its
-    weights packed by `pack_weights_bf16`.
+    It runs on Hopper's warpgroup tensor cores (wgmma, A from registers, B
+    from a ring of weight chunks that a producer warp fills by bulk copies
+    on mbarriers) over a block of several batch rows laid out as one flat
+    buffer (`K2Plan`, `k2_plan`), with its weights packed in wgmma's
+    swizzled layout by `pack_weights_bf16`.
 
 `build.py` compiles each source with nvcc for sm_90a; it is called through
 ctypes. For each kernel:
@@ -32,8 +34,8 @@ ctypes. For each kernel:
     kernel, so neither port has one.
 
 Long blocks: a kernel keeps a block's activations on chip. Where not even one
-batch row fits in a block (the registers of at most 12 warps, and shared
-memory), the wrapper cuts the time axis into overlapping windows
+batch row fits in a block (its accumulators in one SM's registers, its
+buffers in shared memory), the wrapper cuts the time axis into overlapping windows
 (`run_windowed`) and launches once over all of them; the output is the same.
 
 `layers` is a list of {'w': (C, Cin, K), 'b': (C,)} in PyTorch's layout.
@@ -74,10 +76,13 @@ def _library(name: str) -> ctypes.CDLL:
 
 
 # ---------------------------------------------------------------- K2's layout
-K2_WM = 2            # m16 tiles per warp        (csrc/conv_stack_bf16.cu WM)
-K2_WN = 13           # n8 tiles per warp         (WN)
-K2_MAX_WARPS = 12    # warps per block; bounds the registers (MAX_WARPS)
-K2_STAGES = 3        # stages of the weight ring (STAGES)
+# wgmma width N -> the most consumer warpgroups a block holds, each with an
+# m64 x N tile of f32 accumulators (N/2 registers a thread), beside the
+# producer warpgroup within one SM's register file (csrc/conv_stack_bf16.cu
+# `conv_stack_bf16_launch`, `consumer_regs`)
+K2_WIDTHS = {32: 7, 104: 5, 128: 4, 256: 2}
+K2_STAGES = (4, 3, 2)   # stages of the weight ring, the most that fit first
+K2_CHUNK = 64        # contraction rows of a weight chunk: one 128-byte swizzle atom (CHUNK_K)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -92,97 +97,103 @@ def k2_stride(c: int) -> int:
     return s + 8 if (s // 8) % 2 == 0 else s
 
 
+def k2_width(c: int):
+    """(N, ngroups): the wgmma width and the column groups that cover c
+    output channels; N is the narrowest of K2_WIDTHS that holds c (or
+    c / ngroups, for c above 256)."""
+    c8 = _cdiv(c, 8) * 8
+    ngroups = _cdiv(c8, 256)
+    per = _cdiv(_cdiv(c8, ngroups), 8) * 8
+    return min(n for n in K2_WIDTHS if n >= per), ngroups
+
+
 @dataclass(frozen=True)
 class K2Plan:
-    """One thread block's layout in K2 (struct Plan in conv_stack_bf16.cu,
-    field for field). R batch rows of P = L+K-1 rows each (K//2 zero halo
-    rows on each side) lie one after another in a flat buffer of row stride
-    S (S0 for x); output row m reads the span [m*S, m*S + Kc) of it, so a
-    layer is one (M, Kc) x (Kc, S) product with M = R*P - (K-1), padded to
-    `mtiles` m16 tiles (even). Warps: mtiles/2 row groups x `ngroups` column
-    groups of 13 n8 tiles, which cover the weights' columns; a weight row
-    has stride SW >= 104 * ngroups. Weights stream through a ring of three
-    chunks of 16*kch rows."""
+    """K2's launch (struct Plan in conv_stack_bf16.cu, field for field).
+
+    A block holds up to R batch rows of P = L+K-1 rows each (K//2 zero halo
+    rows on each side), one after another in a flat buffer of row stride S
+    (S0 for x); output row m reads the span [m*S, m*S + Kc) of it, so a
+    layer is one (M, Kc) x (Kc, ngroups*N) product with M = R*P - (K-1).
+    `nc` consumer warpgroups hold one m64 tile of M each. G blocks share the
+    B batch rows evenly: block i takes rows [i*B//G, (i+1)*B//G), at most R.
+    The weights stream in chunks of 64 contraction rows and N columns
+    through a ring of `stages` stages."""
     L: int
     Cin: int
     C: int
     K: int
     num_layer: int
     R: int
+    G: int
     P: int
     S: int
     S0: int
-    SW: int
+    N: int
+    ngroups: int
+    nc: int
+    stages: int
     Kc: int
     Kc0: int
-    mtiles: int
-    ngroups: int
-    kch: int
     rows_alloc: int
     rows_alloc0: int
 
     @property
-    def nwarps(self) -> int:
-        return self.mtiles // K2_WM * self.ngroups
-
-    @property
     def smem(self) -> int:
-        """Bytes of dynamic shared memory: two activation buffers, x's
-        buffer and the weight ring in bf16, every layer's bias in f32."""
-        return 2 * (2 * self.rows_alloc * self.S + self.rows_alloc0 * self.S0
-                    + K2_STAGES * 16 * self.kch * self.SW) + 4 * self.num_layer * self.SW
+        """Bytes of dynamic shared memory: the ring's 1024-byte alignment,
+        the ring, two activation buffers and x's buffer in bf16, every
+        layer's bias in f32, and the ring's mbarriers."""
+        return (1024 + self.stages * self.N * 128
+                + 2 * (2 * self.rows_alloc * self.S + self.rows_alloc0 * self.S0)
+                + 4 * self.num_layer * self.ngroups * self.N + 16 * self.stages)
 
     def fits(self) -> bool:
-        return self.nwarps <= K2_MAX_WARPS and self.smem <= SMEM_LIMIT
+        return self.nc <= K2_WIDTHS[self.N] and self.smem <= SMEM_LIMIT
 
     def as_ints(self):
         return [getattr(self, f.name) for f in fields(self)]
 
 
-def k2_layout(L: int, Cin: int, C: int, K: int, num_layer: int, R: int) -> K2Plan:
+def k2_layout(L: int, Cin: int, C: int, K: int, num_layer: int, R: int, G: int = 1) -> K2Plan:
     """K2's block layout for R batch rows of length L (it may not fit)."""
     S, S0, P = k2_stride(C), k2_stride(Cin), L + K - 1
     Kc, Kc0 = _cdiv(K * S, 16) * 16, _cdiv(K * S0, 16) * 16
-    mtiles = _cdiv(R * P - (K - 1), 16 * K2_WM) * K2_WM
-    ngroups = _cdiv(S // 8, K2_WN)
-    SW = k2_stride(ngroups * K2_WN * 8)
-    # the last A row starts at (16*mtiles - 1)*S and spans Kc values
-    rows_alloc = 16 * mtiles - 1 + _cdiv(Kc, S)
-    rows_alloc0 = 16 * mtiles - 1 + _cdiv(Kc0, S0)
-    # the longest weight chunk whose ring takes at most a quarter of smem
-    kch = next((k for k in (4, 2) if K2_STAGES * 2 * 16 * k * SW <= SMEM_LIMIT // 4), 1)
-    return K2Plan(L, Cin, C, K, num_layer, R, P, S, S0, SW, Kc, Kc0, mtiles, ngroups,
-                  kch, rows_alloc, rows_alloc0)
+    N, ngroups = k2_width(C)
+    nc = _cdiv(R * P - (K - 1), 64)
+    # the last A row starts at (64*nc - 1)*S and spans Kc values
+    rows_alloc = 64 * nc - 1 + _cdiv(Kc, S)
+    rows_alloc0 = 64 * nc - 1 + _cdiv(Kc0, S0)
+    plans = [K2Plan(L, Cin, C, K, num_layer, R, G, P, S, S0, N, ngroups, nc, stages, Kc, Kc0,
+                    rows_alloc, rows_alloc0) for stages in K2_STAGES]
+    return next((p for p in plans if p.smem <= SMEM_LIMIT), plans[-1])
 
 
 @functools.lru_cache(maxsize=256)
 def k2_plan(B: int, L: int, Cin: int, C: int, K: int, num_layer: int,
             n_sm: int) -> Optional[K2Plan]:
-    """K2's layout for a call on a card of `n_sm` SMs, or None when not even
-    one row of length L fits in the registers and shared memory of a block:
-    then the wrapper windows the time axis.
+    """K2's launch for a call on a card of `n_sm` SMs (one block an SM at a
+    time), or None when not even one row of length L fits in the registers
+    and shared memory of a block: then the wrapper windows the time axis.
 
-    Of the layouts that fit (at most B rows a block), it takes those that
-    need the fewest rounds of blocks over the SMs (one block on an SM at a
-    time), and of these the one with the fewest rows: the same rounds of
-    smaller blocks, which finish sooner. At the decoder's shape on 132 SMs:
-    three rows for B=2000 and 334, two for B=500, one for B=64."""
-    plans = []
-    for R in range(1, max(B, 1) + 1):
-        plan = k2_layout(L, Cin, C, K, num_layer, R)
-        if not plan.fits():
-            break
-        plans.append(plan)
-    if not plans:
+    With Rmax the most rows a block holds, the call needs
+    rounds = ceil(B / (n_sm * Rmax)) rounds of blocks over the SMs. It
+    launches G = min(B, n_sm * rounds) blocks and shares the rows evenly
+    among them, ceil(B / G) or one fewer a block: every round is whole, and
+    a block of fewer rows issues fewer products. At the decoder's shape on
+    132 SMs (Rmax 3): B=2000 in 792 blocks of 2-3 rows (6 rounds), 500 in
+    264 of 1-2, 334 in 132 of 2-3, 64 in 64 of 1."""
+    r_max = 0
+    while r_max < max(B, 1) and k2_layout(L, Cin, C, K, num_layer, r_max + 1).fits():
+        r_max += 1
+    if r_max == 0:
         return None
-    rounds = [_cdiv(_cdiv(B, p.R), n_sm) for p in plans]
-    return plans[rounds.index(min(rounds))]
+    G = max(1, min(B, n_sm * _cdiv(B, n_sm * r_max)))
+    return k2_layout(L, Cin, C, K, num_layer, _cdiv(B, G) if B else 1, G)
 
 
 def k2_max_rows(Cin: int, C: int, K: int, num_layer: int) -> int:
     """K2's longest time axis that one block holds (one batch row); 0 if none."""
-    ngroups = _cdiv(k2_stride(C) // 8, K2_WN)
-    L = 16 * K2_WM * (K2_MAX_WARPS // ngroups)   # as many rows as the warps cover
+    L = 64 * K2_WIDTHS[k2_width(C)[0]]   # as many rows as the warpgroups cover
     while L > 0 and not k2_layout(L, Cin, C, K, num_layer, 1).fits():
         L -= 1
     return L
@@ -277,7 +288,7 @@ def k1_plan(B: int, L: int, Cin: int, C: int, K: int, num_layer: int,
             n_sm: int) -> Optional[K1Plan]:
     """K1's layout for a call on a card of `n_sm` SMs, or None when not even
     one row of length L fits in a block: then the wrapper windows the time
-    axis. K2's rule: of the layouts that fit (at most B rows a block), those
+    axis. Of the layouts that fit (at most B rows a block), those
     that need the fewest rounds of blocks over the SMs (one block on an SM at
     a time), and of these the one with the fewest rows. At the bench's shape
     on 132 SMs: two rows for B=500, three for B=2000 and 334, one for B=64."""
@@ -315,8 +326,9 @@ def window_plan(L: int, rows: int, halo: int, device='cpu'):
     stack, gather the flat windowed output with idx_out."""
     t_max = rows - 2 * halo
     if t_max < 1:
-        raise ValueError(f'a window of {rows} rows, the most that shared memory '
-                         f'holds, keeps no row beside its halo of {halo} on each side')
+        raise ValueError(f'a window of {rows} rows, the most that the registers and shared '
+                         f'memory of a block hold, keeps no row beside its halo of {halo} '
+                         f'on each side')
     n_win = -(-L // t_max)
     T = -(-L // n_win)
     rows = min(T + 2 * halo, L)
@@ -381,30 +393,62 @@ def pack_weights(layers: Layers, plan: K1Plan):
     return w0, b[0], wr, b[1:]
 
 
+@functools.lru_cache(maxsize=64)
+def _k2_gather(Cin: int, C: int, K: int, nl: int, N: int, ngroups: int, S: int, S0: int,
+               Kc: int, Kc0: int, device: str):
+    """Indices that pack a stack into K2's layout in one gather from
+    flat = cat(w_0, ..., w_{nl-1} flattened, b_0, ..., b_{nl-1}, [0]).
+
+    Weights: layer l's W'[k*S + ci, c] = W_l[c, ci, k] (S0 for layer 0), the
+    last index (a zero) where ci >= cin, c >= C or k >= K*S, cut into column
+    groups of N and chunks of 64 rows; chunk (g, c) holds W'[64c:64c+64,
+    gN:gN+N] in wgmma's K-major 128-byte-swizzle layout, value (k, n) at
+    (n//8)*512 + (n%8)*64 + ((k//8) ^ (n%8))*8 + k%8. Returns (idx_w, the
+    layers' chunks one after another; idx_b (nl, ngroups*N), zero beyond C)."""
+    cins = [Cin] + [C] * (nl - 1)
+    offs = [sum(C * ci * K for ci in cins[:i]) for i in range(nl + 1)]
+    zero = offs[-1] + nl * C
+    q = torch.arange(N * K2_CHUNK)
+    n = torch.arange(ngroups).view(-1, 1, 1) * N + (q // 512 * 8 + q // 64 % 8)
+    k_in = (q // 8 % 8 ^ q // 64 % 8) * 8 + q % 8
+    idx_w = []
+    for i, (cin, stride, Kl) in enumerate(zip(cins, [S0] + [S] * (nl - 1),
+                                              [Kc0] + [Kc] * (nl - 1))):
+        k = torch.arange(_cdiv(Kl, K2_CHUNK)).view(1, -1, 1) * K2_CHUNK + k_in
+        tap, ci = k // stride, k % stride
+        src = offs[i] + n * cin * K + ci * K + tap
+        idx_w.append(torch.where((tap < K) & (ci < cin) & (n < C), src, zero).reshape(-1))
+    nb = torch.arange(ngroups * N)
+    idx_b = torch.stack([torch.where(nb < C, offs[-1] + i * C + nb, zero) for i in range(nl)])
+    return torch.cat(idx_w).to(device), idx_b.to(device)
+
+
+@functools.lru_cache(maxsize=16)
+def _zero(device: str, dtype: torch.dtype) -> torch.Tensor:
+    return torch.zeros(1, dtype=dtype, device=device)
+
+
 def pack_weights_bf16(layers: Layers, plan: K2Plan):
-    """Weights in K2's layout: W'[k*S + ci, c] = W[c, ci, k] in bf16, zero
-    where ci >= C or c >= C and in the rows from K*S up to Kc (S0 and Kc0
-    for layer 0); biases f32, zero beyond C. Eight copies in all, whatever
-    the depth: each is a launch on the host's clock.
+    """Weights in K2's layout (`_k2_gather`): bf16 chunks of 64 rows of W'
+    and N columns in wgmma's swizzled layout; biases f32, zero beyond C.
+    One concatenation and two gathers, whatever the depth: each op is a
+    launch on the host's clock, and the wrapper packs at every call.
 
-    Returns (w0 (Kc0, SW), b0 (SW,), wr (nl-1, Kc, SW), br (nl-1, SW)); wr
-    and br are None for one layer."""
+    Returns (w0 (ngroups, ceil(Kc0/64), N*64), b0 (ngroups*N,), wr (nl-1,
+    ngroups, ceil(Kc/64), N*64), br (nl-1, ngroups*N)), views of one
+    buffer each; wr and br are None for one layer."""
     C, Cin, K = layers[0]['w'].shape
-    SW, nl, dev = plan.SW, len(layers), layers[0]['w'].device
-
-    def packed(ws, stride, rows, cin):   # n x (C, cin, K) -> (n, rows, SW)
-        out = torch.zeros((len(ws), rows, SW), dtype=torch.bfloat16, device=dev)
-        taps = out[:, :K * stride].view(len(ws), K, stride, SW)
-        taps[:, :, :cin, :C] = torch.stack(ws).permute(0, 3, 2, 1)
-        return out
-
-    b = torch.zeros((nl, SW), dtype=torch.float32, device=dev)
-    b[:, :C] = torch.stack([p['b'] for p in layers])
-    w0 = packed([layers[0]['w']], plan.S0, plan.Kc0, Cin)[0]
+    nl, dev = len(layers), layers[0]['w'].device
+    idx_w, idx_b = _k2_gather(Cin, C, K, nl, plan.N, plan.ngroups, plan.S, plan.S0, plan.Kc,
+                              plan.Kc0, str(dev))
+    parts = [p['w'].reshape(-1) for p in layers] + [p['b'].reshape(-1) for p in layers]
+    flat = torch.cat(parts + [_zero(str(dev), parts[0].dtype)])
+    w, b = flat[idx_w].to(torch.bfloat16), flat[idx_b].float()
+    n0 = plan.ngroups * _cdiv(plan.Kc0, K2_CHUNK) * plan.N * K2_CHUNK
+    w0 = w[:n0].view(plan.ngroups, -1, plan.N * K2_CHUNK)
     if nl == 1:
         return w0, b[0], None, None
-    wr = packed([p['w'] for p in layers[1:]], plan.S, plan.Kc, C)
-    return w0, b[0], wr, b[1:]
+    return w0, b[0], w[n0:].view(nl - 1, plan.ngroups, -1, plan.N * K2_CHUNK), b[1:]
 
 
 def _elu_exp(v: torch.Tensor) -> torch.Tensor:
@@ -501,7 +545,7 @@ def _launch_bf16(layers: Layers, x: torch.Tensor) -> torch.Tensor:
     out = torch.empty((B, L, C), dtype=torch.bfloat16, device=x.device)
     if B == 0 or L == 0:
         return out
-    for t in (w0, wr):   # cp.async copies the weights 16 bytes at a time
+    for t in (w0, wr):   # the bulk copies move 16-byte units
         if t is not None and t.data_ptr() % 16:
             raise ValueError('conv_stack_bf16 needs 16-byte aligned weights')
     ints = plan.as_ints()

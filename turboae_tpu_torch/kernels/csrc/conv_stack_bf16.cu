@@ -1,4 +1,5 @@
-// Fused same-length Conv1d + ELU stack in bf16 on Hopper's tensor cores (sm_90a).
+// Fused same-length Conv1d + ELU stack in bf16 on Hopper's warpgroup tensor
+// cores (sm_90a).
 //
 // Replaces turboae_tpu/kernels/conv_stack.py::_fused_forward_im2col (Pallas
 // body _stack_kernel_im2col). What it computes, per batch row b:
@@ -11,40 +12,69 @@
 // Bound: at the decoder's shape (B=2000, L=100, Cin=7, C=100, K=5, 5 layers)
 // a call does 2*B*L*(K*Cin*C + 4*K*C*C) = 8.1e10 FLOP on 43 MB of input,
 // output and weights: 1900 FLOP per byte, far above the H100's 295 FLOP/byte
-// bf16 ridge, so the tensor cores' rate bounds it (82 us at 989 TFLOP/s).
+// bf16 ridge, so the tensor cores' rate bounds it: 0.082 ms at 989.4 TFLOP/s.
 //
 // Layout (the Pallas kernel's im2col fold, with no im2col buffer):
-//   - a block holds R batch rows. Each activation buffer is flat with row
-//     stride S = C rounded up to 8 (and to an odd multiple of 8, so the eight
-//     rows an ldmatrix reads fall in distinct banks): the R rows of (L+K-1)
-//     time steps, K/2 zero halo rows before and after each, follow one another.
-//     Output row m of a layer then reads the contiguous span
-//     buf[m*S, m*S + Kc) as its A row (Kc = K*S rounded up to 16), and one
-//     M = R*(L+K-1) - (K-1) row GEMM covers every batch row of the block; the
-//     rows that straddle two batch rows are computed and never written;
-//   - the weights are one (Kc, SW) matrix W' per layer, W'[k*S + ci, c] =
-//     W[c, ci, k], zero where ci >= C or c >= C (packed by the wrapper), SW
-//     columns wide so that every warp's 13 n8 tiles lie inside it; its zero
-//     columns and zero bias keep the padded channels at ELU(0) = 0;
+//   - a block holds up to R batch rows. Each activation buffer is flat with
+//     row stride S = C rounded up to an odd multiple of 8 (16-byte rows whose
+//     eight ldmatrix rows fall in distinct banks): the rows of (L+K-1) time
+//     steps, K/2 zero halo rows before and after each, follow one another.
+//     Output row m of a layer reads the contiguous span buf[m*S, m*S + Kc) as
+//     its A row (Kc = K*S rounded up to 16), so one M = Rv*(L+K-1) - (K-1)
+//     row product covers every batch row of the block; the rows that straddle
+//     two batch rows are computed and never written;
 //   - layer 0 reads x from its own buffer of stride S0 (Cin rounded the same
-//     way; 8 for Cin=7), filled from device memory with scalar loads;
-//   - every buffer is zeroed once, so halo rows, padded channels and the up
-//     to Kc - K*S values the last rows read past their taps are 0, never NaN;
-//     only valid rows are written afterwards.
-// Compute: each warp owns 2 m16 tiles x 13 n8 tiles of f32 accumulators
-// (M padded to whole warps, so the inner loop has no branch) and runs
-// mma.sync.m16n8k16 (bf16 in, f32 out) on fragments from ldmatrix; the A
-// operand stays in shared memory for the whole stack, the weights stream
-// through a three-stage cp.async ring of 16*kch contraction rows that every
-// warp reuses for all its rows, two chunks ahead, across layer boundaries.
-// The epilogue adds the bias (staged in shared memory), applies ELU and
-// rounds to bf16 on the accumulator fragments and writes the next layer's
-// buffer; the last layer writes its valid rows and C columns straight to
-// `out` (scalar stores where C is odd).
-// Registers bound the block: 104 accumulators a thread, 168 registers at 12
-// warps, so at C=100 a block holds three batch rows (10 warps, 180 KB of
-// shared memory, one block an SM); the wrapper may take fewer rows where
-// that needs no more rounds of blocks over the SMs.
+//     way; 8 for Cin=7); layers then alternate between two buffers, so a
+//     layer's epilogue never overwrites what a slower warpgroup still reads;
+//   - the weights of a layer are W'[k*S + ci, c] = W[c, ci, k] (zero where
+//     ci >= C, c >= C or k*S + ci >= K*S), cut into column groups of N
+//     columns (N = C rounded up to one of 32, 104, 128, 256; wider C
+//     takes several groups of 256) and chunks of 64 contraction rows. A chunk
+//     is N*128 contiguous bytes in wgmma's K-major 128-byte-swizzle layout,
+//     packed by the wrapper: element (k, n) at (n/8)*1024 + (n%8)*128 +
+//     ((k/8) ^ (n%8))*16 + (k%8)*2 bytes. A descriptor over the chunk (stride
+//     1024 bytes between 8-row groups) plus 32 bytes per k16 step reads it.
+//
+// Work: NC consumer warpgroups, one m64 tile of the block's rows each, and
+// a producer warpgroup of which one warp works. It streams the stack's
+// chunks, in the order the consumers use them, through a ring of up to 4
+// stages (fewer where the buffers leave no room) with one bulk copy each
+// (cp.async.bulk, TMA's 1-D form: no tensor map), each signalling a `full`
+// mbarrier; the consumers release a stage on its `empty` mbarrier. The ring
+// runs across column groups and layers, so the producer loads the next
+// layer's weights during an epilogue. A consumer warpgroup loads its A
+// fragments with ldmatrix from the fold (a shared-memory descriptor cannot
+// express rows that overlap at stride S) and runs
+// wgmma.mma_async.m64nNk16 with A from registers and B from the ring (n104
+// as n56 and n48: see Mma<104>). Bias, ELU and bf16 run on the
+// accumulators; the next layer starts after one named barrier of the
+// consumers alone. The last layer's valid rows and C columns go from its
+// buffer to `out` in coalesced 8-byte stores.
+//
+// What this does about the limits of the mma.sync design it replaces:
+//   1. B reuse: one wgmma reads a k16 x N slice of B once for 64 rows, where
+//      each warp fetched its own copy for 32 rows: 1.6x less shared-memory
+//      traffic a product;
+//   2. no block-wide barrier a chunk: consumers wait on the chunk's own
+//      mbarrier, and only its readers release it;
+//   3. the epilogue still stalls the tensor cores between layers, but the
+//      weights keep streaming through it (the producer is never stalled by
+//      it), and the output leaves in coalesced stores; overlapping
+//      epilogues across warpgroups is later work;
+//   4. wave tail: the wrapper spreads the batch rows evenly over a whole
+//      number of rounds of blocks over the SMs (kernels/conv_stack.py:
+//      k2_plan), and a block whose rows fill fewer tiles issues fewer
+//      products;
+//   5. weights re-streamed per block: still, through the ring, as whole
+//      contiguous chunks; a cluster multicast is later work.
+// Registers bound the block: the accumulators of an m64 x N tile are N/2 a
+// thread (52 at C=100); __launch_bounds__ holds NC consumer warpgroups and
+// the producer warpgroup in one SM's register file (80 a thread at C=100,
+// five consumer warpgroups); setmaxnreg drops the producer warpgroup to 24
+// and gives the consumers what that frees (88 at C=100), and a consumer
+// holds the A fragments of KB k16 steps at once (2 at C=100, else 4). At
+// C=100 a block holds three batch rows (308 rows of the fold in five m64
+// tiles; cli/k2_variants.py measures the choices).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -52,25 +82,43 @@
 
 namespace {
 
-constexpr int WM = 2;              // m16 tiles per warp
-constexpr int WN = 13;             // n8 tiles per warp
-constexpr int MAX_WARPS = 12;
-constexpr int STAGES = 3;          // weight ring
+constexpr int MAX_STAGES = 4;      // weight ring
+constexpr int CHUNK_K = 64;        // contraction rows a chunk: one 128-byte swizzle atom
 constexpr int SMEM_LIMIT = 232448;
+constexpr int PRODUCER_REGS = 24;
 
 // The block's layout; mirrors kernels/conv_stack.py::K2Plan field by field.
 struct Plan {
-  int L, Cin, C, K, num_layer, R, P, S, S0, SW, Kc, Kc0, mtiles, ngroups, kch,
-      rows_alloc, rows_alloc0;
+  int L, Cin, C, K, num_layer, R, G, P, S, S0, N, ngroups, nc, stages, Kc, Kc0, rows_alloc,
+      rows_alloc0;
 };
 
 typedef __nv_bfloat16 bf16;
 
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// Registers: an SM's file is four quarters of 512 a lane, warp w on quarter
+// w % 4, allocated in units of 8. A block of nc consumer warpgroups and the
+// producer warpgroup puts nc + 1 warps on each quarter, so each thread starts
+// with launch_regs(nc); setmaxnreg.dec drops the producer's to
+// PRODUCER_REGS and setmaxnreg.inc gives the consumers what that frees.
+__host__ __device__ constexpr int launch_regs(int nc) { return 512 / (nc + 1) / 8 * 8; }
+__host__ __device__ constexpr int consumer_regs(int nc) {
+  return ((nc + 1) * launch_regs(nc) - PRODUCER_REGS) / nc / 8 * 8;
+}
+
+__host__ __device__ constexpr size_t smem_bytes(const Plan& p) {
+  return 1024 +                                              // alignment of the ring
+         (size_t)p.stages * p.N * 128 +                      // weight ring
+         2 * ((size_t)2 * p.rows_alloc * p.S + (size_t)p.rows_alloc0 * p.S0) +
+         4 * (size_t)p.num_layer * p.ngroups * p.N +         // biases, f32
+         16 * (size_t)p.stages;                              // full and empty mbarriers
+}
+
 __device__ __forceinline__ float elu(float v) {
   // the Pallas kernel's ELU (conv_stack.py:45-47), exp(min(v, 0)) - 1, with
   // exp as the hardware's ex2.approx (relative error ~2^-22, far below the
-  // bf16 rounding that follows): the epilogue is on the critical path, since
-  // every warp runs it at once
+  // bf16 rounding that follows)
   float e;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(fminf(v, 0.f) * 1.4426950408889634f));
   return v > 0.f ? v : e - 1.f;
@@ -85,213 +133,417 @@ __device__ __forceinline__ void ldsm_x4(uint32_t a, uint32_t (&r)[4]) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
 }
 
-__device__ __forceinline__ void ldsm_x4_t(uint32_t a, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+// ---- mbarriers and the bulk copy
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x2_t(uint32_t a, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1]) : "r"(a));
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// waits until the phase of parity `parity` of the barrier has completed; a
+// barrier that stays incomplete for ~2^32 cycles (seconds) traps, so a fault
+// in the ring ends the launch with an error instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  const long long t0 = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 32)) __trap();
+  }
+}
+
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, int bytes, uint32_t bar) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
 }
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
+// named barrier 1: the consumer warpgroups alone (0 is __syncthreads')
+__device__ __forceinline__ void consumers_sync(int threads) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(threads) : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+// ---- wgmma
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
-// wait until at most STAGES - 2 groups of copies are in flight
-__device__ __forceinline__ void cp_async_wait_ring() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2) : "memory");
+// descriptor of a K-major, 128-byte-swizzled B operand at shared address
+// `addr` (1024-aligned atom rows, advanced by 32 bytes a k16 step): start
+// address >> 4 in bits 0-13, leading byte offset 1 (unused by this layout),
+// stride byte offset 1024 >> 4 between 8-row groups, swizzle mode 1 (128 B)
+// in bits 62-63
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) | (uint64_t)1 << 16 | (uint64_t)(1024 >> 4) << 32 |
+         (uint64_t)1 << 62;
 }
 
-__global__ void __launch_bounds__(MAX_WARPS * 32, 1)
+// D (m64 x N f32, N/2 a thread) = A (m64 x k16 bf16, from registers: each
+// warp's 16 rows as mma.m16n8k16's A fragment) x B (k16 x N, descriptor)
+// (+ D when scale_d), the instruction's operand list written out: one
+// instruction for each width of kernels/conv_stack.py K2_WIDTHS but 104
+template <int N>
+struct Mma;
+
+template <>
+struct Mma<32> {
+  static __device__ __forceinline__ void run(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+template <>
+struct Mma<48> {
+  static __device__ __forceinline__ void run(float (&d)[24], const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, {%24, %25, %26, %27}, %28, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+template <>
+struct Mma<56> {
+  static __device__ __forceinline__ void run(float (&d)[28], const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %33, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n56k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27"
+      "}, {%28, %29, %30, %31}, %32, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+template <>
+struct Mma<128> {
+  static __device__ __forceinline__ void run(float (&d)[64], const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+template <>
+struct Mma<256> {
+  static __device__ __forceinline__ void run(float (&d)[128], const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+// n104 as n56 then n48 over the next 7 groups of 8 rows (7 * 1024 bytes on):
+// one n104 instruction needs 82 registers of the 80 that a block of five
+// consumer warpgroups and the producer starts each thread with
+template <>
+struct Mma<104> {
+  static __device__ __forceinline__ void run(float (&d)[52], const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    Mma<56>::run(*reinterpret_cast<float(*)[28]>(d), a, desc, scale_d);
+    Mma<48>::run(*reinterpret_cast<float(*)[24]>(d + 28), a, desc + 7 * 1024 / 16, scale_d);
+  }
+};
+
+template <int N, int NCMAX>
+__global__ void __launch_bounds__((NCMAX + 1) * 128, 1)
 conv_stack_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
                        const float* __restrict__ b0, const bf16* __restrict__ wr,
                        const float* __restrict__ br, bf16* __restrict__ out, int B,
                        const Plan p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* buf0 = reinterpret_cast<bf16*>(smem);
+  constexpr int INC = consumer_regs(NCMAX);
+  static_assert(NCMAX * INC + PRODUCER_REGS <= 512, "a quarter of the register file");
+  static_assert(INC >= N / 2 + 32, "accumulators and A fragments");
+  constexpr int KB = INC - N / 2 >= 48 ? 4 : 2;  // k16 steps whose A fragments are held at once
+  constexpr int STAGE = N * 128;                 // bytes of one chunk
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = smem_raw + ((1024 - (saddr(smem_raw) & 1023)) & 1023);
+  const int stages = p.stages;
+  bf16* buf0 = reinterpret_cast<bf16*>(ring + (size_t)stages * STAGE);
   bf16* buf1 = buf0 + (size_t)p.rows_alloc * p.S;
   bf16* xbuf = buf1 + (size_t)p.rows_alloc * p.S;
-  bf16* ring = xbuf + (size_t)p.rows_alloc0 * p.S0;
-  const int chunk_rows = 16 * p.kch;
-  const int stage = chunk_rows * p.SW;          // values in one ring stage
-  float* sbias = reinterpret_cast<float*>(ring + (size_t)STAGES * stage);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int r0 = blockIdx.x * p.R;
-  const int Rv = min(p.R, B - r0);              // batch rows this block holds
-  const int pad = p.K / 2;
-  const int nch0 = (p.Kc0 + chunk_rows - 1) / chunk_rows;
-  const int nchr = (p.Kc + chunk_rows - 1) / chunk_rows;
-  const int T = nch0 + (p.num_layer - 1) * nchr;   // weight chunks of the stack
+  float* sbias = reinterpret_cast<float*>(xbuf + (size_t)p.rows_alloc0 * p.S0);
+  const int GN = p.ngroups * N;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sbias + p.num_layer * GN);
+  const uint32_t full = saddr(bars), empty = saddr(bars + stages);   // 8 bytes a barrier
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int warp = __shfl_sync(0xffffffff, tid >> 5, 0);   // uniform in the warp
+  const int nct = p.nc * 128;                    // consumer threads
+  const int nch0 = cdiv(p.Kc0, CHUNK_K), nchr = cdiv(p.Kc, CHUNK_K);
+  const int T0 = p.ngroups * nch0;               // layer 0's chunks
+  const int T = T0 + (p.num_layer - 1) * p.ngroups * nchr;
 
-  // chunk t of the stack: copy its rows of W' into ring stage t % STAGES
-  auto issue = [&](int t) {
-    if (t < T) {
-      const int layer = t < nch0 ? 0 : 1 + (t - nch0) / nchr;
-      const int c = t < nch0 ? t : (t - nch0) % nchr;
-      const int Kl = layer ? p.Kc : p.Kc0;
-      const bf16* src = (layer ? wr + (size_t)(layer - 1) * p.Kc * p.SW : w0) +
-                        (size_t)c * stage;
-      const uint32_t dst = saddr(ring + (size_t)(t % STAGES) * stage);
-      const int units = min(chunk_rows, Kl - c * chunk_rows) * p.SW / 8;
-      for (int u = tid; u < units; u += blockDim.x) cp_async16(dst + 16 * u, src + 8 * u);
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * p.nc);        // one arrival a consumer warp
     }
-    cp_async_commit();    // one group per chunk, empty past the end
-  };
-
-  // every layer's bias joins the first chunk's copies, then the ring fills
-  for (int u = tid; u < p.num_layer * p.SW / 4; u += blockDim.x)
-    cp_async16(saddr(sbias + 4 * u), u < p.SW / 4 ? b0 + 4 * u : br + 4 * u - p.SW);
-#pragma unroll
-  for (int t = 0; t < STAGES - 1; ++t) issue(t);
-
-  // zero both buffers and x's: halos, padded channels, tails, absent rows
-  {
-    uint4* z = reinterpret_cast<uint4*>(smem);
-    const int n = (2 * p.rows_alloc * p.S + p.rows_alloc0 * p.S0) / 8;
-    for (int i = tid; i < n; i += blockDim.x) z[i] = make_uint4(0, 0, 0, 0);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  // x's rows (Cin may be odd: scalar copies), eight loads in flight a thread
-  {
-    const int row = p.L * p.Cin, n = Rv * row;
-    const bf16* xb = x + (size_t)r0 * row;
-    for (int e0 = tid; e0 < n; e0 += 8 * blockDim.x) {
-      bf16 v[8];
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const int e = e0 + u * blockDim.x;
-        v[u] = e < n ? xb[e] : __float2bfloat16(0.f);
+
+  // one if-else, whose two paths never meet again: ptxas then holds each to
+  // its setmaxnreg count
+  if (warp >= 4 * p.nc) {
+    // ---- producer warpgroup: its first warp copies chunk t of the stack
+    // into stage t % stages
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (warp == 4 * p.nc && lane == 0) {
+      for (int t = 0; t < T; ++t) {
+        const int s = t % stages;
+        if (t >= stages) mbar_wait(empty + 8 * s, (t / stages - 1) & 1);
+        const bf16* src = t < T0 ? w0 + (size_t)t * (STAGE / 2)
+                                 : wr + (size_t)(t - T0) * (STAGE / 2);
+        mbar_expect_tx(full + 8 * s, STAGE);
+        bulk_copy(saddr(ring + s * STAGE), src, STAGE, full + 8 * s);
       }
+    }
+  } else {
+    // ---- consumers
+    if constexpr (INC > launch_regs(NCMAX))
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(INC));
+    const int r0 = (int)((long long)blockIdx.x * B / gridDim.x);
+    const int Rv = (int)((long long)(blockIdx.x + 1) * B / gridDim.x) - r0;   // rows of this block
+    const int pad = p.K / 2;
+    // zero both buffers and x's: halos, padded channels, tails, absent rows
+    {
+      uint4* z = reinterpret_cast<uint4*>(buf0);
+      const int n = (2 * p.rows_alloc * p.S + p.rows_alloc0 * p.S0) / 8;
+      for (int i = tid; i < n; i += nct) z[i] = make_uint4(0, 0, 0, 0);
+    }
+    for (int i = tid; i < p.num_layer * GN; i += nct)
+      sbias[i] = i < GN ? b0[i] : br[i - GN];
+    consumers_sync(nct);
+    // x's rows (Cin may be odd: scalar copies), eight loads in flight a thread
+    {
+      const int row = p.L * p.Cin, n = Rv * row;
+      const bf16* xb = x + (size_t)r0 * row;
+      for (int e0 = tid; e0 < n; e0 += 8 * nct) {
+        bf16 v[8];
 #pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const int e = e0 + u * blockDim.x;
-        if (e < n) {
-          const int r = e / row, l = (e - r * row) / p.Cin, ci = e - r * row - l * p.Cin;
-          xbuf[(size_t)(r * p.P + pad + l) * p.S0 + ci] = v[u];
+        for (int u = 0; u < 8; ++u) {
+          const int e = e0 + u * nct;
+          v[u] = e < n ? xb[e] : __float2bfloat16(0.f);
         }
-      }
-    }
-  }
-
-  // this warp's tiles: m16 tiles [mt0, mt0 + WM), n8 tiles [nt0, nt0 + WN)
-  const int mt0 = (warp / p.ngroups) * WM;
-  const int nt0 = (warp % p.ngroups) * WN;
-
-  float acc[WM][WN][4];
 #pragma unroll
-  for (int i = 0; i < WM; ++i)
-#pragma unroll
-    for (int j = 0; j < WN; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
-
-  int layer = 0, c = 0;     // chunk t is chunk c of `layer`
-  for (int t = 0; t < T; ++t) {
-    cp_async_wait_ring();
-    __syncthreads();        // chunk t landed; stage (t-1) % STAGES and the last epilogue are done
-    issue(t + STAGES - 1);
-
-    const int Ss = layer ? p.S : p.S0;
-    const bf16* src = layer == 0 ? xbuf : ((layer - 1) & 1 ? buf1 : buf0);
-    const int k0 = c * chunk_rows;
-    const int ksteps = min(chunk_rows, (layer ? p.Kc : p.Kc0) - k0) / 16;
-    // ldmatrix row addresses: A rows m = tile*16 + lane%16 at k + 8*(lane/16);
-    // B rows k + lane%8 + 8*(lane/8 % 2) at column tile nt0 + j + lane/16
-    const uint32_t a_base =
-        saddr(src + (size_t)(mt0 * 16 + (lane & 15)) * Ss + k0 + (lane >> 4) * 8);
-    const uint32_t b_base =
-        saddr(ring + (size_t)(t % STAGES) * stage +
-              (size_t)((lane & 7) + ((lane >> 3) & 1) * 8) * p.SW + (nt0 + (lane >> 4)) * 8);
-    for (int ks = 0; ks < ksteps; ++ks) {
-      uint32_t a[WM][4], b[WN + 1][2];
-#pragma unroll
-      for (int i = 0; i < WM; ++i) ldsm_x4(a_base + 2 * (i * 16 * Ss + ks * 16), a[i]);
-      const uint32_t bk = b_base + 2 * ks * 16 * p.SW;
-#pragma unroll
-      for (int j = 0; j < WN; j += 2) {
-        uint32_t r[4];
-        if (j + 1 < WN) ldsm_x4_t(bk + 2 * j * 8, r);
-        else ldsm_x2_t(bk + 2 * j * 8, r);
-        b[j][0] = r[0]; b[j][1] = r[1]; b[j + 1][0] = r[2]; b[j + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int j = 0; j < WN; ++j)
-#pragma unroll
-        for (int i = 0; i < WM; ++i) mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
-    }
-
-    if (++c < (layer ? nchr : nch0)) continue;
-    // epilogue of `layer`: bias, ELU and bf16 on the fragments, valid rows
-    // only; into the next buffer's S columns, or the last layer's C columns
-    // straight to `out`
-    const float* bias = sbias + layer * p.SW;
-    bf16* dst = layer & 1 ? buf1 : buf0;
-    const bool last = layer == p.num_layer - 1;
-    float bn[WN][2];
-#pragma unroll
-    for (int j = 0; j < WN; ++j) {
-      const int n = (nt0 + j) * 8 + 2 * (lane & 3);
-      bn[j][0] = bias[n];
-      bn[j][1] = bias[n + 1];
-    }
-#pragma unroll
-    for (int i = 0; i < WM; ++i) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = (mt0 + i) * 16 + (lane >> 2) + 8 * h;
-        const int r = m / p.P, l = m - r * p.P;
-        if (r >= Rv || l >= p.L) continue;
-        bf16* drow = last ? out + ((size_t)(r0 + r) * p.L + l) * p.C
-                          : dst + (size_t)(m + pad) * p.S;
-        const int width = last ? p.C : p.S;
-#pragma unroll
-        for (int j = 0; j < WN; ++j) {
-          const int n = (nt0 + j) * 8 + 2 * (lane & 3);
-          if (n >= width) continue;
-          const __nv_bfloat162 v =
-              __floats2bfloat162_rn(elu(acc[i][j][2 * h] + bn[j][0]),
-                                    elu(acc[i][j][2 * h + 1] + bn[j][1]));
-          if (n + 1 < width && !(last && (p.C & 1))) {
-            *reinterpret_cast<__nv_bfloat162*>(drow + n) = v;   // 4-byte aligned
-          } else {
-            drow[n] = v.x;
-            if (n + 1 < width) drow[n + 1] = v.y;
+        for (int u = 0; u < 8; ++u) {
+          const int e = e0 + u * nct;
+          if (e < n) {
+            const int r = e / row, l = (e - r * row) / p.Cin, ci = e - r * row - l * p.Cin;
+            xbuf[(size_t)(r * p.P + pad + l) * p.S0 + ci] = v[u];
           }
         }
       }
-#pragma unroll
-      for (int j = 0; j < WN; ++j)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
     }
-    ++layer;
-    c = 0;
+    consumers_sync(nct);
+
+    const int wg = warp >> 2;                      // this warpgroup's m64 tile
+    const int m_warp = wg * 64 + (warp & 3) * 16;  // this warp's first row
+    // a warpgroup whose tile holds no row of the block issues no product
+    const bool active = wg * 64 < Rv * p.P - (p.K - 1);
+    float acc[N / 2];
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;   // read by the first product, which scales it by 0
+    uint32_t a[KB][4];
+    int t = 0;                                     // the stack's chunk counter
+    for (int layer = 0; layer < p.num_layer; ++layer) {
+      const int Ss = layer ? p.S : p.S0, Kl = layer ? p.Kc : p.Kc0, nch = layer ? nchr : nch0;
+      const bf16* src = layer == 0 ? xbuf : (layer & 1 ? buf0 : buf1);
+      bf16* dst = layer & 1 ? buf1 : buf0;
+      // ldmatrix rows: A rows m_warp + lane%16 at k + 8*(lane/16)
+      const uint32_t a_base = saddr(src + (size_t)(m_warp + (lane & 15)) * Ss + (lane >> 4) * 8);
+      for (int g = 0; g < p.ngroups; ++g) {
+        for (int c = 0; c < nch; ++c, ++t) {
+          const int s = t % stages;
+          mbar_wait(full + 8 * s, (t / stages) & 1);
+          if (active) {
+            const uint32_t ak = a_base + 2 * c * CHUNK_K;
+            const uint64_t d = desc_sw128(saddr(ring + s * STAGE));
+            const int nks = min(4, (Kl - c * CHUNK_K) / 16);   // k16 steps of the chunk
+#pragma unroll
+            for (int k0 = 0; k0 < 4; k0 += KB) {
+              if (k0 >= nks) break;
+#pragma unroll
+              for (int i = 0; i < KB; ++i)
+                if (k0 + i < nks) ldsm_x4(ak + 32 * (k0 + i), a[i]);
+              wgmma_fence();
+#pragma unroll
+              for (int i = 0; i < KB; ++i)
+                if (k0 + i < nks) Mma<N>::run(acc, a[i], d + 2 * (k0 + i), c | (k0 + i));
+              wgmma_commit();
+              wgmma_wait_all();      // the A registers (and, at the last, the stage) are free again
+            }
+          }
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty + 8 * s);
+        }
+        if (!active) continue;
+        // epilogue of column group g: bias, ELU and bf16 on the accumulators,
+        // valid rows only, into the next buffer's S columns
+        const float* bias = sbias + layer * GN + g * N;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = m_warp + (lane >> 2) + 8 * h;
+          const int r = m / p.P, l = m - r * p.P;
+          if (r >= Rv || l >= p.L) continue;
+          bf16* drow = dst + (size_t)(m + pad) * p.S;
+#pragma unroll
+          for (int j = 0; j < N / 8; ++j) {
+            const int nl = j * 8 + 2 * (lane & 3), n = g * N + nl;
+            if (n >= p.S) continue;
+            const float2 bn = *reinterpret_cast<const float2*>(bias + nl);
+            *reinterpret_cast<__nv_bfloat162*>(drow + n) =   // 4-byte aligned: S and n even
+                __floats2bfloat162_rn(elu(acc[4 * j + 2 * h] + bn.x),
+                                      elu(acc[4 * j + 2 * h + 1] + bn.y));
+          }
+        }
+      }
+      // the next layer (or the copy below) reads rows that other
+      // warpgroups wrote
+      consumers_sync(nct);
+    }
+    // the last layer's valid rows and C columns to `out`, where the block's
+    // rows lie one after another: consecutive threads store consecutive
+    // 8 bytes (single values where C is no multiple of 4)
+    const bf16* res = (p.num_layer - 1) & 1 ? buf1 : buf0;
+    bf16* ob = out + (size_t)r0 * p.L * p.C;
+    const int LC = p.L * p.C;
+    if ((p.C & 3) == 0) {
+      for (int u = tid; u < Rv * LC / 4; u += nct) {
+        const int e = 4 * u, r = e / LC, l = (e - r * LC) / p.C, c = e - r * LC - l * p.C;
+        *reinterpret_cast<uint2*>(ob + e) =
+            *reinterpret_cast<const uint2*>(res + (size_t)(r * p.P + pad + l) * p.S + c);
+      }
+    } else {
+      for (int e = tid; e < Rv * LC; e += nct) {
+        const int r = e / LC, l = (e - r * LC) / p.C, c = e - r * LC - l * p.C;
+        ob[e] = res[(size_t)(r * p.P + pad + l) * p.S + c];
+      }
+    }
   }
+}
+
+template <int N, int NCMAX>
+int launch(const void* x, const void* w0, const void* b0, const void* wr, const void* br,
+           void* out, int B, const Plan& p, cudaStream_t stream) {
+  auto kernel = conv_stack_bf16_kernel<N, NCMAX>;
+  if (p.nc < 1 || p.nc > NCMAX) return (int)cudaErrorInvalidValue;
+  // once a device (each a host call): the register count and the shared
+  // memory limit
+  static int regs[64];
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (regs[dev] == 0) {
+    cudaFuncAttributes attr;
+    e = cudaFuncGetAttributes(&attr, kernel);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+    if (e != cudaSuccess) return (int)e;
+    regs[dev] = cdiv(attr.numRegs, 8) * 8;
+  }
+  // setmaxnreg.inc blocks until the block's registers can give what it asks:
+  // refuse a build whose register count leaves the consumers short of them
+  constexpr int INC = consumer_regs(NCMAX);
+  if (INC > launch_regs(NCMAX) && p.nc * INC + PRODUCER_REGS > (p.nc + 1) * regs[dev])
+    return (int)cudaErrorInvalidConfiguration;
+  const size_t smem = smem_bytes(p);
+  kernel<<<p.G, (p.nc + 1) * 128, smem, stream>>>(
+      (const bf16*)x, (const bf16*)w0, (const float*)b0, (const bf16*)wr, (const float*)br,
+      (bf16*)out, B, p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x (B, L, Cin) bf16; w0 (Kc0, SW) bf16; b0 (SW) f32; wr (num_layer-1, Kc,
-// SW) bf16 and br (num_layer-1, SW) f32, NULL when num_layer == 1; out
-// (B, L, C) bf16. All contiguous and 16-byte aligned, in the layout described
-// above. `plan` holds the n_plan ints of struct Plan, from
-// kernels/conv_stack.py::K2Plan. Launches ceil(B / R) blocks on `stream` and
-// returns a CUDA error code (0 on success).
+// x (B, L, Cin) bf16; w0 (ngroups, ceil(Kc0/64), N*64) bf16 chunks; b0
+// (ngroups*N) f32; wr (num_layer-1, ngroups, ceil(Kc/64), N*64) bf16 and br
+// (num_layer-1, ngroups*N) f32, NULL when num_layer == 1; out (B, L, C) bf16.
+// All contiguous and 16-byte aligned, in the layout described above. `plan`
+// holds the n_plan ints of struct Plan, from kernels/conv_stack.py::K2Plan.
+// Launches G blocks of nc consumer warpgroups and a producer warpgroup on
+// `stream`, block i taking batch rows [i*B/G, (i+1)*B/G); returns a CUDA
+// error code (0 on success).
 extern "C" int conv_stack_bf16_launch(const void* x, const void* w0, const void* b0,
                                       const void* wr, const void* br, void* out,
                                       int B, const int* plan, int n_plan,
@@ -299,21 +551,17 @@ extern "C" int conv_stack_bf16_launch(const void* x, const void* w0, const void*
   Plan p;
   if (n_plan != (int)(sizeof(Plan) / sizeof(int))) return (int)cudaErrorInvalidValue;
   memcpy(&p, plan, sizeof(p));
-  const int nwarps = p.mtiles / WM * p.ngroups;
-  const size_t smem = 2 * ((size_t)2 * p.rows_alloc * p.S + (size_t)p.rows_alloc0 * p.S0 +
-                           (size_t)STAGES * 16 * p.kch * p.SW) +
-                      4 * (size_t)p.num_layer * p.SW;
-  if (nwarps > MAX_WARPS || p.mtiles % WM || p.SW < p.ngroups * WN * 8 || p.S % 8 ||
-      p.S0 % 8 || p.SW % 8 || smem > SMEM_LIMIT ||
-      (p.num_layer > 1 && (wr == nullptr || br == nullptr)))
+  if (p.S % 8 || p.S0 % 8 || p.G < 1 || p.G > B || (B + p.G - 1) / p.G > p.R ||
+      smem_bytes(p) > SMEM_LIMIT || (p.num_layer > 1 && (wr == nullptr || br == nullptr)) ||
+      p.nc * 64 < p.R * p.P - (p.K - 1) || p.Kc % 16 || p.Kc0 % 16 || p.stages < 2 ||
+      p.stages > MAX_STAGES)
     return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        conv_stack_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (p.N) {   // kernels/conv_stack.py K2_WIDTHS: N -> most consumer warpgroups
+    case 32: return launch<32, 7>(x, w0, b0, wr, br, out, B, p, s);
+    case 104: return launch<104, 5>(x, w0, b0, wr, br, out, B, p, s);
+    case 128: return launch<128, 4>(x, w0, b0, wr, br, out, B, p, s);
+    case 256: return launch<256, 2>(x, w0, b0, wr, br, out, B, p, s);
+    default: return (int)cudaErrorInvalidValue;
   }
-  conv_stack_bf16_kernel<<<(B + p.R - 1) / p.R, nwarps * 32, smem, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const bf16*)w0, (const float*)b0, (const bf16*)wr,
-      (const float*)br, (bf16*)out, B, p);
-  return (int)cudaGetLastError();
 }
