@@ -9,17 +9,17 @@ Phases, each printing one JSON line:
                (seconds; ~0 if cached); per kernel, ptxas's registers, shared
                memory, spills and warnings and the HMMA (mma.sync) and HGMMA
                (wgmma) counts of `cuobjdump -sass` (cuobjdump from beside
-               nvcc); K2's kernels must show HGMMA, K1's either, and none
-               may spill;
+               nvcc); every kernel of both must show HGMMA and none may
+               spill;
   kernel_check each kernel against its plain PyTorch version on the card, at
                its path's shape and at edge shapes (one or two layers, K=1, odd
                B, C and L that are no multiple of the kernel's tile, odd C,
                C=128 and 256, a partly filled last block; for K2 also B=1001,
                whose blocks of 2 rows fill their tiles in part, and C=300 in
                two column groups) and at the
-               long-block shape L=1000 that the wrappers window; K2's plan
-               (rows and blocks, warpgroups, wgmma width, ring stages) beside
-               each of its cases;
+               long-block shape L=1000 that the wrappers window; each
+               kernel's plan (rows and blocks, warpgroups, tiles a
+               warpgroup, wgmma width, ring stages) beside each of its cases;
   forward      the crown checkpoint's forward on the card against the port's
                own forward on the CPU, on the same small input;
   crown_sweep  main path 1: the crown's bf16 evaluation sweep through the
@@ -230,8 +230,10 @@ Phases, each printing one JSON line:
                native_parity runs here;
   conv_stack_bench  path 7: the port of scripts/bench_conv_stack.py, the only
                path of K1, with its launches read around it;
-  times        CUDA-event times of each kernel, its plain version and a
-               PyTorch library yardstick, beside the card's bound;
+  times        CUDA-event times of each kernel (a wrapper call, which packs
+               the weights, and the launch alone on weights packed once),
+               its plain version and a PyTorch library yardstick, beside
+               the card's bound;
   atn_curve, radar_curve, binary_curve  paths 34-36: artifacts/flagship_
                {atn,radar,binary}.msgpack through cli/eval_flagship.evaluate
                (bf16, K2, batch 2000) at -1 and 0 dB, 20,000 blocks a point,
@@ -676,8 +678,8 @@ def main() -> int:
 def build_phase():
     """Builds every CUDA source in parallel and reads, per kernel, ptxas's
     registers, shared memory, spills and warnings and the SASS's HMMA
-    (mma.sync) and HGMMA (wgmma) counts. K2's kernels must run on wgmma
-    (HGMMA > 0), K1's on the tensor cores by either path; none may spill."""
+    (mma.sync) and HGMMA (wgmma) counts. Every kernel of both must run on
+    wgmma (HGMMA > 0); none may spill."""
     from turboae_tpu_torch.kernels import build
     from turboae_tpu_torch.kernels import conv_stack as ks
     t0 = time.perf_counter()
@@ -694,12 +696,8 @@ def build_phase():
     for name, lib in libraries.items():
         found = lib['kernels']
         check(bool(found), f'{name}: no kernel in its SASS')
-        if name == 'conv_stack_bf16':
-            check(all(v['hgmma'] > 0 for v in found.values()),
-                  f'{name} has a kernel with no HGMMA (wgmma) in its SASS')
-        else:
-            check(all(v['hmma'] + v['hgmma'] > 0 for v in found.values()),
-                  f'{name} has no tensor-core instruction (HMMA/HGMMA) in its SASS')
+        check(all(v['hgmma'] > 0 for v in found.values()),
+              f'{name} has a kernel with no HGMMA (wgmma) in its SASS')
         check(all('spill_stores' in v and v['spill_stores'] == v['spill_loads'] == 0
                   for v in found.values()), f'ptxas reports spills (or nothing) for {name}')
     return libraries
@@ -750,12 +748,14 @@ def kernel_check_phase(crown, gen, dev):
             check(bool(torch.isfinite(got.float()).all()), f'{kname} {name}: non-finite output')
             err = (got.float() - ref.float()).abs().max().item()
             rel = err / ref.float().abs().max().item()
-            plan = {}
             if kname == 'conv_stack_bf16':
-                kp = ks.k2_plan(B, L, cin, c, k, nl, n_sm)
-                plan = {'plan': {f: getattr(kp, f) for f in ('R', 'G', 'nc', 'N', 'ngroups',
-                                                             'stages', 'smem')}
-                        if kp else {'windowed_rows': ks.k2_max_rows(cin, c, k, nl)}}
+                kp, shown = ks.k2_plan(B, L, cin, c, k, nl, n_sm), ('R', 'G', 'nc', 'N')
+                windowed = {'windowed_rows': ks.k2_max_rows(cin, c, k, nl)}
+            else:
+                kp, shown = ks.k1_plan(B, L, cin, c, k, nl, n_sm), ('R', 'nc', 'tpw', 'N')
+                windowed = {'windowed_rows': ks.k1_max_rows(cin, c, k, nl)}
+            plan = {'plan': {f: getattr(kp, f) for f in shown + ('ngroups', 'stages', 'smem')}
+                    if kp else windowed}
             emit('kernel_check', kernel=kname, case=name, shape=[B, L, cin, c, k, nl],
                  max_abs_err=err, max_rel_err=rel, tol=tol, **plan)
             check(rel < tol, f'{kname} {name}: relative error {rel} >= {tol}')
@@ -2459,16 +2459,19 @@ def read_counts():
 
 
 def time_kernel(wrapper, plain, dtype, shape, layers, gen, dev):
-    """CUDA-event ms of the kernel, its plain version and five cuDNN conv1d +
-    ELU in the kernel's type (TF32 off), with the bound of the same work: for
-    bf16 its FLOP at the bf16 tensor-core peak; for f32 three TF32 products
-    a product (K1's 3xTF32) at the TF32 peak, with exact f32 at the FFMA
-    peak beside it."""
+    """CUDA-event ms of the kernel (a wrapper call, which packs the weights,
+    and its launch alone on weights packed once), its plain version and five
+    cuDNN conv1d + ELU in the kernel's type (TF32 off), with the bound of
+    the same work: for bf16 its FLOP at the bf16 tensor-core peak; for f32
+    three TF32 products a product (K1's 3xTF32) at the TF32 peak, with exact
+    f32 at the FFMA peak beside it."""
+    from turboae_tpu_torch.kernels import conv_stack as ks
     from turboae_tpu_torch.ops.conv1d import stack_init
     B, L, cin, c, k, nl = shape
     layers = layers or stack_init(gen, nl, cin, c, k, dev)
     x = torch.randn((B, L, cin), generator=gen).to(dev)
     ms = cuda_ms(lambda: wrapper(layers, x), iters=20)
+    alone_ms = cuda_ms(ks.launch_alone(wrapper, layers, x), iters=20)
     plain_ms = cuda_ms(lambda: plain(layers, x), iters=10)
     # yardstick only, never called by the port
     xl = x.to(dtype).transpose(1, 2).contiguous()
@@ -2496,7 +2499,8 @@ def time_kernel(wrapper, plain, dtype, shape, layers, gen, dev):
         extra = {'ffma_bound_ms': flops / peaks['float32'] * 1e3}
     compute_ms = products / peak * 1e3
     memory_ms = nbytes / peaks['bytes_per_s'] * 1e3
-    return {'shape': list(shape), 'ms': ms, 'plain_ms': plain_ms, 'library_ms': library_ms,
+    return {'shape': list(shape), 'ms': ms, 'alone_ms': alone_ms, 'plain_ms': plain_ms,
+            'library_ms': library_ms,
             'flops': flops, 'tensor_core_flops': products, 'bytes': nbytes, 'peak_flops': peak,
             'compute_bound_ms': compute_ms, **extra, 'memory_bound_ms': memory_ms,
             'bound_ms': max(compute_ms, memory_ms),

@@ -64,9 +64,12 @@ def test_k1_variants_apply_to_the_source():
     from turboae_tpu_torch.cli import k1_variants
     src = k1_variants.SOURCE.read_text()
     texts = k1_variants.variant_sources(src)
-    assert set(texts) == {'regs168', 'no_fold', 'cvt_rna', 'presplit', 'unroll2'}
-    assert len({src, *texts.values()}) == 6
-    assert 'cvt.rna.tf32.f32 %0' in texts['cvt_rna'] and 'cvt.rna.tf32.f32 %0' not in src
+    assert set(texts) == {'no_prefetch', 'fold_step', 'no_fold', 'wg4_no_fold'}
+    assert len({src, *texts.values()}) == 5
+    assert 'PREFETCH = false;' in texts['no_prefetch'] and 'PREFETCH = true;' in src
+    for name in ('no_fold', 'wg4_no_fold'):
+        assert '// the fold' not in texts[name] and '// the fold' in src
+    assert 'launch<104, 4, 1>' in texts['wg4_no_fold'] and 'launch<104, 2, 2>' in src
 
 
 def test_k2_variants_apply_to_the_source():
@@ -103,14 +106,25 @@ def test_k2_plan_variants():
 
 
 def test_k1_variants_tf32_planes():
-    """The presplit variant's weight planes: TF32 big and small parts, low 13
-    bits zero, whose sum is the weight to 2^-22 relative."""
+    """The planes every K1 build launches on (the packer's `tf32_split`):
+    TF32 big and small parts, low 13 bits zero, whose sum is the weight to
+    2^-22 relative; and the plans the variants run with at the bench's
+    shape: the shipped two rows on two warpgroups of two tiles against four
+    of one (wg4_no_fold) and one row a block (r1), rings of 2 and 3 stages,
+    the shipped plan otherwise."""
     import torch
     from turboae_tpu_torch.cli import k1_variants
+    from turboae_tpu_torch.kernels import conv_stack as ks
     w = torch.from_numpy(np.random.RandomState(0).standard_normal((2, 16, 40)).astype(np.float32))
-    planes = k1_variants.tf32_planes(w)
-    assert planes.shape == (2, 32, 40)
-    assert not (planes.view(torch.int32) & 0x1FFF).any()
-    big, small = planes[:, :16], planes[:, 16:]
+    big, small = ks.tf32_split(w)
+    assert big.shape == small.shape == (2, 16, 40)
+    assert not (big.view(torch.int32) & 0x1FFF).any() and not (small.view(torch.int32) & 0x1FFF).any()
     assert ((big + small - w).abs() <= 2.0 ** -22 * w.abs()).all()
     assert (big != w).any()
+    plan = ks.k1_plan(500, 100, 7, 100, 5, 5, n_sm=132)
+    assert (plan.R, plan.N, plan.nc, plan.tpw, plan.stages) == (2, 104, 2, 2, 4)
+    wg4, r1 = (k1_variants.variant_plan(n, plan) for n in ('wg4_no_fold', 'r1'))
+    assert (wg4.R, wg4.nc, wg4.tpw) == (2, 4, 1) and wg4.smem == plan.smem
+    assert (r1.R, r1.nc, r1.tpw) == (1, 2, 1) and r1.fits()
+    assert [k1_variants.variant_plan(f'stages{n}', plan).stages for n in (2, 3)] == [2, 3]
+    assert k1_variants.variant_plan('no_prefetch', plan) is plan

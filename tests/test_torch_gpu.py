@@ -124,11 +124,13 @@ def test_k2_on_halo_windows_equals_the_whole_block(cuda_device, ranks):
     (500, 100, 7, 100, 5, 5), (37, 100, 7, 100, 5, 1), (64, 100, 7, 100, 1, 3),
     (333, 100, 7, 100, 5, 5), (5, 23, 3, 30, 3, 2), (4, 500, 7, 100, 5, 2),
     (500, 100, 7, 25, 5, 5), (250, 100, 7, 128, 5, 5), (100, 100, 7, 256, 5, 5),
-    (334, 100, 7, 100, 5, 5)])
+    (334, 100, 7, 100, 5, 5), (64, 100, 7, 12, 3, 3)])
 def test_f32_kernel_matches_plain(cuda_device, B, L, cin, c, k, nl):
-    """K1 against its plain version; the last four cases as K2's: odd C, two
-    and three column groups of warps (C=128, 256), and B=334 with three rows
-    a block, which leaves the last block holding one."""
+    """K1 against its plain version; then as K2's: odd C (n32, two rows a
+    block on four warpgroups), n128 (C=128), two column groups of n128 (C=256, windowed to one
+    m64 tile a block), B=334 with two rows a block, which leaves the last
+    block holding one (two of its four tiles idle); and Kc = 40 at C=12,
+    K=3, whose last 32-row ring chunk holds one k8 step."""
     layers = _stack(nl, cin, c, k, cuda_device)
     x = torch.randn((B, L, cin), generator=torch.Generator().manual_seed(1)).to(cuda_device)
     before = ks.conv_stack_f32.launches

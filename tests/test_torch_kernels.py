@@ -129,11 +129,14 @@ def test_k2_wide_weights_take_column_groups():
 
 
 def test_smem_bytes_and_limit():
-    """K1 at the bench's shape: two batch rows a block, seven warps of 2 x 13
-    tiles, one f32 buffer of 229 rows of stride 100, x's buffer of 229 rows
-    of stride 12, a ring of 3 x 104 weight rows of 64 columns at stride 68,
-    and five f32 biases; three rows at B=2000 (ten warps, a ring of 32
-    columns: 64 would not fit); four rows take 13 warps. K2 at the
+    """K1 at the bench's shape: two batch rows a block in two consumer
+    warpgroups of two m64 x n104 tiles each, one f32 buffer of 261 rows of
+    stride 100, x's buffer of 261 rows of stride 12, a ring of four
+    26,624-byte chunks (a big and a small plane of 32 rows of 104 columns),
+    five f32 biases and eight mbarriers, after up to 1024 bytes that align
+    the ring; three rows (five tiles) take three warpgroups, one more than
+    one SM's registers hold at n104 with two tiles each and the partial
+    set. K2 at the
     decoder's shape: three batch rows a block in five warpgroups of one m64
     x n104 tile (308 rows of the fold), two bf16 buffers of 325 rows of
     stride 104, x's buffer of 325 rows of stride 8, a ring of four 13,312-byte
@@ -141,14 +144,14 @@ def test_smem_bytes_and_limit():
     after up to 1024 bytes that align the ring; four rows need seven
     warpgroups, two more than one SM's registers hold at n104."""
     k1 = ks.k1_plan(500, 100, 7, 100, 5, 5, n_sm=132)
-    assert (k1.R, k1.mtiles, k1.nwarps, k1.kch, k1.SK) == (2, 14, 7, 64, 68)
-    assert (k1.rows_alloc, k1.rows_alloc0) == (229, 229)
-    assert k1.smem == 4 * (229 * 100 + 229 * 12 + 3 * 104 * 68 + 5 * 104)
-    big = ks.k1_plan(2000, 100, 7, 100, 5, 5, n_sm=132)
-    assert (big.R, big.nwarps, big.kch) == (3, 10, 32)
-    assert big.smem == 4 * (325 * 112 + 3 * 104 * 36 + 520)
-    assert big.smem <= ks.SMEM_LIMIT
-    assert not ks.k1_layout(100, 7, 100, 5, 5, R=4).fits()      # 13 warps
+    assert (k1.R, k1.nc, k1.tpw, k1.N, k1.ngroups, k1.stages) == (2, 2, 2, 104, 1, 4)
+    assert (k1.rows_alloc, k1.rows_alloc0) == (261, 261)
+    assert k1.smem == (1024 + 4 * 104 * 256 + 4 * (261 * 100 + 261 * 12) + 4 * 5 * 104
+                       + 16 * 4) == 226592
+    assert k1.smem <= ks.SMEM_LIMIT
+    assert ks.k1_plan(2000, 100, 7, 100, 5, 5, n_sm=132) == k1
+    three = ks.k1_layout(100, 7, 100, 5, 5, R=3)
+    assert (three.nc, three.tpw) == (3, 2) and not three.fits()
     plan = ks.k2_plan(2000, 100, 7, 100, 5, 5, n_sm=132)
     assert (plan.R, plan.G, plan.nc, plan.N, plan.ngroups, plan.stages) == (3, 792, 5, 104, 1, 4)
     assert (plan.Kc, plan.Kc0, plan.rows_alloc, plan.rows_alloc0) == (528, 48, 325, 325)
@@ -317,73 +320,148 @@ def test_f32_wrapper_on_cpu_is_the_plain_version():
         ks.conv_stack_f32(tl, torch.from_numpy(x).to('meta'))
 
 
+def _k1_unpack(chunks, plan):
+    """K1's packed weight chunks (..., nch, ngroups, 2, N*32) read back as
+    the kernel's wgmma reads them: for k8 step ks of plane (big, small) of
+    chunk (c, g) the descriptor starts 32*ks bytes into the plane, with 1024
+    bytes between 8-row groups of N and 128 between the rows of a group;
+    value (k, n) of the step lies at that address plus 4*k, with the
+    128-byte swizzle applied (address bits 4-6 ^= bits 7-9). Returns the
+    dense (big, small) W' planes, (..., nch*32, ngroups*N) each."""
+    N, ng = plan.N, plan.ngroups
+    nch = chunks.shape[-4]
+    ks_, k, n = torch.arange(4).view(4, 1, 1), torch.arange(8).view(1, 8, 1), torch.arange(N)
+    addr = 32 * ks_ + n // 8 * 1024 + n % 8 * 128 + 4 * k          # (4, 8, N) bytes
+    addr = addr ^ ((addr >> 7) & 7) << 4
+    steps = chunks[..., addr // 4]                # (..., nch, ng, 2, 4, 8, N)
+    lead = chunks.shape[:-4]
+    d = len(lead)         # to (..., 2, nch, 4, 8, ng, N): row c*32 + 8*ks + k, column g*N + n
+    dense = steps.permute(*range(d), d + 2, d, d + 3, d + 4, d + 1, d + 5)
+    dense = dense.reshape(*lead, 2, nch * 32, ng * N)
+    return dense[..., 0, :, :], dense[..., 1, :, :]
+
+
 def test_f32_pack_weights_layout():
-    """K1 reads W'[c, k*S + ci] == W[c, ci, k] (S0 for layer 0): n-major, the
-    contraction contiguous, zero where ci or c >= C and in the columns from
-    K*S up to Kc, over the NW = 104 rows that one group of 13 n8 tiles
-    covers; biases f32, zero beyond C."""
+    """K1 reads W'[k*S + ci, c] == W[c, ci, k] (S0 for layer 0) through
+    wgmma's descriptor over 128-byte-swizzled, K-major chunks of 32 rows and
+    N = 32 columns (C = 10), each a TF32 big plane then a small one: zero
+    where ci or c >= C and in the rows from K*S up to the chunks' end; value
+    (k, n) of a plane at (n//8)*256 + (n%8)*32 + ((k//4) ^ (n%8))*4 + k%4;
+    biases f32, zero beyond C."""
     _, tl, _ = _mk(2, 3, c=10)
     plan = ks.k1_layout(20, 7, 10, 3, 2, R=2)
-    assert (plan.S, plan.S0, plan.NW, plan.Kc, plan.Kc0) == (12, 12, 104, 40, 40)
+    assert (plan.S, plan.S0, plan.N, plan.ngroups, plan.Kc, plan.Kc0) == (12, 12, 32, 1, 40, 40)
     w0, b0, wr, br = ks.pack_weights(tl, plan)
-    assert w0.shape == (104, 40) and b0.shape == (104,)
-    assert wr.shape == (1, 104, 40) and br.shape == (1, 104)
+    assert w0.shape == (2, 1, 2, 32 * 32) and b0.shape == (32,)
+    assert wr.shape == (1, 2, 1, 2, 32 * 32) and br.shape == (1, 32)
     assert w0.dtype == wr.dtype == b0.dtype == br.dtype == torch.float32
+    big, small = ks.tf32_split(tl[1]['w'])
+    row = 1 * 12 + 9                         # tap 1, channel 9: chunk 0, row 21
+    for c in range(10):
+        at = c // 8 * 256 + c % 8 * 32 + ((row // 4) ^ (c % 8)) * 4 + row % 4
+        assert wr[0, 0, 0, 0, at] == big[c, 9, 1] and wr[0, 0, 0, 1, at] == small[c, 9, 1]
+    (d0, s0), (dr, sr) = _k1_unpack(w0, plan), _k1_unpack(wr, plan)
+    assert d0.shape == (64, 32) and dr.shape == (1, 64, 32)
     for k in range(3):
         for ci in range(7):
-            assert torch.equal(w0[:10, k * 12 + ci], tl[0]['w'][:, ci, k])
-    assert torch.equal(wr[0, :10, 1 * 12 + 9], tl[1]['w'][:, 9, 1])
+            assert torch.equal((d0 + s0)[k * 12 + ci, :10],
+                               sum(ks.tf32_split(tl[0]['w'][:, ci, k])))
     assert torch.equal(b0[:10], tl[0]['b']) and torch.equal(br[0, :10], tl[1]['b'])
-    pad0 = torch.tensor([k * 12 + ci for k in range(3) for ci in range(7, 12)] + [36, 37, 38, 39])
-    padr = torch.tensor([k * 12 + ci for k in range(3) for ci in range(10, 12)] + [36, 37, 38, 39])
-    assert not w0[:, pad0].any() and not wr[:, :, padr].any()
-    assert not w0[10:].any() and not wr[:, 10:].any()
+    pad0 = torch.tensor([k * 12 + ci for k in range(3) for ci in range(7, 12)]
+                        + list(range(36, 64)))
+    padr = torch.tensor([k * 12 + ci for k in range(3) for ci in range(10, 12)]
+                        + list(range(36, 64)))
+    for plane in (d0, s0):
+        assert not plane[pad0].any() and not plane[:, 10:].any()
+    for plane in (dr, sr):
+        assert not plane[:, padr].any() and not plane[:, :, 10:].any()
     assert not b0[10:].any() and not br[:, 10:].any()
+
+
+@pytest.mark.parametrize('c,k,num_layer', [(10, 3, 2), (100, 5, 5), (256, 5, 2), (25, 1, 3)])
+def test_k1_planes_rebuild_the_weights(c, k, num_layer):
+    """K1's two packed planes, read back by the descriptor's arithmetic:
+    big + small gives every weight of W' to 2^-22 relative, both planes are
+    TF32 (low 13 bits zero), and every padded position (ci >= C, c >= C,
+    rows from K*S to the chunks' end) is exactly 0 in both; over two column
+    groups at C = 256."""
+    _, tl, _ = _mk(num_layer, k, c=c)
+    plan = ks.k1_layout(20, 7, c, k, num_layer, R=1)
+    w0, _, wr, _ = ks.pack_weights(tl, plan)
+    for packed, layers, cin, S in ((w0, tl[:1], 7, plan.S0), (wr, tl[1:], c, plan.S)):
+        assert not (packed.view(torch.int32) & 0x1FFF).any()
+        big, small = _k1_unpack(packed.reshape(-1, *packed.shape[-4:]), plan)
+        dense = torch.zeros(big.shape)
+        for i, layer in enumerate(layers):
+            taps = dense[i, :k * S].view(k, S, -1)
+            taps[:, :cin, :c] = layer['w'].permute(2, 1, 0)
+        assert ((big + small - dense).abs() <= 2.0 ** -22 * dense.abs()).all()
+        pad = dense == 0
+        pad[:, :k * S].view(len(layers), k, S, -1)[:, :, :cin, :c] = False
+        assert pad.sum() > 0 and not big[pad].any() and not small[pad].any()
 
 
 def test_k1_plan_at_the_bench_shape():
     """K1 at the conv-stack bench's shape (B=500, L=100, Cin=7, C=100, K=5,
     5 layers) on 132 SMs: strides 100 and 12 (odd multiples of 4), Kc 504
-    and 64 (multiples of 8), one column group of 13 n8 tiles, two rows a
-    block (250 blocks, 2 rounds; three rows also take 2 rounds), within the
-    warp cap and the shared memory of a block."""
+    and 64 (multiples of 8: the last 32-row chunk of a hidden layer holds
+    three k8 steps), wgmma n104 in one column group, two rows a block (four
+    m64 tiles, two on each of two consumer warpgroups; 250 blocks, 2
+    rounds), a ring of four stages, within the shared memory of a block."""
     plan = ks.k1_plan(500, 100, 7, 100, 5, 5, n_sm=132)
     assert (plan.S, plan.S0, plan.Kc, plan.Kc0) == (100, 12, 504, 64)
-    assert (plan.NW, plan.ngroups, plan.R, plan.P) == (104, 1, 2, 104)
-    assert plan.nwarps <= ks.K1_MAX_WARPS and plan.smem <= 232448 == ks.SMEM_LIMIT
+    assert (plan.N, plan.ngroups, plan.R, plan.P, plan.nc, plan.tpw) == (104, 1, 2, 104, 2, 2)
+    assert plan.Kc % ks.K1_CHUNK == 24 and plan.stages == 4
+    assert plan.fits() and plan.smem <= 232448 == ks.SMEM_LIMIT
     assert len(plan.as_ints()) == 18
-    # on 132 SMs: the fewest rows that keep the fewest rounds of blocks
-    assert [ks.k1_plan(B, 100, 7, 100, 5, 5, n_sm=132).R
-            for B in (2000, 500, 334, 64)] == [3, 2, 3, 1]
+    # on 132 SMs: the fewest rows that keep the fewest rounds of blocks;
+    # at C=100 two rows a block (one where that keeps one round), one tile a
+    # warpgroup where the warpgroups suffice; at C=25 (n32) four warpgroups of
+    # one tile each
+    assert [(p.R, p.nc, p.tpw) for p in (ks.k1_plan(B, 100, 7, 100, 5, 5, n_sm=132)
+                                         for B in (2000, 500, 334, 64))] == \
+        [(2, 2, 2), (2, 2, 2), (2, 2, 2), (1, 2, 1)]
+    assert [(p.R, p.N, p.nc, p.tpw) for p in (ks.k1_plan(B, 100, 7, 25, 5, 5, n_sm=132)
+                                               for B in (500, 64))] == [(2, 32, 4, 1),
+                                                                        (1, 32, 2, 1)]
     assert [ks.k1_stride(c) for c in (3, 7, 25, 30, 100, 128, 256)] == [4, 12, 28, 36, 100, 132, 260]
-    # C=128 and 256: two and three column groups; the ring's chunk shrinks
-    wide = [ks.k1_plan(250, 100, 7, c, 5, 5, n_sm=132) for c in (128, 256)]
-    assert [(p.ngroups, p.NW, p.kch, p.R, p.nwarps) for p in wide] == [(2, 208, 32, 1, 8),
-                                                                        (3, 312, 16, 1, 12)]
-    assert all(p.smem <= ks.SMEM_LIMIT for p in wide)
-
-
-def _tf32(t):
-    """t rounded to TF32 on its int32 view: to nearest, ties away from zero,
-    as cvt.rna.tf32.f32; the low 13 bits come out zero."""
-    return ((t.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+    assert [ks.k1_width(c) for c in (7, 25, 30, 64, 100, 104, 128, 200, 256)] == [
+        (32, 1), (32, 1), (32, 1), (104, 1), (104, 1), (104, 1), (128, 1), (104, 2), (128, 2)]
+    # C=128: n128, one tile a warpgroup, one row a block; C=256: two column
+    # groups of n128 take both warpgroups, so one m64 tile a block and L=100
+    # is windowed (rows of 64); the ring's stages stay a multiple of the groups
+    wide = ks.k1_plan(250, 100, 7, 128, 5, 5, n_sm=132)
+    assert (wide.N, wide.ngroups, wide.R, wide.nc, wide.tpw, wide.stages) == (128, 1, 1, 2, 1, 4)
+    assert ks.k1_plan(100, 100, 7, 256, 5, 5, n_sm=132) is None
+    assert ks.k1_max_rows(7, 256, 5, 5) == 64
+    two = ks.k1_plan(100, 64, 7, 256, 5, 5, n_sm=132)
+    assert (two.N, two.ngroups, two.nc, two.stages) == (128, 2, 2, 4) and two.fits()
+    assert ks.k1_layout(100, 7, 200, 5, 5, 1).stages % 2 == 0
+    assert ks.k1_max_rows(7, 300, 5, 5) == 0      # three groups: refused (see window_plan)
 
 
 def _k1_model(layers, x, plan):
     """K1's arithmetic in K1's own layout, on the CPU: per block, the R batch
     rows in one flat, zeroed, halo-padded buffer of stride S0 (then S); each
-    layer the strided A view (row m = [m*S, m*S + Kc)) times the n-major W'
-    (its transpose), both split into TF32 big and small parts and summed in
-    f32 as small*big + big*small + big*big; bias and ELU; then the valid
-    rows' C channels written back in place, shifted by K//2; the last
-    layer's read from the product's rows."""
+    layer the strided A view (row m = [m*S, m*S + Kc)) over the m64 tiles
+    that hold a row of the block, split into TF32 big and small parts
+    (`ks.tf32_split`), times the packed big and small planes as wgmma reads
+    them (`_k1_unpack`), summed in f32 as small*big + big*small + big*big;
+    bias and ELU; then the valid rows' C channels written back in place,
+    shifted by K//2; the output read back from the buffer's valid rows."""
     w0, b0, wr, br = ks.pack_weights(layers, plan)
+    planes = [_k1_unpack(w0, plan)]
+    if wr is not None:
+        big, small = _k1_unpack(wr, plan)
+        planes += list(zip(big, small))
     B, L, Cin = x.shape
     R, P, pad, S, C = plan.R, plan.P, plan.K // 2, plan.S, plan.C
-    m = torch.arange(16 * plan.mtiles)
     outs = []
     for r0 in range(0, B, R):
         Rv = min(R, B - r0)
+        tiles = -(-(Rv * P - (plan.K - 1)) // 64)
+        assert tiles <= plan.nc // plan.ngroups * plan.tpw
+        m = torch.arange(64 * tiles)
         valid = (m // P < Rv) & (m % P < L)
         src = torch.zeros(plan.rows_alloc0 * plan.S0)
         for r in range(Rv):
@@ -391,15 +469,14 @@ def _k1_model(layers, x, plan):
         buf = torch.zeros(plan.rows_alloc * S)
         for i in range(plan.num_layer):
             Ss, Kc = (plan.S0, plan.Kc0) if i == 0 else (S, plan.Kc)
-            W, b = (w0, b0) if i == 0 else (wr[i - 1], br[i - 1])
-            A = torch.as_strided(src, (16 * plan.mtiles, Kc), (Ss, 1))
-            a_big, w_big = _tf32(A), _tf32(W.t())
-            a_small, w_small = _tf32(A - a_big), _tf32(W.t() - w_big)
-            v = a_small @ w_big + a_big @ w_small + a_big @ w_big
+            (w_big, w_small), b = planes[i], (b0 if i == 0 else br[i - 1])
+            A = torch.as_strided(src, (64 * tiles, Kc), (Ss, 1))
+            a_big, a_small = ks.tf32_split(A)
+            v = a_small @ w_big[:Kc] + a_big @ w_small[:Kc] + a_big @ w_big[:Kc]
             y = ks._elu_exp(v + b)[:, :C]
             buf.view(-1, S)[m[valid] + pad, :C] = y[valid]
             src = buf
-        outs += [y[r * P:r * P + L] for r in range(Rv)]
+        outs += [buf.view(-1, S)[r * P + pad:r * P + pad + L, :C] for r in range(Rv)]
     return torch.stack(outs)
 
 
@@ -490,17 +567,17 @@ def test_windowed_stack_equals_the_whole_stack(num_layer, k):
 
 def test_long_block_window_at_the_k1000_shape():
     """At L=1000, C=100, K=5 and 5 layers no block holds a whole row, so the
-    wrappers window: K1 (the rows 12 warps of 32 rows cover) into 3 windows
-    of 354, K2 (the rows five m64 tiles cover) into 4 windows of 270, one
-    row a block; the time-sharded halo windows of up to 510 positions into
-    2 of 275; the main path's L=100 fits in one."""
+    wrappers window: K1 (the rows four m64 tiles cover) into 5 windows of
+    220, K2 (the rows five m64 tiles cover) into 4 windows of 270, one row
+    a block; the time-sharded halo windows of up to 510 positions into 2 of
+    275; the main path's L=100 fits in one."""
     assert ks.k1_plan(16, 100, 7, 100, 5, 5, n_sm=132) is not None
     assert ks.k1_plan(16, 1000, 7, 100, 5, 5, n_sm=132) is None
-    assert ks.k1_max_rows(7, 100, 5, 5) == 384
+    assert ks.k1_max_rows(7, 100, 5, 5) == 256
     idx_in, _, r = ks.window_plan(1000, ks.k1_max_rows(7, 100, 5, 5), 10)
-    assert (idx_in.numel() // r, r) == (3, 354)
-    plan = ks.k1_plan(16 * 3, r, 7, 100, 5, 5, n_sm=132)
-    assert plan.R == 1 and plan.smem <= ks.SMEM_LIMIT
+    assert (idx_in.numel() // r, r) == (5, 220)
+    plan = ks.k1_plan(16 * 5, r, 7, 100, 5, 5, n_sm=132)
+    assert (plan.R, plan.nc, plan.tpw) == (1, 2, 2) and plan.fits()
     assert ks.k2_plan(16, 100, 7, 100, 5, 5, n_sm=132) is not None
     assert ks.k2_plan(16, 1000, 7, 100, 5, 5, n_sm=132) is None
     assert ks.k2_max_rows(7, 100, 5, 5) == 320

@@ -36,7 +36,6 @@ import ctypes
 import dataclasses
 import json
 import os
-import subprocess
 from typing import Dict, Optional
 
 import torch
@@ -156,43 +155,12 @@ def variant_plan(name: str, plan: ks.K2Plan, B: int) -> Optional[ks.K2Plan]:
 
 def _build(texts: Dict[str, str]):
     """name -> (launch function, ptxas report), all built in parallel."""
-    out_dir = build.BUILD_DIR / 'k2_variants'
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, text in texts.items():
-        (out_dir / f'{name}.cu').write_text(text)
-        procs[name] = subprocess.Popen(
-            [build.find_nvcc(), *build.NVCC_FLAGS, '-o', str(out_dir / f'{name}.so'),
-             str(out_dir / f'{name}.cu')], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)
     libs = {}
-    for name, proc in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f'nvcc failed on variant {name}:\n{log}')
-        fn = ctypes.CDLL(str(out_dir / f'{name}.so')).conv_stack_bf16_launch
+    for name, lib in build.build_texts(texts, build.BUILD_DIR / 'k2_variants').items():
+        fn = ctypes.CDLL(str(lib.path)).conv_stack_bf16_launch
         fn.argtypes, fn.restype = ks._ARGTYPES, ctypes.c_int
-        libs[name] = (fn, build.ptxas_report(log))
+        libs[name] = (fn, build.ptxas_report(lib.log))
     return libs
-
-
-def _launcher(fn, layers, x, plan):
-    """Packs the weights once; returns call(), which launches fn on them."""
-    w0, b0, wr, br = ks.pack_weights_bf16(layers, plan)
-    xc = x.to(torch.bfloat16).contiguous()
-    out = torch.empty((x.shape[0], x.shape[1], plan.C), dtype=torch.bfloat16, device=x.device)
-    ints = plan.as_ints()
-    args = (xc.data_ptr(), w0.data_ptr(), b0.data_ptr(), ks._ptr(wr), ks._ptr(br),
-            out.data_ptr(), x.shape[0], (ctypes.c_int * len(ints))(*ints), len(ints),
-            torch.cuda.current_stream(x.device).cuda_stream)
-
-    def call():
-        rc = fn(*args)
-        if rc != 0:
-            raise RuntimeError(f'launch failed: CUDA error {rc}')
-        return out
-    call.tensors = (w0, b0, wr, br, xc)     # alive while call is
-    return call
 
 
 def main(argv=None):
@@ -228,13 +196,13 @@ def main(argv=None):
                               'pack_ms': _ms(lambda: ks.pack_weights_bf16(layers, plan))}),
                   flush=True)
             for label, name, pl in runs:
-                call = _launcher(libs[name][0], layers, x, pl)
+                call = ks._prepared(ks.conv_stack_bf16, pl, layers, x, fn=libs[name][0])
                 ms = _ms(call)
                 err = ((call().float() - ref).abs().max() / ref.abs().max()).item()
                 print(json.dumps({'round': rnd, 'B': B, 'L': L, 'kernel': label, 'R': pl.R,
                                   'G': pl.G, 'stages': pl.stages, 'ms': ms,
                                   'max_rel_err': err}), flush=True)
-            call = _launcher(libs['shipped'][0], layers[:1], x, one)
+            call = ks._prepared(ks.conv_stack_bf16, one, layers[:1], x, fn=libs['shipped'][0])
             print(json.dumps({'round': rnd, 'B': B, 'L': L, 'kernel': 'shipped_one_layer',
                               'R': one.R, 'G': one.G, 'ms': _ms(call)}), flush=True)
 

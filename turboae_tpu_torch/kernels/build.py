@@ -93,6 +93,28 @@ def build(names: List[str]) -> Dict[str, Built]:
     return {name: _BUILT[name] for name in names}
 
 
+def build_texts(texts: Dict[str, str], out_dir: Path) -> Dict[str, Built]:
+    """Builds each named source text (a variant of a kernel's source) into
+    out_dir/<name>.so, all in parallel, every time (no cache).
+
+    Raises RuntimeError with nvcc's output when a build fails."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, text in texts.items():
+        (out_dir / f'{name}.cu').write_text(text)
+        procs[name] = (subprocess.Popen(
+            [find_nvcc(), *NVCC_FLAGS, '-o', str(out_dir / f'{name}.so'),
+             str(out_dir / f'{name}.cu')], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True), time.perf_counter())
+    built = {}
+    for name, (proc, t0) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f'nvcc failed on variant {name}:\n{log}')
+        built[name] = Built(out_dir / f'{name}.so', time.perf_counter() - t0, log)
+    return built
+
+
 def load(name: str) -> ctypes.CDLL:
     """The named library, built first if needed."""
     if name not in _LOADED:

@@ -4,11 +4,13 @@
     _fused_forward` (Pallas body `_stack_kernel`, exposed as
     `fused_stack_apply`). CUDA source `csrc/conv_stack_f32.cu`. Every layer is
     ELU(sum_k h[l + k - K//2] @ W[k] + b) with zero padding, f32 in and out,
-    f32 bias and ELU. It runs on the tensor cores by 3xTF32 (mma.sync m16n8k8:
-    each operand split into two TF32 parts, three products per product, ~1e-6
-    from exact f32) over a block of several batch rows laid out as one flat
-    buffer (`K1Plan`, `k1_plan`), with its weights packed n-major by
-    `pack_weights`.
+    f32 bias and ELU. It runs on Hopper's warpgroup tensor cores by 3xTF32
+    (wgmma m64nNk8 TF32: each operand split into two TF32 parts, three
+    products per product, ~1e-6 from exact f32; A from registers, B from a
+    ring of weight chunks that a producer warp fills by bulk copies on
+    mbarriers) over a block of batch rows laid out as one flat buffer
+    (`K1Plan`, `k1_plan`), with its weights packed by `pack_weights` as
+    TF32 big and small planes in wgmma's swizzled layout.
   - K2, `conv_stack_bf16`, replaces `_fused_forward_im2col` (Pallas body
     `_stack_kernel_im2col`, exposed as `fused_stack_apply_bf16`). CUDA source
     `csrc/conv_stack_bf16.cu`. x is rounded to bf16; bf16 operands, f32
@@ -18,12 +20,15 @@
     on mbarriers) over a block of several batch rows laid out as one flat
     buffer (`K2Plan`, `k2_plan`), with its weights packed in wgmma's
     swizzled layout by `pack_weights_bf16`.
+Both packers are one gather (`_swizzle_gather`) at the kernel's element size.
 
 `build.py` compiles each source with nvcc for sm_90a; it is called through
 ctypes. For each kernel:
   - `conv_stack_<t>(layers, x)` is the wrapper. On a CUDA tensor it launches
     the kernel or raises; on a CPU tensor it runs the plain version.
     `conv_stack_<t>.launches` counts the kernel's launches.
+  - `launch_alone(conv_stack_<t>, layers, x)` plans and packs once and
+    returns the launch alone, for timing the kernel without the packing.
   - `conv_stack_<t>_plain(layers, x)` is the plain PyTorch version: K shifted
     matmuls per layer. K1's is exact f32. K2's multiplies bf16-rounded
     operands in f32 and rounds to bf16 after every layer; it never uses a
@@ -200,10 +205,16 @@ def k2_max_rows(Cin: int, C: int, K: int, num_layer: int) -> int:
 
 
 # ---------------------------------------------------------------- K1's layout
-K1_WM = 2            # m16 tiles per warp        (csrc/conv_stack_f32.cu WM)
-K1_WN = 13           # n8 tiles per warp         (WN)
-K1_MAX_WARPS = 12    # warps per block; bounds the registers (MAX_WARPS)
-K1_STAGES = 3        # stages of the weight ring (STAGES)
+# wgmma width N -> (the most consumer warpgroups a block holds, the most m64
+# tiles each runs): a warpgroup holds an m64 x N tile of f32 accumulators
+# for each of its tiles and one partial set (N/2 registers a thread each)
+# and a chunk's split A fragments, beside the producer warpgroup within one
+# SM's register file (csrc/conv_stack_f32.cu `conv_stack_f32_launch`,
+# `consumer_regs`). Wider C takes column groups of at most 128, each on its
+# own warpgroups.
+K1_WIDTHS = {32: (4, 1), 104: (2, 2), 128: (2, 1)}
+K1_STAGES = (8, 6, 4, 3, 2)   # stages of the weight ring, the most that fit first
+K1_CHUNK = 32        # contraction rows of a weight chunk: one 128-byte swizzle atom (CHUNK_K)
 
 
 def k1_stride(c: int) -> int:
@@ -214,17 +225,28 @@ def k1_stride(c: int) -> int:
     return s + 4 if (s // 4) % 2 == 0 else s
 
 
+def k1_width(c: int):
+    """(N, ngroups): the wgmma width and the column groups that cover c
+    output channels; N is the narrowest of K1_WIDTHS that holds c (or
+    c / ngroups, for c above 128)."""
+    c8 = _cdiv(c, 8) * 8
+    ngroups = _cdiv(c8, max(K1_WIDTHS))
+    per = _cdiv(_cdiv(c8, ngroups), 8) * 8
+    return min(n for n in K1_WIDTHS if n >= per), ngroups
+
+
 @dataclass(frozen=True)
 class K1Plan:
-    """One thread block's layout in K1 (struct Plan in conv_stack_f32.cu,
-    field for field). K2's flat layout in f32: R batch rows of P = L+K-1
-    rows each lie one after another in one buffer of row stride S (S0 for
-    x); output row m reads the span [m*S, m*S + Kc) of it, so a layer is one
-    (M, Kc) x (Kc, NW) product with M = R*P - (K-1), padded to `mtiles` m16
-    tiles (even). Warps: mtiles/2 row groups x `ngroups` column groups of 13
-    n8 tiles, which cover the C output channels; the weights are n-major,
-    NW = 104 * ngroups rows of Kc (Kc0) values. They stream through a ring
-    of three chunks of kch columns, each row kept at stride SK = kch + 4."""
+    """K1's launch (struct Plan in conv_stack_f32.cu, field for field).
+
+    K2's flat layout in f32: a block holds R batch rows of P = L+K-1 rows
+    each (K//2 zero halo rows on each side), one after another in one buffer
+    of row stride S (S0 for x); output row m reads the span [m*S, m*S + Kc)
+    of it, so a layer is one (M, Kc) x (Kc, ngroups*N) product with M =
+    R*P - (K-1). `nc` consumer warpgroups: for each column group, one per
+    `tpw` m64 tiles of M. ceil(B / R) blocks. The weights stream in chunks of 32
+    contraction rows and N columns, two TF32 planes each, through a ring of
+    `stages` stages (a multiple of ngroups)."""
     L: int
     Cin: int
     C: int
@@ -234,30 +256,29 @@ class K1Plan:
     P: int
     S: int
     S0: int
-    NW: int
-    SK: int
+    N: int
+    ngroups: int
+    nc: int
+    tpw: int
+    stages: int
     Kc: int
     Kc0: int
-    mtiles: int
-    ngroups: int
-    kch: int
     rows_alloc: int
     rows_alloc0: int
 
     @property
-    def nwarps(self) -> int:
-        return self.mtiles // K1_WM * self.ngroups
-
-    @property
     def smem(self) -> int:
-        """Bytes of dynamic shared memory, all f32: one activation buffer
-        (overwritten in place), x's buffer, the weight ring and every
-        layer's bias."""
-        return 4 * (self.rows_alloc * self.S + self.rows_alloc0 * self.S0
-                    + K1_STAGES * self.NW * self.SK + self.num_layer * self.NW)
+        """Bytes of dynamic shared memory: the ring's 1024-byte alignment,
+        the ring (two planes a stage), one activation buffer (overwritten in
+        place) and x's buffer, every layer's bias, all f32, and the ring's
+        mbarriers."""
+        return (1024 + self.stages * self.N * 256
+                + 4 * (self.rows_alloc * self.S + self.rows_alloc0 * self.S0)
+                + 4 * self.num_layer * self.ngroups * self.N + 16 * self.stages)
 
     def fits(self) -> bool:
-        return self.nwarps <= K1_MAX_WARPS and self.smem <= SMEM_LIMIT
+        ncmax, tpw = K1_WIDTHS[self.N]
+        return self.nc <= ncmax and self.tpw <= tpw and self.smem <= SMEM_LIMIT
 
     def as_ints(self):
         return [getattr(self, f.name) for f in fields(self)]
@@ -267,20 +288,18 @@ def k1_layout(L: int, Cin: int, C: int, K: int, num_layer: int, R: int) -> K1Pla
     """K1's block layout for R batch rows of length L (it may not fit)."""
     S, S0, P = k1_stride(C), k1_stride(Cin), L + K - 1
     Kc, Kc0 = _cdiv(K * S, 8) * 8, _cdiv(K * S0, 8) * 8
-    mtiles = _cdiv(R * P - (K - 1), 16 * K1_WM) * K1_WM
-    ngroups = _cdiv(_cdiv(C, 8), K1_WN)
-    NW = ngroups * K1_WN * 8
-    # the last A row starts at (16*mtiles - 1)*S and spans Kc values
-    rows_alloc = 16 * mtiles - 1 + _cdiv(Kc, S)
-    rows_alloc0 = 16 * mtiles - 1 + _cdiv(Kc0, S0)
-    # the longest weight chunk whose ring fits beside the buffers and biases:
-    # fewer barriers (at the bench's shape 64 columns took 2-5 % less time than
-    # 32 on an NVIDIA H100 80GB HBM3 at 700.00 W, cli/k1_variants.py)
-    fixed = 4 * (rows_alloc * S + rows_alloc0 * S0 + num_layer * NW)
-    kch = next((k for k in (64, 32, 16)
-                if fixed + 4 * K1_STAGES * NW * (k + 4) <= SMEM_LIMIT), 8)
-    return K1Plan(L, Cin, C, K, num_layer, R, P, S, S0, NW, kch + 4, Kc, Kc0, mtiles,
-                  ngroups, kch, rows_alloc, rows_alloc0)
+    N, ngroups = k1_width(C)
+    mtiles = _cdiv(R * P - (K - 1), 64)
+    # one tile a warpgroup where the warpgroups suffice, else several
+    ncmax, most = K1_WIDTHS[N]
+    tpw = next((t for t in range(1, most + 1) if _cdiv(mtiles, t) * ngroups <= ncmax), most)
+    # the last A row starts at (64*mtiles - 1)*S and spans Kc values
+    rows_alloc = 64 * mtiles - 1 + _cdiv(Kc, S)
+    rows_alloc0 = 64 * mtiles - 1 + _cdiv(Kc0, S0)
+    plans = [K1Plan(L, Cin, C, K, num_layer, R, P, S, S0, N, ngroups,
+                    _cdiv(mtiles, tpw) * ngroups, tpw, stages, Kc, Kc0, rows_alloc, rows_alloc0)
+             for stages in [s for s in K1_STAGES if s % ngroups == 0] or [ngroups]]
+    return next((p for p in plans if p.smem <= SMEM_LIMIT), plans[-1])
 
 
 @functools.lru_cache(maxsize=256)
@@ -288,10 +307,11 @@ def k1_plan(B: int, L: int, Cin: int, C: int, K: int, num_layer: int,
             n_sm: int) -> Optional[K1Plan]:
     """K1's layout for a call on a card of `n_sm` SMs, or None when not even
     one row of length L fits in a block: then the wrapper windows the time
-    axis. Of the layouts that fit (at most B rows a block), those
-    that need the fewest rounds of blocks over the SMs (one block on an SM at
-    a time), and of these the one with the fewest rows. At the bench's shape
-    on 132 SMs: two rows for B=500, three for B=2000 and 334, one for B=64."""
+    axis. Of the layouts that fit (at most B rows a block), those that need
+    the fewest rounds of blocks over the SMs (one block on an SM at a time),
+    and of these the one with the fewest rows. At the bench's shape (C=100,
+    wgmma n104) two rows a block on two warpgroups of two m64 tiles each:
+    250 blocks in 2 rounds on 132 SMs."""
     plans = []
     for R in range(1, max(B, 1) + 1):
         plan = k1_layout(L, Cin, C, K, num_layer, R)
@@ -306,8 +326,9 @@ def k1_plan(B: int, L: int, Cin: int, C: int, K: int, num_layer: int,
 
 def k1_max_rows(Cin: int, C: int, K: int, num_layer: int) -> int:
     """K1's longest time axis that one block holds (one batch row); 0 if none."""
-    ngroups = _cdiv(_cdiv(C, 8), K1_WN)
-    L = 16 * K1_WM * (K1_MAX_WARPS // ngroups)   # as many rows as the warps cover
+    N, ngroups = k1_width(C)
+    ncmax, tpw = K1_WIDTHS[N]
+    L = 64 * tpw * (ncmax // ngroups)   # as many rows as the warpgroups cover
     while L > 0 and not k1_layout(L, Cin, C, K, num_layer, 1).fits():
         L -= 1
     return L
@@ -368,59 +389,87 @@ def _check_layers(layers: Layers, cin: int):
     return C, K
 
 
-def pack_weights(layers: Layers, plan: K1Plan):
-    """Weights in K1's layout, n-major: W'[c, k*S + ci] = W[c, ci, k] in f32,
-    zero where ci >= C or c >= C and in the columns from K*S up to Kc (S0 and
-    Kc0 for layer 0); biases f32, zero beyond C.
-
-    Returns (w0 (NW, Kc0), b0 (NW,), wr (nl-1, NW, Kc), br (nl-1, NW)); wr
-    and br are None for one layer."""
-    C, Cin, K = layers[0]['w'].shape
-    NW, nl, dev = plan.NW, len(layers), layers[0]['w'].device
-
-    def packed(ws, stride, cols, cin):   # n x (C, cin, K) -> (n, NW, cols)
-        out = torch.zeros((len(ws), NW, cols), dtype=torch.float32, device=dev)
-        taps = out[:, :, :K * stride].view(len(ws), NW, K, stride)
-        taps[:, :C, :, :cin] = torch.stack(ws).permute(0, 1, 3, 2)
-        return out
-
-    b = torch.zeros((nl, NW), dtype=torch.float32, device=dev)
-    b[:, :C] = torch.stack([p['b'] for p in layers])
-    w0 = packed([layers[0]['w']], plan.S0, plan.Kc0, Cin)[0]
-    if nl == 1:
-        return w0, b[0], None, None
-    wr = packed([p['w'] for p in layers[1:]], plan.S, plan.Kc, C)
-    return w0, b[0], wr, b[1:]
-
-
 @functools.lru_cache(maxsize=64)
-def _k2_gather(Cin: int, C: int, K: int, nl: int, N: int, ngroups: int, S: int, S0: int,
-               Kc: int, Kc0: int, device: str):
-    """Indices that pack a stack into K2's layout in one gather from
-    flat = cat(w_0, ..., w_{nl-1} flattened, b_0, ..., b_{nl-1}, [0]).
+def _swizzle_gather(Cin: int, C: int, K: int, nl: int, N: int, ngroups: int, S: int, S0: int,
+                    Kc: int, Kc0: int, elems: int, chunk_major: bool, device: str):
+    """Indices that pack a stack into wgmma's K-major 128-byte-swizzle layout
+    in one gather from flat = cat(w_0, ..., w_{nl-1} flattened, b_0, ...,
+    b_{nl-1}, [0]), for elements of which `elems` fill 16 bytes (8 in bf16,
+    4 in f32).
 
     Weights: layer l's W'[k*S + ci, c] = W_l[c, ci, k] (S0 for layer 0), the
     last index (a zero) where ci >= cin, c >= C or k >= K*S, cut into column
-    groups of N and chunks of 64 rows; chunk (g, c) holds W'[64c:64c+64,
-    gN:gN+N] in wgmma's K-major 128-byte-swizzle layout, value (k, n) at
-    (n//8)*512 + (n%8)*64 + ((k//8) ^ (n%8))*8 + k%8. Returns (idx_w, the
-    layers' chunks one after another; idx_b (nl, ngroups*N), zero beyond C)."""
+    groups of N and chunks of kch = 8*elems rows (one 128-byte row of the
+    atom); chunk (c, g) holds W'[kch*c:kch*(c+1), gN:gN+N], value (k, n) at
+    (n//8)*8*kch + (n%8)*kch + ((k//elems) ^ (n%8))*elems + k%elems. A
+    layer's chunks run group by group (K2) or, with chunk_major, chunk by
+    chunk (K1). Returns (idx_w, the layers' chunks one after another; idx_b
+    (nl, ngroups*N), zero beyond C)."""
+    kch = 8 * elems
     cins = [Cin] + [C] * (nl - 1)
     offs = [sum(C * ci * K for ci in cins[:i]) for i in range(nl + 1)]
     zero = offs[-1] + nl * C
-    q = torch.arange(N * K2_CHUNK)
-    n = torch.arange(ngroups).view(-1, 1, 1) * N + (q // 512 * 8 + q // 64 % 8)
-    k_in = (q // 8 % 8 ^ q // 64 % 8) * 8 + q % 8
+    q = torch.arange(N * kch)
+    n = torch.arange(ngroups).view(-1, 1, 1) * N + (q // (8 * kch) * 8 + q // kch % 8)
+    k_in = (q // elems % 8 ^ q // kch % 8) * elems + q % elems
     idx_w = []
     for i, (cin, stride, Kl) in enumerate(zip(cins, [S0] + [S] * (nl - 1),
                                               [Kc0] + [Kc] * (nl - 1))):
-        k = torch.arange(_cdiv(Kl, K2_CHUNK)).view(1, -1, 1) * K2_CHUNK + k_in
+        k = torch.arange(_cdiv(Kl, kch)).view(1, -1, 1) * kch + k_in
         tap, ci = k // stride, k % stride
-        src = offs[i] + n * cin * K + ci * K + tap
-        idx_w.append(torch.where((tap < K) & (ci < cin) & (n < C), src, zero).reshape(-1))
+        src = torch.where((tap < K) & (ci < cin) & (n < C), offs[i] + n * cin * K + ci * K + tap,
+                          zero)                                    # (ngroups, nch, N*kch)
+        idx_w.append((src.transpose(0, 1) if chunk_major else src).reshape(-1))
     nb = torch.arange(ngroups * N)
     idx_b = torch.stack([torch.where(nb < C, offs[-1] + i * C + nb, zero) for i in range(nl)])
     return torch.cat(idx_w).to(device), idx_b.to(device)
+
+
+def _gathered(layers: Layers, N: int, ngroups: int, S: int, S0: int, Kc: int, Kc0: int,
+              elems: int, chunk_major: bool):
+    """(weights, biases) of the stack gathered by `_swizzle_gather`, in the
+    weights' own type: one concatenation and two gathers, whatever the
+    depth (each op is a launch on the host's clock, and the wrappers pack at
+    every call)."""
+    C, Cin, K = layers[0]['w'].shape
+    dev = layers[0]['w'].device
+    idx_w, idx_b = _swizzle_gather(Cin, C, K, len(layers), N, ngroups, S, S0, Kc, Kc0, elems,
+                                   chunk_major, str(dev))
+    parts = [p['w'].reshape(-1) for p in layers] + [p['b'].reshape(-1) for p in layers]
+    flat = torch.cat(parts + [_zero(str(dev), parts[0].dtype)])
+    return flat[idx_w], flat[idx_b]
+
+
+def tf32_split(w: torch.Tensor):
+    """(big, small): the TF32 parts of f32 w, big = rna(w), small =
+    rna(w - big), rna TF32's round to nearest with ties away from zero by
+    the kernel's integer add and mask (low 13 bits zero); big + small is w
+    to 2^-22 relative."""
+    def rna(t):
+        return ((t.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+    big = rna(w)
+    return big, rna(w - big)
+
+
+def pack_weights(layers: Layers, plan: K1Plan):
+    """Weights in K1's layout (`_swizzle_gather` at 4-byte elements, chunk by
+    chunk): chunks of 32 rows of W' and N columns, each its TF32 big plane
+    then its small plane (`tf32_split`) in wgmma's swizzled layout; biases
+    f32, zero beyond C.
+
+    Returns (w0 (ceil(Kc0/32), ngroups, 2, N*32), b0 (ngroups*N,), wr (nl-1,
+    ceil(Kc/32), ngroups, 2, N*32), br (nl-1, ngroups*N)), views of one
+    buffer each; wr and br are None for one layer."""
+    w, b = _gathered(layers, plan.N, plan.ngroups, plan.S, plan.S0, plan.Kc, plan.Kc0, 4, True)
+    w, b = w.float().view(-1, plan.N * K1_CHUNK), b.float()
+    planes = torch.stack(tf32_split(w), dim=1)            # (chunks, 2, N*32)
+    nch0 = _cdiv(plan.Kc0, K1_CHUNK)
+    w0 = planes[:nch0 * plan.ngroups].view(nch0, plan.ngroups, 2, -1)
+    if len(layers) == 1:
+        return w0, b[0], None, None
+    wr = planes[nch0 * plan.ngroups:].view(len(layers) - 1, -1, plan.ngroups, 2,
+                                           plan.N * K1_CHUNK)
+    return w0, b[0], wr, b[1:]
 
 
 @functools.lru_cache(maxsize=16)
@@ -429,26 +478,20 @@ def _zero(device: str, dtype: torch.dtype) -> torch.Tensor:
 
 
 def pack_weights_bf16(layers: Layers, plan: K2Plan):
-    """Weights in K2's layout (`_k2_gather`): bf16 chunks of 64 rows of W'
-    and N columns in wgmma's swizzled layout; biases f32, zero beyond C.
-    One concatenation and two gathers, whatever the depth: each op is a
-    launch on the host's clock, and the wrapper packs at every call.
+    """Weights in K2's layout (`_swizzle_gather` at 2-byte elements, group by
+    group): bf16 chunks of 64 rows of W' and N columns in wgmma's swizzled
+    layout; biases f32, zero beyond C.
 
     Returns (w0 (ngroups, ceil(Kc0/64), N*64), b0 (ngroups*N,), wr (nl-1,
     ngroups, ceil(Kc/64), N*64), br (nl-1, ngroups*N)), views of one
     buffer each; wr and br are None for one layer."""
-    C, Cin, K = layers[0]['w'].shape
-    nl, dev = len(layers), layers[0]['w'].device
-    idx_w, idx_b = _k2_gather(Cin, C, K, nl, plan.N, plan.ngroups, plan.S, plan.S0, plan.Kc,
-                              plan.Kc0, str(dev))
-    parts = [p['w'].reshape(-1) for p in layers] + [p['b'].reshape(-1) for p in layers]
-    flat = torch.cat(parts + [_zero(str(dev), parts[0].dtype)])
-    w, b = flat[idx_w].to(torch.bfloat16), flat[idx_b].float()
+    w, b = _gathered(layers, plan.N, plan.ngroups, plan.S, plan.S0, plan.Kc, plan.Kc0, 8, False)
+    w, b = w.to(torch.bfloat16), b.float()
     n0 = plan.ngroups * _cdiv(plan.Kc0, K2_CHUNK) * plan.N * K2_CHUNK
     w0 = w[:n0].view(plan.ngroups, -1, plan.N * K2_CHUNK)
-    if nl == 1:
+    if len(layers) == 1:
         return w0, b[0], None, None
-    return w0, b[0], w[n0:].view(nl - 1, plan.ngroups, -1, plan.N * K2_CHUNK), b[1:]
+    return w0, b[0], w[n0:].view(len(layers) - 1, plan.ngroups, -1, plan.N * K2_CHUNK), b[1:]
 
 
 def _elu_exp(v: torch.Tensor) -> torch.Tensor:
@@ -509,66 +552,94 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch_f32(layers: Layers, x: torch.Tensor) -> torch.Tensor:
-    """Checks, plans, packs and launches K1; windows the time axis first when
-    one batch row does not fit in a block."""
-    B, L, Cin, C, K = _checked('conv_stack_f32', layers, x)
-    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    plan = k1_plan(B, L, Cin, C, K, len(layers), n_sm)
-    if plan is None:
-        return run_windowed(conv_stack_f32, layers, x, k1_max_rows(Cin, C, K, len(layers)))
-    w0, b0, wr, br = pack_weights(layers, plan)
-    xc = x.float().contiguous()
-    out = torch.empty((B, L, C), dtype=torch.float32, device=x.device)
-    if B == 0 or L == 0:
-        return out
-    for t in (w0, wr):   # cp.async copies the weights 16 bytes at a time
-        if t is not None and t.data_ptr() % 16:
-            raise ValueError('conv_stack_f32 needs 16-byte aligned weights')
-    ints = plan.as_ints()
-    _run('conv_stack_f32', x, xc.data_ptr(), w0.data_ptr(), b0.data_ptr(), _ptr(wr),
-         _ptr(br), out.data_ptr(), B, (ctypes.c_int * len(ints))(*ints), len(ints))
-    conv_stack_f32.launches += 1
-    return out
+@dataclass(frozen=True)
+class _Spec:
+    """What a wrapper's launch needs of its kernel."""
+    plan: Callable          # k<i>_plan
+    max_rows: Callable      # k<i>_max_rows
+    pack: Callable          # pack_weights[_bf16]
+    dtype: torch.dtype      # of x and out
 
 
-def _launch_bf16(layers: Layers, x: torch.Tensor) -> torch.Tensor:
-    """Checks, plans, packs and launches K2; windows the time axis first when
-    one batch row does not fit in a block."""
-    B, L, Cin, C, K = _checked('conv_stack_bf16', layers, x)
-    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    plan = k2_plan(B, L, Cin, C, K, len(layers), n_sm)
-    if plan is None:
-        return run_windowed(conv_stack_bf16, layers, x, k2_max_rows(Cin, C, K, len(layers)))
-    w0, b0, wr, br = pack_weights_bf16(layers, plan)
-    xc = x.to(torch.bfloat16).contiguous()
-    out = torch.empty((B, L, C), dtype=torch.bfloat16, device=x.device)
-    if B == 0 or L == 0:
-        return out
+def _prepared(wrapper, plan, layers: Layers, x: torch.Tensor,
+              fn: Optional[Callable] = None) -> Callable[[], torch.Tensor]:
+    """Packs the weights and x once for `plan`; returns call(), which
+    launches the wrapper's kernel on them, counts the launch and returns
+    the output (one tensor, written anew by each call). With `fn`, a
+    launcher of the same C interface built from a variant of the source
+    (cli/k1_variants.py, cli/k2_variants.py), call() launches that instead
+    and counts nothing."""
+    name, spec = wrapper.__name__, _SPECS[wrapper.__name__]
+    w0, b0, wr, br = spec.pack(layers, plan)
+    xc = x.to(spec.dtype).contiguous()
+    B, L, _ = x.shape
+    out = torch.empty((B, L, plan.C), dtype=spec.dtype, device=x.device)
     for t in (w0, wr):   # the bulk copies move 16-byte units
         if t is not None and t.data_ptr() % 16:
-            raise ValueError('conv_stack_bf16 needs 16-byte aligned weights')
+            raise ValueError(f'{name} needs 16-byte aligned weights')
     ints = plan.as_ints()
-    _run('conv_stack_bf16', x, xc.data_ptr(), w0.data_ptr(), b0.data_ptr(), _ptr(wr),
-         _ptr(br), out.data_ptr(), B, (ctypes.c_int * len(ints))(*ints), len(ints))
-    conv_stack_bf16.launches += 1
-    return out
+    args = (xc.data_ptr(), w0.data_ptr(), b0.data_ptr(), _ptr(wr), _ptr(br), out.data_ptr(), B,
+            (ctypes.c_int * len(ints))(*ints), len(ints))
+
+    def call():
+        if not (B and L):
+            return out
+        if fn is None:
+            _run(name, x, *args)
+            wrapper.launches += 1
+        else:
+            rc = fn(*args, torch.cuda.current_stream(x.device).cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f'{name} variant launch failed: CUDA error {rc}')
+        return out
+    call.tensors = (w0, b0, wr, br, xc)      # alive while call is
+    return call
+
+
+def _plan(wrapper, layers: Layers, x: torch.Tensor):
+    """The wrapper's launch plan for x on its card, or None (windowed)."""
+    B, L, Cin, C, K = _checked(wrapper.__name__, layers, x)
+    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    return _SPECS[wrapper.__name__].plan(B, L, Cin, C, K, len(layers), n_sm)
+
+
+def _launch(wrapper, layers: Layers, x: torch.Tensor) -> torch.Tensor:
+    """Checks, plans, packs and launches the wrapper's kernel; windows the
+    time axis first when one batch row does not fit in a block."""
+    plan = _plan(wrapper, layers, x)
+    if plan is None:
+        C, Cin, K = layers[0]['w'].shape
+        rows = _SPECS[wrapper.__name__].max_rows(Cin, C, K, len(layers))
+        return run_windowed(wrapper, layers, x, rows)
+    return _prepared(wrapper, plan, layers, x)()
+
+
+def launch_alone(wrapper, layers: Layers, x: torch.Tensor) -> Callable[[], torch.Tensor]:
+    """The kernel's launch for (layers, x) on weights planned and packed
+    once, for timing it without the packing; each call counts as a
+    launch. Raises where the wrapper would window."""
+    plan = _plan(wrapper, layers, x)
+    if plan is None:
+        raise ValueError(f'{wrapper.__name__}: no block holds a row of length {x.shape[1]}')
+    return _prepared(wrapper, plan, layers, x)
 
 
 def conv_stack_f32(layers: Layers, x: torch.Tensor) -> torch.Tensor:
     """K1's wrapper: (B, L, Cin) -> (B, L, C) f32."""
     if x.device.type == 'cpu':
         return conv_stack_f32_plain(layers, x)
-    return _launch_f32(layers, x)
+    return _launch(conv_stack_f32, layers, x)
 
 
 def conv_stack_bf16(layers: Layers, x: torch.Tensor) -> torch.Tensor:
     """K2's wrapper: (B, L, Cin) -> (B, L, C) bf16."""
     if x.device.type == 'cpu':
         return conv_stack_bf16_plain(layers, x)
-    return _launch_bf16(layers, x)
+    return _launch(conv_stack_bf16, layers, x)
 
 
+_SPECS = {'conv_stack_f32': _Spec(k1_plan, k1_max_rows, pack_weights, torch.float32),
+          'conv_stack_bf16': _Spec(k2_plan, k2_max_rows, pack_weights_bf16, torch.bfloat16)}
 conv_stack_f32.launches = 0
 conv_stack_bf16.launches = 0
 
