@@ -94,12 +94,13 @@ Phases, each printing one JSON line:
                (num_block 1,000): finite, below the untrained 0.69, its train
                blocks/s;
   ftae_curve   path 12: cli/eval_ftae.py on artifacts/ftae_pa.msgpack
-               (pos_phase, batch 2000, feedback at 40 dB) at -2..1 dB, 20,000
-               blocks a point: f32 held to artifacts/eval_ftae_pa.json (the
-               TPU's bf16 curve) by the BLER z test, bf16 measured beside it
-               (its z reported: the port's bf16, like JAX's on the CPU, lies
-               above the TPU's); blocks/s of both; the guard refuses
-               --ftae_power_alloc pos on that file;
+               (pos_phase, batch 2000, feedback at 40 dB, block_len 50) at
+               -2..1 dB, 20,000 blocks a point: f32 held to
+               artifacts/eval_ftae_pa.json (the TPU's bf16 curve) by the
+               BLER z test, bf16 measured beside it (its z reported: the
+               port's bf16, like JAX's on the CPU, lies above the TPU's);
+               blocks/s of both; the guard refuses --ftae_power_alloc pos on
+               that file;
   ftae_train   path 13: an f32 step of each phase from ftae_pa.msgpack's
                params, card against CPU (rnn_train's tolerances); cli/ftae_main
                with -dec_type turboae_rnn for one epoch at full width and
@@ -228,6 +229,15 @@ Phases, each printing one JSON line:
                -mesh_shape 1 at full width (bf16, fused) trains one epoch and
                writes its checkpoint and log; K2 counted; it runs while
                native_parity runs here;
+  examples     path 37: the five examples/torch_*.py on the card, each
+               through its main at its own flags: conv_encode_decode (10
+               noiseless 1000-bit round trips exact, the batched Viterbi's
+               decisions the host decoder's), turbo_example (K = 50, 100,
+               1000), viterbi_bawgn, fading_viterbi (each curve's BER and
+               BLER finite, in [0, 1], no higher at the highest SNR than at
+               the lowest), deepturbo cut to one epoch of 1,000 blocks (its
+               last phase-epoch's loss below the untrained 0.69, its test
+               curve held as the others); seconds of each; 0 launches;
   conv_stack_bench  path 7: the port of scripts/bench_conv_stack.py, the only
                path of K1, with its launches read around it;
   times        CUDA-event times of each kernel (a wrapper call, which packs
@@ -242,6 +252,10 @@ Phases, each printing one JSON line:
                artifacts/eval_{atn,radar,binary}.json by the BLER z test;
                last, since the whole set of checkpoints that the script
                reads passes what one copy to the card may hold;
+  ftae_uniform_curve  path 38: ftae_curve's run on artifacts/ftae.msgpack
+               (uniform power: --ftae_power_alloc none) held to
+               artifacts/eval_ftae.json, the guard refusing pos (the file has
+               no 'pw' leaf); last, for the same reason;
 then the nvidia-smi line, the kernels' summary line, and last
 {"ok": true, "device": {...}}. Any failed check raises: the script exits
 non-zero and prints no result. Without a GPU it exits non-zero at once.
@@ -409,6 +423,11 @@ MESH_2D = (2, 2)             # ('data', 'model'): four gloo ranks, two replicas 
 # the C++ oracle (ROADMAP M15b)
 NATIVE_B = 200
 NATIVE_CURVE_BLOCKS = 10000
+# the examples phase: DeepTurbo's depth cut (1 epoch of 5 x 5 decoder steps at
+# batch 200 from a seeded init, a 5-batch test), and the bound of its last
+# phase-epoch's loss: the untrained BCE, log 2, fixed before the first card run
+EXAMPLE_DEEPTURBO_CUT = ['-num_epoch', '1', '-num_block', '1000']
+EXAMPLE_DEEPTURBO_LOSS_MAX = 0.69
 # the bf16 curves of the flagship's architecture that K2 carries (12 stacks a
 # batch), at SWEEP_POINTS, with the flags tests/test_torch_curves_{awgn,channels}.py pass
 OWED_CURVES = (
@@ -583,7 +602,8 @@ def main() -> int:
     gru_forward_phase(dev)
     paths['rnn_forward'] = rnn_forward_phase(dev, gen, batch=RNN_FORWARD_BATCH)
     paths['rnn_train'] = rnn_train_phase(dev, gen)
-    paths['ftae_curve'] = ftae_curve_phase(dev)
+    paths['ftae_curve'] = ftae_curve_phase(dev, 'ftae_curve', 'ftae_pa.msgpack',
+                                           'eval_ftae_pa.json', 'pos_phase', refuse='pos')
     paths['ftae_train'] = ftae_train_phase(dev, gen)
 
     # ---- the CNN zoo (paths 14, 15) and the modulation AE (paths 16-18) ----
@@ -636,6 +656,9 @@ def main() -> int:
         raise
     paths['dist_cli'] = dist_cli_phase(dist_cli)
 
+    # ---- the five examples/torch_*.py, each through its main (path 37) ----
+    paths['examples'] = examples_phase(dev)
+
     # ---- times: each kernel, its plain version, a library yardstick, its bound ----
     sweep_layers = crown['dec']['iters'][0]['dec1_cnn']
     times = {
@@ -652,6 +675,9 @@ def main() -> int:
     # ---- the ATN, radar and binary curves (paths 34-36), through K2 ----
     for phase, ckpt, ref_name, flags in OWED_CURVES:
         paths[phase] = curve_phase(phase, dev, ckpt, ref_name, flags)
+    # ---- ftae.msgpack's curve (path 38): uniform power, so no 'pw' leaf ----
+    paths['ftae_uniform_curve'] = ftae_curve_phase(dev, 'ftae_uniform_curve', 'ftae.msgpack',
+                                                   'eval_ftae.json', 'none', refuse='pos')
 
     # ---- summary ----
     print(smi, flush=True)
@@ -1387,25 +1413,27 @@ def rnn_train_phase(dev, gen, batch=PARITY_BATCH):
     return counts
 
 
-def ftae_curve_phase(dev):
-    """ftae_pa.msgpack's curve through cli/eval_ftae.evaluate, in f32 (held
-    to the committed curve by the BLER z test) and in bf16 (measured: the
-    port's bf16, like JAX's on the CPU, sits above the TPU's bf16 curve,
-    PERF.md §6); the guard refusing a mismatched --ftae_power_alloc.
-    Returns the launch counts of both sweeps."""
+def ftae_curve_phase(dev, phase, ckpt_name, ref_name, mode, refuse):
+    """An FTAE checkpoint's curve through cli/eval_ftae.evaluate under its
+    --ftae_power_alloc `mode` (batch 2000, feedback at 40 dB, block_len 50,
+    the CLI's defaults), in f32 (held to the committed curve by the BLER z
+    test) and in bf16 (measured: the port's bf16, like JAX's on the CPU, sits
+    above the TPU's bf16 curve, PERF.md §6); the guard refusing
+    --ftae_power_alloc `refuse` on that file. Returns the launch counts of
+    both sweeps."""
     from turboae_tpu_torch.cli import eval_ftae
     from turboae_tpu_torch.utils.device import nvidia_smi
-    ckpt = os.path.join(ROOT, 'artifacts', 'ftae_pa.msgpack')
-    ref_path = os.path.join(ROOT, 'artifacts', 'eval_ftae_pa.json')
+    ckpt = os.path.join(ROOT, 'artifacts', ckpt_name)
+    ref_path = os.path.join(ROOT, 'artifacts', ref_name)
 
-    def args(mode, dtype):
-        return eval_ftae.parse(['--ckpt', ckpt, '--ftae_power_alloc', mode, '--snrs',
+    def args(alloc, dtype):
+        return eval_ftae.parse(['--ckpt', ckpt, '--ftae_power_alloc', alloc, '--snrs',
                                 *map(str, FTAE_POINTS), '--num_block', str(SWEEP_BLOCKS),
                                 '--batch_size', str(SWEEP_BATCH), '--dtype', dtype,
                                 '--device', str(dev), '--ref', ref_path])
     refused = None
     try:
-        eval_ftae.evaluate(args('pos', 'float32'))
+        eval_ftae.evaluate(args(refuse, 'float32'))
     except SystemExit as e:
         refused = str(e)
     with open(ref_path) as f:
@@ -1414,9 +1442,9 @@ def ftae_curve_phase(dev):
     reset_counts()
     curves = {}
     for dtype in ('float32', 'bfloat16'):
-        out = eval_ftae.evaluate(args('pos_phase', dtype))
+        out = eval_ftae.evaluate(args(mode, dtype))
         check(out['snr'] == list(FTAE_POINTS) and out['n_blocks'] == SWEEP_BLOCKS,
-              f"ftae_curve {dtype}: points {out['snr']}")
+              f"{phase} {dtype}: points {out['snr']}")
         curves[dtype] = {
             'blocks_per_s': out['eval_blocks_per_s'],
             'points': [{'snr': s, 'blk_errors': out['blk_errors'][i],
@@ -1426,14 +1454,16 @@ def ftae_curve_phase(dev):
                         'z_bler': out['z_bler_vs_ref'][i]} for i, s in enumerate(out['snr'])]}
     sync(dev)
     counts = read_counts()
-    emit('ftae_curve', ckpt='ftae_pa.msgpack', ref_dtype=ref['dtype'], curves=curves,
-         refused_pos=refused, launches=counts, device=out['device'], card=nvidia_smi())
-    check(refused is not None and 'ps' in refused, 'ftae_curve: the guard let pos through')
+    emit(phase, ckpt=ckpt_name, ftae_power_alloc=mode, ref=ref_name, ref_dtype=ref['dtype'],
+         curves=curves, refused_mode=refuse, refused=refused, launches=counts,
+         device=out['device'], card=nvidia_smi())
+    check(refused is not None and f'--ftae_power_alloc={refuse}' in refused,
+          f'{phase}: the guard let {refuse} through')
     for p in curves['float32']['points']:
-        check(abs(p['z_bler']) < MAX_Z, f"ftae_curve: f32 BLER at {p['snr']} dB: z = {p['z_bler']}")
+        check(abs(p['z_bler']) < MAX_Z, f"{phase}: f32 BLER at {p['snr']} dB: z = {p['z_bler']}")
     check(all(0.0 < p['bler'] < 1.0 for p in curves['bfloat16']['points']),
-          'ftae_curve: bf16 BLER out of range')
-    check(counts['conv_stack_bf16'] == 0, 'ftae_curve: K2 launched')
+          f'{phase}: bf16 BLER out of range')
+    check(not any(counts.values()), f'{phase} launched a conv-stack kernel: {counts}')
     return counts
 
 
@@ -1553,6 +1583,71 @@ def timed_cli(dev, cls, main, argv):
             cls.train_epoch = epoch_fn
             os.chdir(cwd)
     return result, seconds, timed['seconds'], timed['blocks'], timed['losses'], counts, saved
+
+
+def load_example(name: str):
+    """examples/torch_<name>.py as a module (its __main__ block not run)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f'torch_{name}', os.path.join(ROOT, 'examples', f'torch_{name}.py'))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def examples_phase(dev):
+    """Each examples/torch_*.py through its main on the card, at its own
+    flags (DeepTurbo cut to EXAMPLE_DEEPTURBO_CUT): the noiseless round trip
+    exact and the batched decisions the host's; each curve's BER and BLER
+    finite, in [0, 1] and no higher at the highest SNR than at the lowest;
+    DeepTurbo's last phase-epoch below EXAMPLE_DEEPTURBO_LOSS_MAX; seconds of
+    each. Returns the launch counts of the five runs."""
+    from turboae_tpu_torch.train.trainer import Trainer
+    from turboae_tpu_torch.utils.device import nvidia_smi
+    runs = {}
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    trip = load_example('conv_encode_decode').main()
+    sync(dev)
+    runs['conv_encode_decode'] = {
+        'seconds': time.perf_counter() - t0, 'bit_errors': trip['bit_errors'],
+        'batched_equal': bool((trip['batched'] == trip['decoded']).all()),
+        'exact': bool((trip['decoded'][:, :1000] == trip['messages']).all())}
+    curves = {}
+    for name in ('turbo_example', 'viterbi_bawgn', 'fading_viterbi'):
+        t0 = time.perf_counter()
+        out = load_example(name).main()
+        sync(dev)
+        results = out if isinstance(out, list) else [out]
+        runs[name] = {'seconds': time.perf_counter() - t0, 'curves': [
+            {k: r[k] for k in ('snrs', 'bers', 'blers', 'bit_errors', 'block_errors',
+                               'n_blocks', 'seconds')} for r in results]}
+        curves.update({f'{name}_{i}': (r['bers'], r['blers']) for i, r in enumerate(results)})
+    counts = read_counts()
+    trainer, seconds, train_s, blocks, losses, dt_counts, saved = timed_cli(
+        dev, Trainer, load_example('deepturbo').main, EXAMPLE_DEEPTURBO_CUT)
+    test = trainer.last_test
+    runs['deepturbo'] = {'seconds': seconds, 'cut': EXAMPLE_DEEPTURBO_CUT, 'epoch_losses': losses,
+                         'loss_max': EXAMPLE_DEEPTURBO_LOSS_MAX, 'train_seconds': train_s,
+                         'train_blocks_per_s': blocks / train_s, 'test_snrs': test['snrs'],
+                         'test_ber': test['ber'], 'test_bler': test['bler'], 'saved': list(saved)}
+    curves['deepturbo'] = (test['ber'], test['bler'])
+    counts = {k: counts[k] + dt_counts[k] for k in counts}
+    emit('examples', runs=runs, launches=counts, card=nvidia_smi())
+    check(runs['conv_encode_decode']['bit_errors'] == [0] * 10 and
+          runs['conv_encode_decode']['exact'], 'examples: the noiseless round trip is not exact')
+    check(runs['conv_encode_decode']['batched_equal'],
+          'examples: the batched decisions differ from the host decoder\'s')
+    for name, rates in curves.items():
+        for r in rates:
+            check(all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in r) and r[-1] <= r[0],
+                  f'examples {name}: rates {rates}')
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < EXAMPLE_DEEPTURBO_LOSS_MAX,
+          f'examples deepturbo: the epoch losses {losses}')
+    check(len(saved) == 1, 'examples deepturbo: no checkpoint saved')
+    check(not any(counts.values()), f'examples launched a conv-stack kernel: {counts}')
+    return counts
 
 
 def cnn_zoo_forward_phase(dev, gen, batch=PARITY_BATCH):

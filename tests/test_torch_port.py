@@ -1,6 +1,6 @@
-"""Properties of the port as a whole: it imports nothing of JAX, flax,
-optax, msgpack or the JAX package, and its entry points run on the GPU or
-raise; they never fall back to the CPU."""
+"""Properties of the port as a whole: it, its examples and chip_smoke.py
+import nothing of JAX, flax, optax, msgpack or the JAX package, and its
+entry points run on the GPU or raise; they never fall back to the CPU."""
 import ast
 import pathlib
 
@@ -16,7 +16,7 @@ from _torch_parity import CROWN, ROOT
 
 FORBIDDEN = ('jax', 'flax', 'optax', 'msgpack', 'turboae_tpu')
 PORT_FILES = sorted(pathlib.Path(ROOT, 'turboae_tpu_torch').rglob('*.py')) + \
-    [pathlib.Path(ROOT, 'chip_smoke.py')]
+    sorted(pathlib.Path(ROOT, 'examples').glob('torch_*.py')) + [pathlib.Path(ROOT, 'chip_smoke.py')]
 
 
 def _imported_roots(path):
@@ -42,12 +42,14 @@ def test_port_imports_no_jax(path):
 
 def test_import_rule_covers_every_subpackage():
     """The rule walks the whole package: the classical tables and encoder
-    (a numpy copy of turboae_tpu/classical, which has no JAX in it) and
-    DeepTurbo's encoder are held to it too."""
+    (a numpy copy of turboae_tpu/classical, which has no JAX in it),
+    DeepTurbo's encoder and the five examples/torch_*.py are held to it too."""
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for f in ('turboae_tpu_torch/classical/trellis.py', 'turboae_tpu_torch/classical/convcode.py',
-              'turboae_tpu_torch/models/deepturbo.py', 'chip_smoke.py'):
+              'turboae_tpu_torch/models/deepturbo.py', 'chip_smoke.py',
+              'examples/torch_turbo_example.py', 'examples/torch_conv_encode_decode.py'):
         assert f in names
+    assert len([n for n in names if n.startswith('examples/')]) == 5
     subpackages = {p.parent.name for p in PORT_FILES if p.name == '__init__.py'}
     assert {'classical', 'models', 'train', 'kernels', 'ops', 'cli', 'dist', 'native'} <= subpackages
 
