@@ -14,9 +14,7 @@ K=100, rate 1/3, 6 decoder iterations, decoder SNR -1.5..2.0 dB) it reports:
   - the peak memory of a step (torch.cuda.max_memory_allocated);
 
 and once, the dispatch floor: the ms a launch of a chain of empty launches
-(an in-place add on a 0-d tensor, synchronised once at the end). The bound
-is named per batch size, as in JAX: 'HBM-bandwidth' above 60 % of the HBM
-peak, 'compute' above 60 % of the FLOP peak, else 'latency/launch'. Prints
+(an in-place add on a 0-d tensor, synchronised once at the end). Prints
 one JSON line and writes it to `--out`, with the card's name and power
 limit. On the CPU (`--device cpu`, plain versions, tiny sizes) the rates
 against a peak are null.
@@ -57,9 +55,6 @@ import torch
 
 from ..config import Config
 from ..utils.flops import analytic_flops, counted_flops, peak
-
-HBM_SHARE = 0.6
-FLOP_SHARE = 0.6
 
 
 def flagship(batch_size: int, **kw) -> Config:
@@ -154,19 +149,11 @@ def row(batch_size: int, args, dev) -> dict:
     tflops, gbs = flops / best / 1e9, nbytes / best / 1e6
     mfu = None if flop_peak is None else flops / (best / 1e3) / flop_peak
     hbm = None if hbm_peak is None else nbytes / (best / 1e3) / hbm_peak
-    if mfu is None:
-        bound = None
-    elif hbm > HBM_SHARE:
-        bound = 'HBM-bandwidth'
-    elif mfu > FLOP_SHARE:
-        bound = 'compute'
-    else:
-        bound = 'latency/launch'
     return {'batch': batch_size, 'ms_per_step': {str(n): t for n, t in ms.items()},
             'blocks_per_s': batch_size / best * 1e3, 'gflop_per_step': flops / 1e9,
             'counted_gflop_per_step': counted / 1e9, 'hbm_gb_per_step': nbytes / 1e9,
             'tflops_per_s': tflops, 'mfu': mfu, 'gb_per_s': gbs, 'hbm_share': hbm,
-            'peak_memory_mb': peak_mb, 'bound': bound}
+            'peak_memory_mb': peak_mb}
 
 
 def main(argv=None) -> dict:

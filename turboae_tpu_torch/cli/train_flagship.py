@@ -16,7 +16,8 @@ periodic checkpoints and JSONL metrics, resumable with --resume. TF32 is off.
   - <ckpt>.best keeps the best validation BER; --test_every N sweeps the SNR
     points and snapshots <ckpt>.e<epoch>; --time_budget_s stops cleanly; the
     run ends with Trainer.test.
-  - --trace_dir writes a torch.profiler Chrome trace of the second epoch run.
+  - --trace_dir writes a torch.profiler Chrome trace of the second epoch run
+    (trace.json) and the host spans it recorded (spans.jsonl).
   - --scan_unroll is accepted so the committed recipes' command lines run
     unchanged; the port's decoder loop has no scan, so it changes neither
     numerics nor launches.

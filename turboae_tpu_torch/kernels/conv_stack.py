@@ -43,6 +43,12 @@ batch row fits in a block (its accumulators in one SM's registers, its
 buffers in shared memory), the wrapper cuts the time axis into overlapping windows
 (`run_windowed`) and launches once over all of them; the output is the same.
 
+Spans (utils/logging.py:span), `k2` for K2 and `k1` for K1: the wrapper's
+call (once more inside `k2.window` when it windows), `k2.window` (the
+windows' plan, gathers and inner call), `k2.pack` (the weight pack, the
+input's cast, the output's allocation) and `k2.launch` (the ctypes launch);
+`wait` around each copy that makes the host wait for the card.
+
 `layers` is a list of {'w': (C, Cin, K), 'b': (C,)} in PyTorch's layout.
 """
 from __future__ import annotations
@@ -56,6 +62,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.conv1d import stack_apply
+from ..utils.logging import span
 from . import build
 
 # each library is named after its wrapper: csrc/<name>.cu exports <name>_launch
@@ -360,7 +367,12 @@ def window_plan(L: int, rows: int, halo: int, device='cpu'):
         a = min(max(s - halo, 0), L - rows)
         idx_in[w * rows:(w + 1) * rows] = torch.arange(a, a + rows)
         idx_out[s:e] = torch.arange(w * rows + s - a, w * rows + e - a)
-    return idx_in.to(device), idx_out.to(device), rows
+    # a copy from pageable host memory waits for the card's stream to drain
+    with span('wait'):
+        idx_in = idx_in.to(device)
+    with span('wait'):
+        idx_out = idx_out.to(device)
+    return idx_in, idx_out, rows
 
 
 def run_windowed(fn: Callable, layers: Layers, x: torch.Tensor, rows: int) -> torch.Tensor:
@@ -559,6 +571,7 @@ class _Spec:
     max_rows: Callable      # k<i>_max_rows
     pack: Callable          # pack_weights[_bf16]
     dtype: torch.dtype      # of x and out
+    span: str               # the wrapper's span, 'k1' or 'k2'
 
 
 def _prepared(wrapper, plan, layers: Layers, x: torch.Tensor,
@@ -570,27 +583,30 @@ def _prepared(wrapper, plan, layers: Layers, x: torch.Tensor,
     (cli/k1_variants.py, cli/k2_variants.py), call() launches that instead
     and counts nothing."""
     name, spec = wrapper.__name__, _SPECS[wrapper.__name__]
-    w0, b0, wr, br = spec.pack(layers, plan)
-    xc = x.to(spec.dtype).contiguous()
-    B, L, _ = x.shape
-    out = torch.empty((B, L, plan.C), dtype=spec.dtype, device=x.device)
-    for t in (w0, wr):   # the bulk copies move 16-byte units
-        if t is not None and t.data_ptr() % 16:
-            raise ValueError(f'{name} needs 16-byte aligned weights')
-    ints = plan.as_ints()
-    args = (xc.data_ptr(), w0.data_ptr(), b0.data_ptr(), _ptr(wr), _ptr(br), out.data_ptr(), B,
-            (ctypes.c_int * len(ints))(*ints), len(ints))
+    with span(f'{spec.span}.pack'):
+        w0, b0, wr, br = spec.pack(layers, plan)
+        xc = x.to(spec.dtype).contiguous()
+        B, L, _ = x.shape
+        out = torch.empty((B, L, plan.C), dtype=spec.dtype, device=x.device)
+        for t in (w0, wr):   # the bulk copies move 16-byte units
+            if t is not None and t.data_ptr() % 16:
+                raise ValueError(f'{name} needs 16-byte aligned weights')
+        ints = plan.as_ints()
+        args = (xc.data_ptr(), w0.data_ptr(), b0.data_ptr(), _ptr(wr), _ptr(br), out.data_ptr(),
+                B, (ctypes.c_int * len(ints))(*ints), len(ints))
+    launch = f'{spec.span}.launch'
 
     def call():
         if not (B and L):
             return out
-        if fn is None:
-            _run(name, x, *args)
-            wrapper.launches += 1
-        else:
-            rc = fn(*args, torch.cuda.current_stream(x.device).cuda_stream)
-            if rc != 0:
-                raise RuntimeError(f'{name} variant launch failed: CUDA error {rc}')
+        with span(launch):
+            if fn is None:
+                _run(name, x, *args)
+                wrapper.launches += 1
+            else:
+                rc = fn(*args, torch.cuda.current_stream(x.device).cuda_stream)
+                if rc != 0:
+                    raise RuntimeError(f'{name} variant launch failed: CUDA error {rc}')
         return out
     call.tensors = (w0, b0, wr, br, xc)      # alive while call is
     return call
@@ -609,8 +625,9 @@ def _launch(wrapper, layers: Layers, x: torch.Tensor) -> torch.Tensor:
     plan = _plan(wrapper, layers, x)
     if plan is None:
         C, Cin, K = layers[0]['w'].shape
-        rows = _SPECS[wrapper.__name__].max_rows(Cin, C, K, len(layers))
-        return run_windowed(wrapper, layers, x, rows)
+        spec = _SPECS[wrapper.__name__]
+        with span(f'{spec.span}.window'):
+            return run_windowed(wrapper, layers, x, spec.max_rows(Cin, C, K, len(layers)))
     return _prepared(wrapper, plan, layers, x)()
 
 
@@ -626,20 +643,23 @@ def launch_alone(wrapper, layers: Layers, x: torch.Tensor) -> Callable[[], torch
 
 def conv_stack_f32(layers: Layers, x: torch.Tensor) -> torch.Tensor:
     """K1's wrapper: (B, L, Cin) -> (B, L, C) f32."""
-    if x.device.type == 'cpu':
-        return conv_stack_f32_plain(layers, x)
-    return _launch(conv_stack_f32, layers, x)
+    with span('k1'):
+        if x.device.type == 'cpu':
+            return conv_stack_f32_plain(layers, x)
+        return _launch(conv_stack_f32, layers, x)
 
 
 def conv_stack_bf16(layers: Layers, x: torch.Tensor) -> torch.Tensor:
     """K2's wrapper: (B, L, Cin) -> (B, L, C) bf16."""
-    if x.device.type == 'cpu':
-        return conv_stack_bf16_plain(layers, x)
-    return _launch(conv_stack_bf16, layers, x)
+    with span('k2'):
+        if x.device.type == 'cpu':
+            return conv_stack_bf16_plain(layers, x)
+        return _launch(conv_stack_bf16, layers, x)
 
 
-_SPECS = {'conv_stack_f32': _Spec(k1_plan, k1_max_rows, pack_weights, torch.float32),
-          'conv_stack_bf16': _Spec(k2_plan, k2_max_rows, pack_weights_bf16, torch.bfloat16)}
+_SPECS = {'conv_stack_f32': _Spec(k1_plan, k1_max_rows, pack_weights, torch.float32, 'k1'),
+          'conv_stack_bf16': _Spec(k2_plan, k2_max_rows, pack_weights_bf16, torch.bfloat16,
+                                   'k2')}
 conv_stack_f32.launches = 0
 conv_stack_bf16.launches = 0
 

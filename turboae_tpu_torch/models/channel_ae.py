@@ -22,6 +22,7 @@ from numpy.random import mtrand
 from ..channels.apply import apply_channel
 from ..ops.interleave import invert_perm
 from ..ops.ste import rx_quantize
+from ..utils.logging import span
 from .decoders import make_decoder
 from .encoders import make_encoder
 from .modulation import demod_apply, demod_init, mod_apply, mod_init
@@ -60,15 +61,21 @@ def make_perms(cfg, device, block_len: Optional[int] = None,
 
 def forward_ae(params, cfg, bits, fwd_noise, perms, training: bool = True,
                stats=None, generator: Optional[torch.Generator] = None):
-    """Returns (bit_estimates, codes, stats)."""
+    """Returns (bit_estimates, codes, stats). Its phases are the spans
+    `encode` (the power constraint included), `channel` and `decode`."""
     _, enc_apply = make_encoder(cfg)
     _, dec_apply = make_decoder(cfg)
-    codes, stats = enc_apply(params['enc'], cfg, bits, perms, training=training, stats=stats)
-    received = apply_channel(codes, fwd_noise, cfg.channel, generator)
-    if cfg.rec_quantize:
-        # the reference passes rec_quantize_level as BOTH limit and level
-        received = rx_quantize(received, cfg.rec_quantize_level, cfg.rec_quantize_level)
-    out = dec_apply(params['dec'], cfg, received, perms, training=training, generator=generator)
+    with span('encode'):
+        codes, stats = enc_apply(params['enc'], cfg, bits, perms, training=training,
+                                 stats=stats)
+    with span('channel'):
+        received = apply_channel(codes, fwd_noise, cfg.channel, generator)
+        if cfg.rec_quantize:
+            # the reference passes rec_quantize_level as BOTH limit and level
+            received = rx_quantize(received, cfg.rec_quantize_level, cfg.rec_quantize_level)
+    with span('decode'):
+        out = dec_apply(params['dec'], cfg, received, perms, training=training,
+                        generator=generator)
     return out, codes, stats
 
 

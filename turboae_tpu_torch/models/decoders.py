@@ -60,6 +60,7 @@ from ..ops import gru as rnn
 from ..ops.activations import activation
 from ..ops.interleave import deinterleave, interleave
 from ..utils.device import torch_dtype
+from ..utils.logging import span
 from .encoders import dense, dense2d
 
 
@@ -108,7 +109,8 @@ def largecnn_apply(params, cfg, received, perms, training=False, generator=None)
 
 def _cnn_iterations(params, cfg, stackf, r_sys, r_par1, r_par2, perms) -> torch.Tensor:
     """DEC_LargeCNN's iterations: dec1 reads [r_sys, r_par1, prior], dec2
-    [r_sys interleaved by p1, r_par2, dec1's extrinsic interleaved]."""
+    [r_sys interleaved by p1, r_par2, dec1's extrinsic interleaved]. Each
+    iteration, the last included, is a span `decode.iter`."""
     dt = torch_dtype(cfg.dtype)
     p, inv = perms['p1'], perms['p1_inv']
     r_sys_int = interleave(r_sys, p)
@@ -122,21 +124,23 @@ def _cnn_iterations(params, cfg, stackf, r_sys, r_par1, r_par2, perms) -> torch.
 
     *iters, final = params['iters']
     for w in iters:
-        x_plr = half_iter(w['dec1_cnn'], w['dec1_lin'],
-                          torch.cat([r_sys, r_par1, prior], dim=2), prior)
-        x_plr_int = interleave(x_plr, p)
-        x_plr2 = half_iter(w['dec2_cnn'], w['dec2_lin'],
-                           torch.cat([r_sys_int, r_par2, x_plr_int], dim=2),
-                           x_plr_int)
-        prior = deinterleave(x_plr2, inv)
+        with span('decode.iter'):
+            x_plr = half_iter(w['dec1_cnn'], w['dec1_lin'],
+                              torch.cat([r_sys, r_par1, prior], dim=2), prior)
+            x_plr_int = interleave(x_plr, p)
+            x_plr2 = half_iter(w['dec2_cnn'], w['dec2_lin'],
+                               torch.cat([r_sys_int, r_par2, x_plr_int], dim=2),
+                               x_plr_int)
+            prior = deinterleave(x_plr2, inv)
 
     # final iteration: dec2's head emits one channel, no extrinsic subtraction
-    x_plr = half_iter(final['dec1_cnn'], final['dec1_lin'],
-                      torch.cat([r_sys, r_par1, prior], dim=2), prior)
-    x_plr_int = interleave(x_plr, p)
-    h = stackf(final['dec2_cnn'], torch.cat([r_sys_int, r_par2, x_plr_int], dim=2))
-    logit = cv.linear_apply(final['dec2_lin'], h, compute_dtype=dt)
-    return torch.sigmoid(deinterleave(logit, inv))
+    with span('decode.iter'):
+        x_plr = half_iter(final['dec1_cnn'], final['dec1_lin'],
+                          torch.cat([r_sys, r_par1, prior], dim=2), prior)
+        x_plr_int = interleave(x_plr, p)
+        h = stackf(final['dec2_cnn'], torch.cat([r_sys_int, r_par2, x_plr_int], dim=2))
+        logit = cv.linear_apply(final['dec2_lin'], h, compute_dtype=dt)
+        return torch.sigmoid(deinterleave(logit, inv))
 
 
 def _rnn_iters_init(gen, cfg, device, n_in: int, kind: str):

@@ -31,6 +31,7 @@ from ..channels.noise import check_legacy_noise_channel, point_sigma, sample_noi
 from ..dist import mesh as dm
 from ..models.channel_ae import forward_ae, make_perms
 from ..utils.device import resolve_device
+from ..utils.logging import span
 from ..utils.metrics import error_counts
 from ..utils.tree import tree_map
 
@@ -46,13 +47,16 @@ def sweep_counts(params, cfg, bits: torch.Tensor, noise: torch.Tensor, perms=Non
     """Deterministic core of one batch (given the fading gain's generator):
     (bit_errors, block_errors, pos_errors) as int64 tensors, for given bits
     (B, L, k) and noise (B, L, n), the global batch under a mesh in effect
-    (this rank's share along its axis is kept)."""
-    bits, noise = (dm.shard_rows(t, dm.current()) for t in (bits, noise))
-    if perms is None:
-        perms = make_perms(cfg, bits.device)
-    out, _, _ = forward_ae(params, cfg, bits, noise, perms, training=False,
-                           generator=generator)
-    return error_counts(bits, out)
+    (this rank's share along its axis is kept). The call is the span
+    `sweep`, the counts its child `counts`."""
+    with span('sweep'):
+        bits, noise = (dm.shard_rows(t, dm.current()) for t in (bits, noise))
+        if perms is None:
+            perms = make_perms(cfg, bits.device)
+        out, _, _ = forward_ae(params, cfg, bits, noise, perms, training=False,
+                               generator=generator)
+        with span('counts'):
+            return error_counts(bits, out)
 
 
 @torch.inference_mode()
