@@ -321,6 +321,75 @@ def test_graph_steps_match_eager_steps(cuda_device, dtype, fused, opt, mode):
         graph._train_steps(mode, 2, 1)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize('block_len', [100, 1000])
+def test_sweep_counts_with_kept_packs_equal_fresh_packs(cuda_device, block_len):
+    """The crown's sweep batch (2000 blocks, full width, bf16, K2; at L=1000
+    on windows): with the packed weights kept from the first call, three
+    batches count what they count with clear_packs() before every call, bit
+    for bit; each warm batch hits 12 times and packs nothing."""
+    from turboae_tpu_torch.config import Config
+    from turboae_tpu_torch.models.channel_ae import init_ae, make_perms
+    from turboae_tpu_torch.train.sweep import sweep_counts
+    cfg = Config(batch_size=2000, block_len=block_len, dtype='bfloat16', use_fused_conv=True)
+    params = init_ae(torch.Generator().manual_seed(0), cfg, cuda_device)
+    perms = make_perms(cfg, cuda_device)
+    batches = []
+    for seed in range(3):
+        g = torch.Generator().manual_seed(seed)
+        bits = (torch.rand((2000, block_len, 1), generator=g) < 0.5).float()
+        noise = 0.8 * torch.randn((2000, block_len, 3), generator=g)
+        batches.append((bits.to(cuda_device), noise.to(cuda_device)))
+    ks.clear_packs()
+    sweep_counts(params, cfg, *batches[0], perms)
+    warm = []
+    for b in batches:
+        h, m = ks.conv_stack_bf16.pack_hits, ks.conv_stack_bf16.pack_misses
+        warm.append([t.cpu() for t in sweep_counts(params, cfg, *b, perms)])
+        assert (ks.conv_stack_bf16.pack_hits - h, ks.conv_stack_bf16.pack_misses - m) == (12, 0)
+    for b, w in zip(batches, warm):
+        ks.clear_packs()
+        m = ks.conv_stack_bf16.pack_misses
+        fresh = [t.cpu() for t in sweep_counts(params, cfg, *b, perms)]
+        assert ks.conv_stack_bf16.pack_misses - m == 12
+        assert all(torch.equal(a, c) for a, c in zip(w, fresh))
+    assert warm[0][0].item() > 0
+
+
+@pytest.mark.gpu
+def test_evaluation_after_graphed_steps_repacks(cuda_device):
+    """A fused-conv Trainer with steps_per_call 3: a forward in inference
+    mode, as Trainer.test's batches run it, keeps the decoder's packs; the
+    graph's replays then write the params with no version bump, and
+    _StepGraph.run empties the cache, so the next forward packs the new
+    params anew: it equals one after clear_packs(), bit for bit, and
+    differs from the first."""
+    from turboae_tpu_torch.config import Config
+    from turboae_tpu_torch.models.channel_ae import forward_ae
+    from turboae_tpu_torch.train.trainer import Trainer
+    cfg = Config(batch_size=64, enc_num_unit=32, dec_num_unit=32, num_iteration=2,
+                 dtype='bfloat16', use_fused_conv=True, steps_per_call=3)
+    tr = Trainer(cfg, cuda_device)
+    g = torch.Generator().manual_seed(5)
+    bits = (torch.rand((64, 100, 1), generator=g) < 0.5).float().to(cuda_device)
+    noise = (0.8 * torch.randn((64, 100, 3), generator=g)).to(cuda_device)
+
+    @torch.inference_mode()
+    def forward():
+        return forward_ae(tr.params, cfg, bits, noise, tr.perms, training=False)[0].cpu()
+    tr._train_steps('decoder', 3, 1)             # the capture, then a replay
+    before = forward()
+    h = ks.conv_stack_bf16.pack_hits
+    assert torch.equal(forward(), before) and ks.conv_stack_bf16.pack_hits - h == 4
+    tr._train_steps('decoder', 3, 2)             # replays alone
+    m = ks.conv_stack_bf16.pack_misses
+    got = forward()
+    assert ks.conv_stack_bf16.pack_misses - m == 4
+    ks.clear_packs()
+    assert torch.equal(got, forward())
+    assert not torch.equal(got, before)
+
+
 # ---------------------------------------------------------------- the classical device decoders
 # the f32 turbo LLRs, card against CPU, absolute: six iterations of
 # extrinsic exchange amplify the two devices' f32 rounding on a few blocks

@@ -177,6 +177,7 @@ def test_k2_spans_on_the_card(cuda_device, block_len, windows):
     outer = [s for s in sp if s.name == 'k2' and sp[s.parent].name == 'decode.iter']
     assert len(outer) == 12 and names.count('sweep') == 1
     assert names.count('k2.pack') == names.count('k2.launch') == 12
+    assert names.count('k2.pack.weights') == 0      # packed by the first call
     assert names.count('k2.window') == windows
     assert names.count('k2') == 12 + windows
     assert names.count('wait') == 2 * windows

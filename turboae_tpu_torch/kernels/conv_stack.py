@@ -43,11 +43,22 @@ batch row fits in a block (its accumulators in one SM's registers, its
 buffers in shared memory), the wrapper cuts the time axis into overlapping windows
 (`run_windowed`) and launches once over all of them; the output is the same.
 
+Packed weights (`packed`): in inference mode, outside a CUDA graph's
+capture, a wrapper packs a stack once and keeps the planes, keyed by the
+weights' identity (held weakly), `data_ptr()` and `_version` and by the
+pack's own plan fields, so that windows and halo windows of another length
+share them; an in-place write bumps `_version` and the next call repacks.
+`clear_packs()` empties the cache, for writers that bump no version (a CUDA
+graph's replay, train/trainer.py:_StepGraph). `conv_stack_<t>.pack_hits`
+and `.pack_misses` count its lookups. Elsewhere (training, capture) every
+launch packs anew.
+
 Spans (utils/logging.py:span), `k2` for K2 and `k1` for K1: the wrapper's
 call (once more inside `k2.window` when it windows), `k2.window` (the
-windows' plan, gathers and inner call), `k2.pack` (the weight pack, the
-input's cast, the output's allocation) and `k2.launch` (the ctypes launch);
-`wait` around each copy that makes the host wait for the card.
+windows' plan, gathers and inner call), `k2.pack` (the packed weights,
+the input's cast, the output's allocation), within it `k2.pack.weights`
+(the packing itself, absent on a hit) and `k2.launch` (the ctypes
+launch); `wait` around each copy that makes the host wait for the card.
 
 `layers` is a list of {'w': (C, Cin, K), 'b': (C,)} in PyTorch's layout.
 """
@@ -55,8 +66,10 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
+from collections import OrderedDict
 from dataclasses import dataclass, fields
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -441,8 +454,8 @@ def _gathered(layers: Layers, N: int, ngroups: int, S: int, S0: int, Kc: int, Kc
               elems: int, chunk_major: bool):
     """(weights, biases) of the stack gathered by `_swizzle_gather`, in the
     weights' own type: one concatenation and two gathers, whatever the
-    depth (each op is a launch on the host's clock, and the wrappers pack at
-    every call)."""
+    depth (each op is a launch on the host's clock, and a wrapper packs at
+    every call that `packed` does not serve)."""
     C, Cin, K = layers[0]['w'].shape
     dev = layers[0]['w'].device
     idx_w, idx_b = _swizzle_gather(Cin, C, K, len(layers), N, ngroups, S, S0, Kc, Kc0, elems,
@@ -574,17 +587,86 @@ class _Spec:
     span: str               # the wrapper's span, 'k1' or 'k2'
 
 
+# the most stacks whose packed weights are kept; the least recently used goes
+PACKS_HELD = 64
+
+
+class _Packed(NamedTuple):
+    refs: tuple        # a weak reference to each w and b, whose death drops the entry
+    stamp: tuple       # their (data_ptr, _version), then the stream packed on
+    planes: tuple      # (w0, b0, wr, br)
+
+
+# (wrapper, the pack's plan fields, id of each w and b) -> _Packed, oldest
+# first; an id is not reused while its entry lives, since the weight's death
+# drops the entry
+_packs: 'OrderedDict[tuple, _Packed]' = OrderedDict()
+
+
+def clear_packs():
+    """Forget every packed stack, for a writer of weights that bumps no
+    `_version` (a CUDA graph's replay)."""
+    _packs.clear()
+
+
+def _capturing() -> bool:
+    return torch.backends.cuda.is_built() and torch.cuda.is_current_stream_capturing()
+
+
+def _stamp(tensors) -> Optional[tuple]:
+    """(data_ptr, _version) of each tensor and the current stream on their
+    card; None where the cache must not serve: outside inference mode (the
+    caller may train), under a capture (a graph would replay stale planes
+    after each optimizer step) or for an inference tensor (no version)."""
+    if (not torch.is_inference_mode_enabled() or _capturing()
+            or any(t.is_inference() for t in tensors)):
+        return None
+    dev = tensors[0].device
+    stream = torch.cuda.current_stream(dev).cuda_stream if dev.type == 'cuda' else None
+    return (*((t.data_ptr(), t._version) for t in tensors), stream)
+
+
+def packed(wrapper, layers: Layers, plan):
+    """The wrapper's packed weights (w0, b0, wr, br) for `plan`, bit for bit
+    `pack_weights[_bf16](layers, plan)`: kept from an earlier call where the
+    weights are the same tensors, unwritten since, on the same stream;
+    packed anew (the span `<k>.pack.weights`) otherwise."""
+    name, spec = wrapper.__name__, _SPECS[wrapper.__name__]
+    tensors = [t for p in layers for t in (p['w'], p['b'])]
+    stamp = _stamp(tensors)
+    if stamp is None:
+        with span(f'{spec.span}.pack.weights'):
+            return spec.pack(layers, plan)
+    key = (name, plan.N, plan.ngroups, plan.S, plan.S0, plan.Kc, plan.Kc0, *map(id, tensors))
+    hit = _packs.get(key)
+    if hit is not None and hit.stamp == stamp:
+        _packs.move_to_end(key)
+        wrapper.pack_hits += 1
+        return hit.planes
+    with span(f'{spec.span}.pack.weights'):
+        planes = spec.pack(layers, plan)
+    wrapper.pack_misses += 1
+
+    def forget(_, key=key):   # a weight is freed: so is its entry
+        _packs.pop(key, None)
+    _packs[key] = _Packed(tuple(weakref.ref(t, forget) for t in tensors), stamp, planes)
+    _packs.move_to_end(key)
+    while len(_packs) > PACKS_HELD:
+        _packs.popitem(last=False)
+    return planes
+
+
 def _prepared(wrapper, plan, layers: Layers, x: torch.Tensor,
               fn: Optional[Callable] = None) -> Callable[[], torch.Tensor]:
-    """Packs the weights and x once for `plan`; returns call(), which
-    launches the wrapper's kernel on them, counts the launch and returns
+    """Packs the weights (`packed`) and x once for `plan`; returns call(),
+    which launches the wrapper's kernel on them, counts the launch and returns
     the output (one tensor, written anew by each call). With `fn`, a
     launcher of the same C interface built from a variant of the source
     (cli/k1_variants.py, cli/k2_variants.py), call() launches that instead
     and counts nothing."""
     name, spec = wrapper.__name__, _SPECS[wrapper.__name__]
     with span(f'{spec.span}.pack'):
-        w0, b0, wr, br = spec.pack(layers, plan)
+        w0, b0, wr, br = packed(wrapper, layers, plan)
         xc = x.to(spec.dtype).contiguous()
         B, L, _ = x.shape
         out = torch.empty((B, L, plan.C), dtype=spec.dtype, device=x.device)
@@ -660,8 +742,8 @@ def conv_stack_bf16(layers: Layers, x: torch.Tensor) -> torch.Tensor:
 _SPECS = {'conv_stack_f32': _Spec(k1_plan, k1_max_rows, pack_weights, torch.float32, 'k1'),
           'conv_stack_bf16': _Spec(k2_plan, k2_max_rows, pack_weights_bf16, torch.bfloat16,
                                    'k2')}
-conv_stack_f32.launches = 0
-conv_stack_bf16.launches = 0
+conv_stack_f32.launches = conv_stack_f32.pack_hits = conv_stack_f32.pack_misses = 0
+conv_stack_bf16.launches = conv_stack_bf16.pack_hits = conv_stack_bf16.pack_misses = 0
 
 
 class _RecomputeStack(torch.autograd.Function):

@@ -546,7 +546,9 @@ class _StepGraph:
     The graph holds the addresses of the trainer's params and optimizer
     state, which every step updates in place, and of `staged`, whose row i
     holds step i's count-dependent optimizer values; `run` copies each
-    replay's rows there first. A wrapper counts its kernel's launches when
+    replay's rows there first, and empties the wrappers' cache of packed
+    weights (kernels/conv_stack.py:clear_packs), which a replay's writes
+    would leave stale. A wrapper counts its kernel's launches when
     called, which under capture launches nothing: the launches of the
     capture are taken back and added once for every replay.
 
@@ -615,6 +617,9 @@ class _StepGraph:
             rows = np.concatenate([o.staged(self.n * groups) for o in self.opts], axis=1)
             rows = torch.from_numpy(rows.reshape(groups, self.n, width)).pin_memory()
             rows = rows.to(self.device, non_blocking=True)
+        # the replays write the params and bump no _version: packs kept of
+        # them before (an evaluation in inference mode) would be stale
+        ks.clear_packs()
         out = []
         for g in range(groups):
             if width:
