@@ -10,10 +10,11 @@ in it (all finished: the point's host read waits for them) over its
 seconds, and the seconds of each untraced point.
 
 `correct`: after the window, a sample of its batches drawn from the seed
-(CHECK_BATCHES of each grid point) is decoded again by the
-plain reference (reference/, f32) from the checkpoint read by its own
-reader, on the same bits and noise; the program's counts of those batches
-are compared with the reference's (checks.eval_numbers).
+(CHECK_BATCHES of each grid point) is encoded and decoded again by the
+configuration's plain reference (reference/<reference>.py, f32) from the
+checkpoint read by its own reader, on the same bits and noise; the
+program's counts of those batches are compared with the reference's
+(checks.eval_numbers).
 """
 from __future__ import annotations
 
@@ -23,9 +24,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from ..reference import convert as ref_convert
-from ..reference import model as ref
-from . import checks, inputs
+from . import checks, inputs, yardstick
 from .host import ROOT, sync
 from .tracing import Slice, Spans
 
@@ -136,20 +135,20 @@ class EvalCell:
     def reference_counts(self, units: List[int], precision: str = 'f32') -> List[tuple]:
         """(bit, block, positional) error counts of the reference on the
         units' inputs; rows decoded in blocks that fit."""
-        params = ref_convert.from_checkpoint(str(ROOT / self.arch['checkpoint']), self.arch,
-                                             self.device)
+        ref, arch = yardstick.reference(self.arch), self.arch
+        params = ref.load(str(ROOT / arch['checkpoint']), arch, self.device)
         pm = ref.perms(self.L, self.device)
         rows = max(1, self.reference_positions // self.L)
         out = []
         with torch.no_grad():
             for unit in units:
                 bits, noise = self.draw(unit)
-                code = ref.encode(params['enc'], bits, pm, precision)
+                code = ref.encode(params, bits, pm, arch, precision)
                 pos = torch.zeros(self.L, dtype=torch.int64, device=self.device)
                 blk = 0
                 for s in range(0, self.batch, rows):
-                    o = ref.decode(params['dec'], code[s:s + rows] + noise[s:s + rows], pm,
-                                   self.arch['num_iter_ft'], precision)
+                    o = ref.decode(params, code[s:s + rows] + noise[s:s + rows], pm, arch,
+                                   precision)
                     err = torch.round(o.reshape(o.shape[0], -1)) != bits[s:s + rows].reshape(
                         o.shape[0], -1)
                     pos += err.sum(dim=0)

@@ -4,7 +4,9 @@
 The cell, its configuration (benchmark/configs/<config>.json), its traffic
 mix (benchmark/traffic/<traffic>.json), its correctness limits
 (benchmark/limits/<cell>.json) and its metrics are all found by name from
-BENCHMARK.json; each per-layer metric is read by benchmark/metrics/<name>.py.
+BENCHMARK.json; the configuration's file names its plain reference
+(benchmark/reference/<reference>.py) and each per-layer metric is read by
+benchmark/metrics/<name>.py.
 Every traffic mix is an evaluation sweep (evaluation.py). A traced run
 traces the first whole points past TRACE_SECONDS of its window.
 """
@@ -13,6 +15,7 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import json
+import re
 import statistics
 import time
 
@@ -31,9 +34,14 @@ def load_cell(name: str) -> dict:
     w = cells[name]
     conf = next(c for c in bench['configs'] if c['name'] == w['config'])
     base = ROOT / 'benchmark'
+    arch = json.loads((ROOT / conf['file']).read_text())
+    ref = arch.get('reference')
+    if not isinstance(ref, str) or not re.fullmatch(r'[A-Za-z_][A-Za-z0-9_]*', ref) \
+            or not (base / 'reference' / f'{ref}.py').is_file():
+        raise SystemExit(f'{conf["file"]}: "reference" must name a module of '
+                         f'benchmark/reference/, got {ref!r}')
     return {
-        'name': name, 'chips': w['chips'],
-        'arch': json.loads((ROOT / conf['file']).read_text()),
+        'name': name, 'chips': w['chips'], 'arch': arch,
         'traffic': json.loads((base / 'traffic' / f'{w["traffic"]}.json').read_text()),
         'limits': json.loads((base / 'limits' / f'{name}.json').read_text()),
         'end_to_end': [m for m in bench['end_to_end'] if name in m.get('workloads', [name])],
@@ -63,7 +71,7 @@ def run(args, cell: dict, t_start: float, device=None,
     on_card = dev.type == 'cuda'
     if on_card:
         torch.cuda.set_device(dev)
-    from ..reference.model import no_tf32
+    from ..reference.common import no_tf32
     no_tf32()
     if on_card:
         log(f'device: {torch.cuda.get_device_name(dev)}; nvidia-smi: {host.nvidia_smi()}; '

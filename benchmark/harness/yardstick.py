@@ -4,15 +4,14 @@ program cannot move the yardstick.
 
 FLOPs count the products of the convolutions and linear heads (2 per
 multiply-add), as torch.utils.flop_counter counts them; elementwise work is
-not counted. Per block of length L:
-  - a conv layer Cin -> Cout of kernel K: 2 L K Cin Cout; a head: 2 L in out;
-  - the forward: the encoder's three branches and the decoder's
-    2 * num_iteration half-decoders. The last iteration's dec2 head emits
-    one channel (the program's utils/flops.py:analytic_flops, copied from
-    JAX, counts it at num_iter_ft: 2 L U (num_iter_ft - 1) more a block).
+not counted. A conv layer Cin -> Cout of kernel K over a block of length L
+is 2 L K Cin Cout, a head 2 L in out. Each configuration's plain reference
+(benchmark/reference/<reference>.py, named by the configuration's file)
+gives its forward's count by that rule, `forward_flops(arch, block_len)`.
 """
 from __future__ import annotations
 
+import importlib
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 # NVIDIA's data sheet, H100 SXM5 at its 700 W limit, dense (no sparsity):
@@ -29,27 +28,14 @@ def peak(device_name: str, key: str) -> Optional[float]:
 
 
 # ------------------------------------------------------------------ FLOPs
-def _conv(L, K, cin, cout):
-    return 2 * L * K * cin * cout
-
-
-def _parts(arch: dict, L: int) -> dict:
-    U, K, nl = arch['enc_num_unit'], arch['enc_kernel_size'], arch['enc_num_layer']
-    D, KD, nd = arch['dec_num_unit'], arch['dec_kernel_size'], arch['dec_num_layer']
-    ft, n_iter, k = arch['num_iter_ft'], arch['num_iteration'], arch['code_rate_k']
-    n_in = 2 + ft
-    enc_first = 3 * _conv(L, K, k, U)
-    enc_rest = 3 * ((nl - 1) * _conv(L, K, U, U) + 2 * L * U)
-    dec_stack = _conv(L, KD, n_in, D) + (nd - 1) * _conv(L, KD, D, D)
-    dec = 2 * n_iter * dec_stack + 2 * L * D * ft * (2 * n_iter - 1) + 2 * L * D * 1
-    return {'enc_first': enc_first, 'enc_rest': enc_rest, 'dec': dec,
-            'dec_first': _conv(L, KD, n_in, D)}
+def reference(arch: dict):
+    """The plain reference module that the configuration names."""
+    return importlib.import_module(f'benchmark.reference.{arch["reference"]}')
 
 
 def forward_flops(arch: dict, block_len: int) -> int:
-    """FLOPs of one block's forward: encoder and decoder."""
-    p = _parts(arch, block_len)
-    return p['enc_first'] + p['enc_rest'] + p['dec']
+    """FLOPs of one block's forward, as the configuration's reference counts them."""
+    return reference(arch).forward_flops(arch, block_len)
 
 
 # ---------------------------------------------------------- K2's roofline

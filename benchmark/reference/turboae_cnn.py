@@ -28,25 +28,25 @@ layout: a conv layer {'w': (Cout, Cin, K), 'b': (Cout,)}, a head
 [layers], 'lin': head}}, the decoder {'iters': [{'dec1_cnn', 'dec2_cnn',
 'dec1_lin', 'dec2_lin'}, ...]}.
 
-`precision` is 'f32' (the reference) or 'fp8' (the control: every conv and
-head operand, activations and weights, rounded to float8 e4m3 with a
-per-tensor scale, the products summed in f32). Set TF32 off before calling:
-`no_tf32()`.
+The interface every reference module gives the harness: `load`, `perms`,
+`encode` (the whole batch: the power constraint takes its statistics),
+`decode` (any slice of rows) and `forward_flops`. `precision` is 'f32' (the
+reference) or 'fp8' (the control: every conv and head operand, activations
+and weights, rounded to float8 e4m3 with a per-tensor scale, the products
+summed in f32). Set TF32 off before calling: `common.no_tf32()`.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-FP8_MAX = 448.0
+from .common import perms, quantizer
+from .msgpack import load as read_msgpack
 
-
-def no_tf32():
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+__all__ = ['load', 'perms', 'encode', 'decode', 'forward_flops']
 
 
 # ------------------------------------------------------------------ params
@@ -115,33 +115,48 @@ def leaves_of(tree, arch: dict) -> List[torch.Tensor]:
     return out
 
 
-# ------------------------------------------------------------ interleaver
-def perms(block_len: int, device) -> Dict[str, torch.Tensor]:
-    """p1 and its inverse: the first permutation MT19937 seeded 0 draws (the
-    reference's fixed interleaver; p2, the second draw, is not used by this
-    architecture)."""
-    p1 = np.random.RandomState(0).permutation(np.arange(block_len))
-    inv = np.empty_like(p1)
-    inv[p1] = np.arange(block_len)
-    as_t = lambda a: torch.as_tensor(a.astype(np.int64), device=device)
-    return {'p1': as_t(p1), 'p1_inv': as_t(inv)}
+# -------------------------------------------------------------- checkpoint
+# A flax checkpoint's params (the JAX layout): a conv layer {'w': (K, Cin,
+# Cout), 'b'}, a head {'w': (in, out), 'b'}, lists as dicts keyed '0', '1',
+# ..., and the decoder's iterations as {'scan': <the first n - 1 iterations
+# stacked on a leading axis>, 'final': <the last>}.
+def _leaf(a, device) -> torch.Tensor:
+    a = np.asarray(a, np.float32)
+    if a.ndim == 3:            # conv (K, Cin, Cout) -> (Cout, Cin, K)
+        a = a.transpose(2, 1, 0)
+    elif a.ndim == 2:          # head (in, out) -> (out, in)
+        a = a.T
+    return torch.tensor(np.ascontiguousarray(a), device=device)
+
+
+def _get(tree, key):
+    if isinstance(tree, list):
+        return tree[int(key)]
+    return tree[key] if key in tree else tree[str(key)]
+
+
+def load(path: str, arch: dict, device) -> dict:
+    """The reference tree of the checkpoint's 'params', f32 on `device`."""
+    params = read_msgpack(path)['params']
+    n_iter = arch['num_iteration']
+    leaves = []
+    for spec_path, _, _ in param_specs(arch):
+        if spec_path[0] == 'enc':
+            node = params['enc']
+            for key in spec_path[1:]:
+                node = _get(node, key)
+            leaves.append(_leaf(node, device))
+            continue
+        it, rest = spec_path[2], spec_path[3:]
+        node = _get(params['dec'], 'final' if it == n_iter - 1 else 'scan')
+        for key in rest:
+            node = _get(node, key)
+        a = np.asarray(node)
+        leaves.append(_leaf(a if it == n_iter - 1 else a[it], device))
+    return build_tree(arch, leaves)
 
 
 # ---------------------------------------------------------------- forward
-def _fp8(t: torch.Tensor) -> torch.Tensor:
-    amax = t.detach().abs().amax()
-    scale = torch.where(amax > 0, amax / FP8_MAX, torch.ones_like(amax))
-    return (t / scale).to(torch.float8_e4m3fn).to(torch.float32) * scale
-
-
-def _q(precision: str):
-    if precision == 'f32':
-        return lambda t: t
-    if precision == 'fp8':
-        return _fp8
-    raise ValueError(f'precision must be f32 or fp8, got {precision!r}')
-
-
 def _conv(p, x, q):
     w = p['w']
     y = F.conv1d(q(x).transpose(1, 2), q(w), padding=w.shape[2] // 2)
@@ -158,13 +173,14 @@ def _lin(p, x, q):
     return torch.matmul(q(x), q(p['w']).t()) + p['b']
 
 
-def encode(params, bits: torch.Tensor, pm, precision: str = 'f32') -> torch.Tensor:
+def encode(params, bits: torch.Tensor, pm, arch: dict, precision: str = 'f32'
+           ) -> torch.Tensor:
     """(B, L, 1) bits -> (B, L, 3) power-constrained code."""
-    q = _q(precision)
+    q = quantizer(precision)
     x = 2.0 * bits - 1.0
     outs = []
     for name, inp in (('b1', x), ('b2', x), ('b3', x[:, pm['p1']])):
-        br = params[name]
+        br = params['enc'][name]
         outs.append(F.elu(_lin(br['lin'], _stack(br['cnn'], inp, q), q)))
     code = torch.cat(outs, dim=2)
     mean = code.mean()
@@ -172,16 +188,17 @@ def encode(params, bits: torch.Tensor, pm, precision: str = 'f32') -> torch.Tens
     return (code - mean) / std
 
 
-def decode(params, received: torch.Tensor, pm, num_iter_ft: int,
-           precision: str = 'f32') -> torch.Tensor:
+def decode(params, received: torch.Tensor, pm, arch: dict, precision: str = 'f32'
+           ) -> torch.Tensor:
     """(B, L, 3) received -> (B, L, 1) bit estimates in (0, 1)."""
-    q = _q(precision)
+    q = quantizer(precision)
     p, inv = pm['p1'], pm['p1_inv']
     r_sys, r_par1, r_par2 = received[:, :, 0:1], received[:, :, 1:2], received[:, :, 2:3]
     r_sys_int = r_sys[:, p]
     b, l, _ = received.shape
-    prior = torch.zeros((b, l, num_iter_ft), dtype=received.dtype, device=received.device)
-    *iters, final = params['iters']
+    prior = torch.zeros((b, l, arch['num_iter_ft']), dtype=received.dtype,
+                        device=received.device)
+    *iters, final = params['dec']['iters']
     for w in iters:
         x1 = _lin(w['dec1_lin'], _stack(w['dec1_cnn'], torch.cat([r_sys, r_par1, prior], 2), q),
                   q) - prior
@@ -197,13 +214,30 @@ def decode(params, received: torch.Tensor, pm, num_iter_ft: int,
     return torch.sigmoid(logit[:, inv])
 
 
-def forward(params, bits, noise, pm, num_iter_ft: int, precision: str = 'f32'):
+def forward(params, bits, noise, pm, arch: dict, precision: str = 'f32'):
     """Encoder -> AWGN -> decoder: the (B, L, 1) bit estimates."""
-    code = encode(params['enc'], bits, pm, precision)
-    return decode(params['dec'], code + noise, pm, num_iter_ft, precision)
+    return decode(params, encode(params, bits, pm, arch, precision) + noise, pm, arch,
+                  precision)
 
 
-def error_counts(bits: torch.Tensor, out: torch.Tensor) -> Tuple[int, int]:
-    """(bit errors, block errors) of hard decisions round(out)."""
-    err = torch.round(out.reshape(out.shape[0], -1)) != bits.reshape(bits.shape[0], -1)
-    return int(err.sum()), int(err.any(dim=1).sum())
+# ------------------------------------------------------------------ FLOPs
+def _conv_flops(L, K, cin, cout):
+    return 2 * L * K * cin * cout
+
+
+def forward_flops(arch: dict, block_len: int) -> int:
+    """FLOPs of one block's forward, counted as harness/yardstick.py says:
+    the encoder's three branches and the decoder's 2 * num_iteration
+    half-decoders. The last iteration's dec2 head emits one channel (the
+    program's utils/flops.py:analytic_flops, copied from JAX, counts it at
+    num_iter_ft: 2 L U (num_iter_ft - 1) more a block)."""
+    L = block_len
+    U, K, nl = arch['enc_num_unit'], arch['enc_kernel_size'], arch['enc_num_layer']
+    D, KD, nd = arch['dec_num_unit'], arch['dec_kernel_size'], arch['dec_num_layer']
+    ft, n_iter, k = arch['num_iter_ft'], arch['num_iteration'], arch['code_rate_k']
+    n_in = 2 + ft
+    enc_first = 3 * _conv_flops(L, K, k, U)
+    enc_rest = 3 * ((nl - 1) * _conv_flops(L, K, U, U) + 2 * L * U)
+    dec_stack = _conv_flops(L, KD, n_in, D) + (nd - 1) * _conv_flops(L, KD, D, D)
+    dec = 2 * n_iter * dec_stack + 2 * L * D * ft * (2 * n_iter - 1) + 2 * L * D * 1
+    return enc_first + enc_rest + dec

@@ -11,7 +11,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 import _tiny  # noqa: E402
 from benchmark.harness import inputs  # noqa: E402
-from benchmark.reference import convert, model as ref  # noqa: E402
+from benchmark.reference import turboae_cnn as ref  # noqa: E402
 from turboae_tpu_torch.cli.eval_flagship import load_flagship  # noqa: E402
 from turboae_tpu_torch.config import Config  # noqa: E402
 from turboae_tpu_torch.models.channel_ae import forward_ae, make_perms  # noqa: E402
@@ -36,7 +36,7 @@ def test_checkpoint_read_alike(ckpt, tmp_path):
     path = _tiny.ROOT / ckpt if ckpt != 'tiny' else tmp_path / 't.msgpack'
     if ckpt == 'tiny':
         _tiny.write_checkpoint(path, a)
-    mine = ref.leaves_of(convert.from_checkpoint(str(path), a, CPU), a)
+    mine = ref.leaves_of(ref.load(str(path), a, CPU), a)
     port = ref.leaves_of(load_flagship(str(path), CPU), a)
     assert len(mine) == len(port) == len(ref.param_specs(a))
     for x, y in zip(mine, port):
@@ -58,7 +58,7 @@ def test_forward_equals_the_ports_f32(tmp_path):
     with torch.no_grad():
         port, _, _ = forward_ae(params, _cfg(a), bits, noise, make_perms(_cfg(a), CPU),
                                 training=False)
-        mine = ref.forward(params, bits, noise, ref.perms(a['block_len'], CPU), a['num_iter_ft'])
+        mine = ref.forward(params, bits, noise, ref.perms(a['block_len'], CPU), a)
     np.testing.assert_allclose(mine.numpy(), port.numpy(), rtol=0, atol=2e-6)
 
 
@@ -68,6 +68,6 @@ def test_fp8_control_departs(tmp_path):
     bits, noise = inputs.draw(torch.Generator(), 5, 0, 32, a['block_len'], -1.0, CPU)
     pm = ref.perms(a['block_len'], CPU)
     with torch.no_grad():
-        f32 = ref.forward(params, bits, noise, pm, a['num_iter_ft'])
-        fp8 = ref.forward(params, bits, noise, pm, a['num_iter_ft'], 'fp8')
+        f32 = ref.forward(params, bits, noise, pm, a)
+        fp8 = ref.forward(params, bits, noise, pm, a, 'fp8')
     assert 1e-4 < float((f32 - fp8).abs().max()) < 0.5

@@ -8,7 +8,7 @@ gives them beside each limit), at the cell's own sizes, in one process:
 
   - the program: the numbers that a run compares (harness/checks.py), on
     the inputs of each seed, through the timed path (sweep_counts);
-  - the control: the reference in fp8 (reference/model.py) put in the
+  - the control: the configuration's reference in fp8 put in the
     program's place, against the f32 reference;
   - faults planted in the program (tools/faults.py): 'half', 'answer'.
 
@@ -34,7 +34,7 @@ from benchmark.harness import checks  # noqa: E402
 from benchmark.harness.evaluation import EvalCell  # noqa: E402
 from benchmark.harness.main import load_cell  # noqa: E402
 from benchmark.harness.tracing import Spans  # noqa: E402
-from benchmark.reference.model import no_tf32  # noqa: E402
+from benchmark.reference.common import no_tf32  # noqa: E402
 from benchmark.tools.faults import plant  # noqa: E402
 
 
