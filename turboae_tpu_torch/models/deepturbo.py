@@ -16,6 +16,7 @@ import torch
 from ..classical.trellis import turbo757_trellis, turbo_lte_trellis
 from ..classical.turbo import make_turbo_encoder
 from ..dist import mesh as dm
+from ..utils.logging import span
 
 
 @lru_cache(maxsize=4)
@@ -28,8 +29,10 @@ def turbo_enc_init(gen: torch.Generator, cfg, device='cpu'):
 
 
 def turbo_enc_apply(params, cfg, x, perms, training=True, stats=None):
-    """x (B, L, k) bits -> ((B, L, 3) codes [sys, par1, par2], stats)."""
+    """x (B, L, k) bits -> ((B, L, 3) codes [sys, par1, par2], stats). The
+    trellis encoder's call is the span `trellis`."""
     encode = _cached_encoder('lte' if cfg.encoder == 'Turbo_rate3_lte' else '757')
-    codes = dm.whole_time(
-        lambda full: encode(torch.round(full[:, :, 0]).long(), perms['p1']).float(), x)
+    with span('trellis'):
+        codes = dm.whole_time(
+            lambda full: encode(torch.round(full[:, :, 0]).long(), perms['p1']).float(), x)
     return 2.0 * codes - 1.0, stats

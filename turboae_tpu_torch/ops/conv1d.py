@@ -30,6 +30,8 @@ from typing import Dict, List
 import torch
 import torch.nn.functional as F
 
+from ..utils.logging import span
+
 Layer = Dict[str, torch.Tensor]
 
 
@@ -95,13 +97,24 @@ def dense_stack_apply(layers: List[Layer], x: torch.Tensor, act=F.elu,
     """DenseNet-style stack: layer i reads the running concat
     [x, out_0, ..., out_{i-1}] in that channel order, ELU after every layer.
     Each layer rounds its input to compute_dtype, so the concat's dtype does
-    not change the result."""
-    inp = x.to(compute_dtype)
-    out = act(conv1d_apply(layers[0], inp, compute_dtype))
-    for p in layers[1:]:
-        inp = torch.cat([inp, out], dim=-1)
-        out = act(conv1d_apply(p, inp, compute_dtype))
+    not change the result.
+
+    The call is the span `dense`. `dense_stack_apply.calls` counts the calls
+    and `dense_stack_apply.copy_bytes` the bytes the running concat's
+    `torch.cat`s write: B * L * itemsize * sum_i (Cin + i * Cout) for
+    i = 1 .. num_layer - 1."""
+    with span('dense'):
+        inp = x.to(compute_dtype)
+        out = act(conv1d_apply(layers[0], inp, compute_dtype))
+        for p in layers[1:]:
+            inp = torch.cat([inp, out], dim=-1)
+            dense_stack_apply.copy_bytes += inp.numel() * inp.element_size()
+            out = act(conv1d_apply(p, inp, compute_dtype))
+        dense_stack_apply.calls += 1
     return out
+
+
+dense_stack_apply.calls = dense_stack_apply.copy_bytes = 0
 
 
 def linear_apply(p: Layer, x: torch.Tensor, compute_dtype=torch.float32) -> torch.Tensor:
