@@ -9,14 +9,16 @@ Phases, each printing one JSON line:
                (seconds; ~0 if cached); per kernel, ptxas's registers, shared
                memory, spills and warnings and the HMMA (mma.sync) and HGMMA
                (wgmma) counts of `cuobjdump -sass` (cuobjdump from beside
-               nvcc); every kernel of both must show HGMMA and none may
-               spill;
+               nvcc); every kernel of the three libraries (K2, K1, K3) must
+               show HGMMA and none may spill;
   kernel_check each kernel against its plain PyTorch version on the card, at
                its path's shape and at edge shapes (one or two layers, K=1, odd
                B, C and L that are no multiple of the kernel's tile, odd C,
                C=128 and 256, a partly filled last block; for K2 also B=1001,
                whose blocks of 2 rows fill their tiles in part, and C=300 in
-               two column groups) and at the
+               two column groups; for K3, the dense stack, DeepTurbo's shape,
+               1, 3 and 7 rows at L=23 and 1000, B=1001, C up to 104, its
+               one width, and a wider stack refused) and at the
                long-block shape L=1000 that the wrappers window; each
                kernel's plan (rows and blocks, warpgroups, tiles a
                warpgroup, wgmma width, ring stages) beside each of its cases;
@@ -64,13 +66,14 @@ Phases, each printing one JSON line:
                (--encoder Turbo_rate3_757, bf16, batch 2000, 20,000 blocks a
                point at the 8 points -1.5..2.0 dB) held to
                artifacts/eval_deepturbo.json by the BLER z test; its dense
-               stacks never launch K2;
+               stacks launch K3 12 times a batch, K2 never;
   deepturbo_resume  path 9: deepturbo.msgpack with its Adam state: an f32
                decoder step on the card against the CPU, then one epoch of
                its last leg's recipe through cli/train_flagship.main
                (--num_train_enc 0, 6 decoder epochs, lr 2e-5): the epoch to
                523, the decoder's Adam count +30, the encoder's untouched,
-               the loss below DEEPTURBO_DEC_LOSS_MAX, no K2 launch;
+               the loss below DEEPTURBO_DEC_LOSS_MAX, 12 K3 launches a
+               forward (K3 forward, f32 recompute backward), no K2 launch;
   losses       path 10: on the flagship, one f32 joint step of each of the
                nine losses on the card against the CPU; 6 Lookahead(Adam)
                decoder steps across the syncs at counts 0 and 5, card
@@ -111,7 +114,8 @@ Phases, each printing one JSON line:
                10): the two-interleaver, rate-2, no-interleaver and 2D pairs,
                every key of ROADMAP M9; f32 card against CPU within 1e-4
                relative, bf16 with the fused decoder asked for decisions
-               > 99 % agreeing, 0 K2 launches (JAX fuses none of them);
+               > 99 % agreeing, 0 K2 launches (JAX fuses none of them), and
+               its K3 launches reported;
   cnn_zoo_train  path 15: a joint f32 step of each pair card against CPU
                (rnn_train's tolerances); one cli/main.py epoch of the 2D pair
                in f32 at lr 1e-4 (batch 100, 10 encoder and 50 decoder steps):
@@ -278,6 +282,7 @@ SWEEP_POINTS = (-1.0, 0.0)
 SWEEP_BLOCKS = 20000
 SWEEP_BATCH = 2000
 MAIN_SHAPE = (SWEEP_BATCH, 100, 7, 100, 5, 5)   # K2 on the sweep: B, L, Cin, C, K, layers
+DENSE_SHAPE = (SWEEP_BATCH, 100, 7, 100, 5, 5)  # K3 on DeepTurbo's sweep (layer i: 7 + 100 i in)
 MAX_Z = 4.0
 KERNEL_REL_TOL = 1e-2       # bf16 tolerance of the Pallas kernel tests (tests/test_kernels.py:33-41)
 F32_REL_TOL = 2e-5          # f32 tolerance of the Pallas kernel tests (tests/test_kernels.py:25-30)
@@ -585,7 +590,7 @@ def main() -> int:
     deepturbo_forward_phase(dev, gen)
     paths['deepturbo_curve'] = curve_phase(
         'deepturbo_curve', dev, 'deepturbo.msgpack', 'eval_deepturbo.json',
-        ['--encoder', 'Turbo_rate3_757'], snrs=DEEPTURBO_POINTS, stacks=0)
+        ['--encoder', 'Turbo_rate3_757'], snrs=DEEPTURBO_POINTS, stacks=0, dense_stacks=12)
     paths['deepturbo_resume'] = resume_phase(
         dev, gen, phase='deepturbo_resume', ckpt='deepturbo.msgpack',
         step_cfg={'encoder': 'Turbo_rate3_757', 'dec_lr': 2e-5}, dec_snr=(-2.5, 2.0),
@@ -593,7 +598,7 @@ def main() -> int:
                 '--dec_lr', '2e-5', '--train_dec_channel_low', '-2.5',
                 '--train_dec_channel_high', '2.0'],
         train_enc=0, train_dec=6, dec_loss_max=DEEPTURBO_DEC_LOSS_MAX, stacks=0,
-        num_block=DEEPTURBO_RESUME_NUM_BLOCK)
+        num_block=DEEPTURBO_RESUME_NUM_BLOCK, dense_stacks=12)
 
     # ---- losses: path 10, the loss menu and Lookahead ----
     paths['losses'] = losses_phase(dev, gen)
@@ -668,6 +673,9 @@ def main() -> int:
                                                   torch.bfloat16, BENCH_SHAPE, sweep_layers, gen, dev),
         ('conv_stack_f32', 'bench'): time_kernel(ks.conv_stack_f32, ks.conv_stack_f32_plain,
                                                  torch.float32, BENCH_SHAPE, None, gen, dev),
+        ('dense_stack_bf16', 'sweep'): time_kernel(ks.dense_stack_bf16, ks.dense_stack_bf16_plain,
+                                                   torch.bfloat16, DENSE_SHAPE, None, gen, dev,
+                                                   dense=True),
     }
     for (kname, at), t in times.items():
         emit('times', kernel=kname, at=at, **t, card=smi)
@@ -683,14 +691,16 @@ def main() -> int:
     print(smi, flush=True)
     summary = []
     for kname, at, src, line in (('conv_stack_bf16', 'sweep', 'conv_stack_bf16.cu', 250),
-                                 ('conv_stack_f32', 'bench', 'conv_stack_f32.cu', 137)):
+                                 ('conv_stack_f32', 'bench', 'conv_stack_f32.cu', 137),
+                                 ('dense_stack_bf16', 'sweep', 'dense_stack_bf16.cu', None)):
         t = times[(kname, at)]
-        # every path, zeros included: DeepTurbo's dense stacks never launch K2
+        # every path, zeros included: DeepTurbo's dense stacks launch K3, never K2
         by_path = {p: c[kname] for p, c in paths.items()}
         summary.append({
             'name': kname, 'route': 'cuda',
             'source': f'turboae_tpu_torch/kernels/csrc/{src}',
-            'replaces': f'turboae_tpu/kernels/conv_stack.py:{line}',
+            'replaces': f'turboae_tpu/kernels/conv_stack.py:{line}' if line else
+                        'none: XLA convolutions of the dense stacks',
             'launches': sum(by_path.values()), 'launches_by_path': by_path,
             'max_abs_err': max_abs[kname], 'ms': t['ms'], 'plain_ms': t['plain_ms'],
             'bound_ms': t['bound_ms'], 'bound_by': t['bound_by'],
@@ -733,7 +743,7 @@ def kernel_check_phase(crown, gen, dev):
     """Each kernel against its plain version on the card at its paths'
     shapes and at edge shapes; returns each kernel's largest absolute error."""
     from turboae_tpu_torch.kernels import conv_stack as ks
-    from turboae_tpu_torch.ops.conv1d import stack_init
+    from turboae_tpu_torch.ops.conv1d import dense_stack_init, stack_init
     edge = [('one_layer', (2000, 100, 7, 100, 5, 1)), ('two_layers', (500, 100, 7, 100, 5, 2)),
             ('k1', (256, 100, 7, 100, 1, 3)), ('odd_b', (333, 100, 7, 100, 5, 5)),
             ('ragged', (5, 23, 3, 30, 3, 2)), ('long_block_l1000', (16, 1000, 7, 100, 5, 5))]
@@ -749,21 +759,32 @@ def kernel_check_phase(crown, gen, dev):
     # the bucket lengths of a variable-block-length epoch, the crown's stack
     vbl = [(f'vbl_l{L}', (VBL_BATCH, L, 7, 100, 5, 5), crown['dec']['iters'][0]['dec1_cnn'])
            for L in VBL_BUCKETS]
-    kernels = {  # name: (wrapper, plain, tolerance, cases)
+    # K3 at DeepTurbo's shape; 1, 3 and 7 rows at L = 23 and at L = 1000
+    # (windowed); blocks of 1 and 2 rows; one layer; K = 1; odd C (Cs padded
+    # to even); C = 104, the most its one width (n104) holds. A wider stack
+    # is refused on the card (ValueError), never routed elsewhere
+    k3 = ([('main_path', DENSE_SHAPE, None)]
+          + [(f'b{B}_l{L}', (B, L, 7, 100, 5, 5), None) for L in (23, 1000) for B in (1, 3, 7)]
+          + [('partial_rows_b1001', (1001, 100, 7, 100, 5, 5), None),
+             ('one_layer', (37, 100, 7, 100, 5, 1), None), ('k1', (64, 100, 7, 100, 1, 3), None),
+             ('odd_c', (500, 100, 7, 13, 3, 3), None), ('c104', (250, 100, 8, 104, 5, 2), None)])
+    kernels = {  # name: (wrapper, plain, tolerance, cases, init)
         'conv_stack_bf16': (ks.conv_stack_bf16, ks.conv_stack_bf16_plain, KERNEL_REL_TOL,
                             [('main_path', MAIN_SHAPE, crown['dec']['iters'][0]['dec1_cnn'])]
                             + [(n, sh, None) for n, sh in edge + block_edge + k2_edge
                                if n != 'two_layers']
-                            + vbl),
+                            + vbl, stack_init),
         'conv_stack_f32': (ks.conv_stack_f32, ks.conv_stack_f32_plain, F32_REL_TOL,
                            [('bench', BENCH_SHAPE, None)]
-                           + [(n, sh, None) for n, sh in edge + block_edge]),
+                           + [(n, sh, None) for n, sh in edge + block_edge], stack_init),
+        'dense_stack_bf16': (ks.dense_stack_bf16, ks.dense_stack_bf16_plain, KERNEL_REL_TOL,
+                             k3, dense_stack_init),
     }
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     max_abs = {}
-    for kname, (wrapper, plain, tol, cases) in kernels.items():
+    for kname, (wrapper, plain, tol, cases, init) in kernels.items():
         for name, (B, L, cin, c, k, nl), layers in cases:
-            layers = layers or stack_init(gen, nl, cin, c, k, dev)
+            layers = layers or init(gen, nl, cin, c, k, dev)
             x = torch.randn((B, L, cin), generator=gen).to(dev)
             before = wrapper.launches
             got = wrapper(layers, x)
@@ -775,17 +796,30 @@ def kernel_check_phase(crown, gen, dev):
             err = (got.float() - ref.float()).abs().max().item()
             rel = err / ref.float().abs().max().item()
             if kname == 'conv_stack_bf16':
-                kp, shown = ks.k2_plan(B, L, cin, c, k, nl, n_sm), ('R', 'G', 'nc', 'N')
+                kp, shown = ks.k2_plan(B, L, cin, c, k, nl, n_sm), ('R', 'G', 'nc', 'N', 'ngroups')
                 windowed = {'windowed_rows': ks.k2_max_rows(cin, c, k, nl)}
+            elif kname == 'dense_stack_bf16':
+                kp, shown = ks.dense_plan(B, L, cin, c, k, nl, n_sm), ('R', 'G', 'nc', 'N', 'S')
+                windowed = {'windowed_rows': ks.dense_max_rows(cin, c, k, nl)}
             else:
-                kp, shown = ks.k1_plan(B, L, cin, c, k, nl, n_sm), ('R', 'nc', 'tpw', 'N')
+                kp, shown = ks.k1_plan(B, L, cin, c, k, nl, n_sm), ('R', 'nc', 'tpw', 'N',
+                                                                    'ngroups')
                 windowed = {'windowed_rows': ks.k1_max_rows(cin, c, k, nl)}
-            plan = {'plan': {f: getattr(kp, f) for f in shown + ('ngroups', 'stages', 'smem')}
+            plan = {'plan': {f: getattr(kp, f) for f in shown + ('stages', 'smem')}
                     if kp else windowed}
             emit('kernel_check', kernel=kname, case=name, shape=[B, L, cin, c, k, nl],
                  max_abs_err=err, max_rel_err=rel, tol=tol, **plan)
             check(rel < tol, f'{kname} {name}: relative error {rel} >= {tol}')
             max_abs[kname] = max(max_abs.get(kname, 0.0), err)
+    wide = dense_stack_init(gen, 2, 7, ks.DENSE_N + 8, 5, dev)
+    try:
+        ks.dense_stack_bf16(wide, torch.zeros((4, 100, 7), device=dev))
+        refused = False
+    except ValueError:
+        refused = True
+    emit('kernel_check', kernel='dense_stack_bf16', case=f'c{ks.DENSE_N + 8}_refused',
+         refused=refused)
+    check(refused, f'dense_stack_bf16 took {ks.DENSE_N + 8} output channels')
     return max_abs
 
 
@@ -862,11 +896,12 @@ def channels_phase(dev):
         check(abs(v - w) <= t, f'channels {k}: {v} against {w} +- {t}')
 
 
-def curve_phase(phase, dev, ckpt, ref_name, flags, snrs=SWEEP_POINTS, stacks=12, **fields):
+def curve_phase(phase, dev, ckpt, ref_name, flags, snrs=SWEEP_POINTS, stacks=12,
+                dense_stacks=0, **fields):
     """Evenly spaced points of a committed curve through
-    cli/eval_flagship.evaluate at the sweep's settings, `stacks` K2 launches
-    a batch; returns the kernels' launch counts of the run. `fields` go into
-    the phase's line."""
+    cli/eval_flagship.evaluate at the sweep's settings, `stacks` K2 and
+    `dense_stacks` K3 launches a batch; returns the kernels' launch counts
+    of the run. `fields` go into the phase's line."""
     from turboae_tpu_torch.cli import eval_flagship
     from turboae_tpu_torch.train import sweep as sweep_mod
     from turboae_tpu_torch.utils.device import nvidia_smi
@@ -893,6 +928,7 @@ def curve_phase(phase, dev, ckpt, ref_name, flags, snrs=SWEEP_POINTS, stacks=12,
         sweep_mod.sample_noise = inner
     n_batches = SWEEP_BLOCKS // SWEEP_BATCH
     expected = stacks * n_batches * len(snrs)
+    expected_dense = dense_stacks * n_batches * len(snrs)
     with open(args.ref) as f:
         ref = json.load(f)
     points = [{'snr': s, 'blk_errors': out['blk_errors'][i], 'n_blocks': out['n_blocks'][i],
@@ -901,11 +937,15 @@ def curve_phase(phase, dev, ckpt, ref_name, flags, snrs=SWEEP_POINTS, stacks=12,
               for i, s in enumerate(out['snr'])]
     emit(phase, ckpt=ckpt, flags=flags, points=points, legacy_noise=out['legacy_noise'],
          z_n=LEGACY_N if out['legacy_noise'] else 'n_blocks', noise_draws=len(draws),
-         launches=counts, expected_launches=expected, blocks_per_s=out['eval_blocks_per_s'],
-         device=out['device'], card=nvidia_smi(), **fields)
+         launches=counts, expected_launches=expected, expected_dense_launches=expected_dense,
+         blocks_per_s=out['eval_blocks_per_s'], device=out['device'], card=nvidia_smi(),
+         **fields)
     check(out['snr'] == list(snrs), f'{phase}: points {out["snr"]}')
     check(counts['conv_stack_bf16'] == expected,
           f"{phase}: conv_stack_bf16 launched {counts['conv_stack_bf16']} times, not {expected}")
+    check(counts['dense_stack_bf16'] == expected_dense,
+          f"{phase}: dense_stack_bf16 launched {counts['dense_stack_bf16']} times, "
+          f'not {expected_dense}')
     if out['legacy_noise']:
         check(len(draws) == 1, f'{phase}: the sweep drew its noise {len(draws)} times')
     for p in points:
@@ -963,10 +1003,11 @@ FADING_RECIPE = ['--channel', 'fading', '--train_enc_channel_low', '0.5',
 def resume_phase(dev, gen, phase='resume', ckpt='flagship_fading.msgpack',
                  step_cfg=(('channel', 'fading'),), dec_snr=(-2.5, 2.5), recipe=FADING_RECIPE,
                  train_enc=1, train_dec=5, dec_loss_max=RESUME_DEC_LOSS_MAX, stacks=12,
-                 num_block=RESUME_NUM_BLOCK):
+                 num_block=RESUME_NUM_BLOCK, dense_stacks=0):
     """A committed run resumed on the card: a step's parity with the CPU,
-    then one epoch of the recipe through the training CLI (`stacks` K2
-    launches a forward); returns the kernels' launch counts of the epoch."""
+    then one epoch of the recipe through the training CLI (`stacks` K2 and
+    `dense_stacks` K3 launches a forward); returns the kernels' launch
+    counts of the epoch."""
     import tempfile
     from turboae_tpu_torch.channels.noise import train_sigma
     from turboae_tpu_torch.cli import train_flagship
@@ -1029,6 +1070,7 @@ def resume_phase(dev, gen, phase='resume', ckpt='flagship_fading.msgpack',
          file_step=step, file_counts=counts0, saved_step=after['step'], counts_grew=grew,
          epoch=epoch, dec_loss=epoch[-1]['dec_loss'] if epoch else None,
          dec_loss_max=dec_loss_max, launches=counts, expected_launches=stacks * forwards,
+         expected_dense_launches=dense_stacks * forwards,
          seconds=seconds, train_blocks_per_s=num_block * (train_enc + train_dec)
          / epoch[-1]['seconds'] if epoch else None,
          test_bler=trainer.last_test['bler'], card=nvidia_smi())
@@ -1046,6 +1088,9 @@ def resume_phase(dev, gen, phase='resume', ckpt='flagship_fading.msgpack',
     check(counts['conv_stack_bf16'] == stacks * forwards,
           f"{phase}: conv_stack_bf16 launched {counts['conv_stack_bf16']} times, "
           f'not {stacks} x {forwards}')
+    check(counts['dense_stack_bf16'] == dense_stacks * forwards,
+          f"{phase}: dense_stack_bf16 launched {counts['dense_stack_bf16']} times, "
+          f'not {dense_stacks} x {forwards}')
     return counts
 
 
@@ -1307,7 +1352,7 @@ def rnn_forward_phase(dev, gen, batch=PARITY_BATCH):
     from turboae_tpu_torch.ops import gru
     from turboae_tpu_torch.train.sweep import params_to
     from turboae_tpu_torch.utils.metrics import snr_db2sigma
-    cases, counts = [], {'conv_stack_bf16': 0, 'conv_stack_f32': 0}
+    cases, counts = [], dict.fromkeys(read_counts(), 0)
 
     def fwd(params, c, bits, noise, where):
         with torch.inference_mode():
@@ -1659,7 +1704,7 @@ def cnn_zoo_forward_phase(dev, gen, batch=PARITY_BATCH):
     from turboae_tpu_torch.models.channel_ae import forward_ae, init_ae, make_perms
     from turboae_tpu_torch.train.sweep import params_to
     from turboae_tpu_torch.utils.metrics import snr_db2sigma
-    cases, counts = [], {'conv_stack_bf16': 0, 'conv_stack_f32': 0}
+    cases, counts = [], dict.fromkeys(read_counts(), 0)
 
     def fwd(params, c, bits, noise, where):
         with torch.inference_mode():
@@ -2080,7 +2125,7 @@ def graph_steps_phase(dev, eager_bench):
              ('float32', False, 'adam', ('decoder', 'encoder')),
              ('float32', False, 'lookahead', ('decoder',)),
              ('float32', False, 'sgd', ('decoder',))]
-    results, counts = [], {'conv_stack_bf16': 0, 'conv_stack_f32': 0}
+    results, counts = [], dict.fromkeys(read_counts(), 0)
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
 
@@ -2545,25 +2590,28 @@ def reset_counts():
     from turboae_tpu_torch.kernels import conv_stack as ks
     ks.conv_stack_bf16.launches = 0
     ks.conv_stack_f32.launches = 0
+    ks.dense_stack_bf16.launches = 0
 
 
 def read_counts():
     from turboae_tpu_torch.kernels import conv_stack as ks
     return {'conv_stack_bf16': ks.conv_stack_bf16.launches,
-            'conv_stack_f32': ks.conv_stack_f32.launches}
+            'conv_stack_f32': ks.conv_stack_f32.launches,
+            'dense_stack_bf16': ks.dense_stack_bf16.launches}
 
 
-def time_kernel(wrapper, plain, dtype, shape, layers, gen, dev):
+def time_kernel(wrapper, plain, dtype, shape, layers, gen, dev, dense=False):
     """CUDA-event ms of the kernel (a wrapper call, which packs the weights,
     and its launch alone on weights packed once), its plain version and five
-    cuDNN conv1d + ELU in the kernel's type (TF32 off), with the bound of
-    the same work: for bf16 its FLOP at the bf16 tensor-core peak; for f32
-    three TF32 products a product (K1's 3xTF32) at the TF32 peak, with exact
-    f32 at the FFMA peak beside it."""
+    cuDNN conv1d + ELU in the kernel's type (TF32 off; dense: the port's
+    concatenating dense stack in bf16, cuDNN, torch.cat, bias adds and
+    ELUs), with the bound of the same work: for bf16 its FLOP at the bf16
+    tensor-core peak; for f32 three TF32 products a product (K1's 3xTF32) at
+    the TF32 peak, with exact f32 at the FFMA peak beside it."""
     from turboae_tpu_torch.kernels import conv_stack as ks
-    from turboae_tpu_torch.ops.conv1d import stack_init
+    from turboae_tpu_torch.ops.conv1d import dense_stack_apply, dense_stack_init, stack_init
     B, L, cin, c, k, nl = shape
-    layers = layers or stack_init(gen, nl, cin, c, k, dev)
+    layers = layers or (dense_stack_init if dense else stack_init)(gen, nl, cin, c, k, dev)
     x = torch.randn((B, L, cin), generator=gen).to(dev)
     ms = cuda_ms(lambda: wrapper(layers, x), iters=20)
     alone_ms = cuda_ms(ks.launch_alone(wrapper, layers, x), iters=20)
@@ -2573,18 +2621,21 @@ def time_kernel(wrapper, plain, dtype, shape, layers, gen, dev):
     lw = [(p['w'].to(dtype), p['b'].to(dtype)) for p in layers]
 
     def library_chain():
+        if dense:
+            return dense_stack_apply(layers, x, compute_dtype=dtype)
         h = xl
         for w, b in lw:
             h = torch.nn.functional.elu(torch.nn.functional.conv1d(h, w, b, padding=k // 2))
         return h
     library_ms = cuda_ms(library_chain, iters=20)
-    from turboae_tpu_torch.kernels.conv_stack import conv_stack_work
+    from turboae_tpu_torch.kernels.conv_stack import conv_stack_work, dense_stack_work
     from turboae_tpu_torch.utils.flops import PEAKS
     # the card's published dense peaks at its full power limit (utils/flops.py)
     peaks = PEAKS.get(torch.cuda.get_device_name(dev))
     check(peaks is not None, f'no peaks for {torch.cuda.get_device_name(dev)} in utils/flops.py')
     itemsize = torch.finfo(dtype).bits // 8
-    flops, nbytes = conv_stack_work(B, L, cin, c, k, nl, itemsize)
+    flops, nbytes = (dense_stack_work if dense else conv_stack_work)(B, L, cin, c, k, nl,
+                                                                      itemsize)
     if dtype == torch.bfloat16:
         peak, products, extra = peaks['bfloat16'], flops, {}
     else:

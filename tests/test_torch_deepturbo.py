@@ -3,7 +3,9 @@
   - the classical trellis tables, and the turbo encoder on the device bit
     for bit against JAX's models/deepturbo.turbo_enc_apply and the host
     oracle classical/turbo.py:turbo_encode_batch (both trellises, L in
-    {24, 100, 1000}, random messages);
+    {24, 100, 1000}, random messages), and the convolutional encoder's
+    prefix composition against JAX's scan at lengths around powers of two,
+    in operations that grow with log2 L;
   - artifacts/deepturbo.msgpack at full width (dense decoder stacks, 100
     units, 5 layers, 6 iterations), f32, batch 8: the port's forward against
     JAX's within 1e-5 (JAX at 'highest' matmul precision);
@@ -62,6 +64,36 @@ def test_conv_encoder_equals_jax(code_type):
     got = tconv.make_encoder(tr_t, code_type)(torch.from_numpy(msgs))
     assert got.dtype == torch.int64 and got.shape == (7, 33 * 2)
     np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize('L', [1, 2, 3, 5, 64, 65, 257])
+@pytest.mark.parametrize('code_type', ['default', 'rsc'])
+def test_conv_encoder_scan_equals_jax_at_any_length(code_type, L):
+    """The encoder's states run as a prefix composition in log2 rounds:
+    lengths around a power of two, and one step, give JAX's scan's bits."""
+    tr_t, tr_j = ttrellis.turbo757_trellis(), jtrellis.turbo757_trellis()
+    msgs = (np.random.RandomState(L).random_sample((5, L)) < 0.5).astype(np.int32)
+    ref = np.asarray(jconv.make_jax_encoder(tr_j, code_type)(jnp.asarray(msgs)))
+    got = tconv.make_encoder(tr_t, code_type)(torch.from_numpy(msgs))
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize('encoder', sorted(TRELLISES))
+def test_turbo_encoder_is_not_a_loop_over_positions(encoder):
+    """A turbo encoder's call is a few hundred host operations (views
+    included) that grow with log2 L (a round of the prefix composition),
+    not a few a position (~3,500 at L=100 as a loop): at L=1000 at most half
+    again as many as at L=100 (380 and 460 counted)."""
+    from torch.profiler import ProfilerActivity, profile
+    counts = []
+    for L in (100, 1000):
+        _, tcfg = configs(encoder=encoder, block_len=L)
+        bits = torch.zeros((4, L, 1))
+        perms = tae.make_perms(tcfg, 'cpu')
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            turbo_enc_apply({}, tcfg, bits, perms)
+        counts.append(sum(e.count for e in prof.key_averages()))
+    assert counts[0] < 600 and counts[1] <= 1.5 * counts[0], counts
 
 
 @pytest.mark.parametrize('L', [24, 100, 1000])

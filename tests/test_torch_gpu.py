@@ -161,6 +161,94 @@ def test_fused_backward_on_gpu(cuda_device):
     assert x.grad is not None and all(t.grad is not None for t in leaves)
 
 
+def _dense_stack(nl, cin, c, k, device, seed=0):
+    from turboae_tpu_torch.ops.conv1d import dense_stack_init
+    layers = dense_stack_init(torch.Generator().manual_seed(seed), nl, cin, c, k)
+    return [{'w': p['w'].to(device), 'b': p['b'].to(device)} for p in layers]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('B,L,cin,c,k,nl', [
+    (2000, 100, 7, 100, 5, 5), (1, 23, 7, 100, 5, 5), (3, 23, 7, 100, 5, 5),
+    (7, 23, 7, 100, 5, 5), (1, 1000, 7, 100, 5, 5), (3, 1000, 7, 100, 5, 5),
+    (7, 1000, 7, 100, 5, 5), (1001, 100, 7, 100, 5, 5), (37, 100, 7, 100, 5, 1),
+    (64, 100, 7, 100, 1, 3), (500, 100, 7, 13, 3, 3), (250, 100, 8, 104, 5, 2),
+    (100, 40, 7, 104, 3, 2)])
+def test_dense_kernel_matches_plain(cuda_device, B, L, cin, c, k, nl):
+    """K3 against its plain version in one launch: DeepTurbo's shape; B of
+    1, 3 and 7 rows at L = 23 and at L = 1000 (windowed: five windows of 220
+    rows); B = 1001 (blocks of 1 and 2 rows); one layer; K = 1; odd C (an
+    odd Cs padded to even); C = 104, every column of its one width (n104),
+    on one row and on two rows of 40."""
+    layers = _dense_stack(nl, cin, c, k, cuda_device)
+    x = torch.randn((B, L, cin), generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    before = ks.dense_stack_bf16.launches
+    got = ks.dense_stack_bf16(layers, x)
+    torch.cuda.synchronize()
+    assert ks.dense_stack_bf16.launches == before + 1
+    ref = ks.dense_stack_bf16_plain(layers, x).float()
+    assert got.dtype == torch.bfloat16 and got.shape == (B, L, c)
+    assert ((got.float() - ref).abs().max() / ref.abs().max()).item() < REL_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('c,L,nl,match', [(112, 100, 2, 'at most 104'),
+                                          (100, 1000, 40, 'keeps no row')])
+def test_dense_kernel_refuses_what_it_cannot_hold(cuda_device, c, L, nl, match):
+    """On the card K3's wrapper raises on a stack it cannot hold (more
+    output channels than its one width; a halo of 80 rows that fills every
+    window), as K2's does, and launches nothing."""
+    layers = _dense_stack(nl, 7, c, 5, cuda_device)
+    before = ks.dense_stack_bf16.launches
+    with pytest.raises(ValueError, match=match):
+        ks.dense_stack_bf16(layers, torch.zeros((2, L, 7), device=cuda_device))
+    assert ks.dense_stack_bf16.launches == before
+
+
+@pytest.mark.gpu
+def test_dense_fused_backward_on_gpu(cuda_device):
+    """The differentiable entry: K3 forward, the f32 dense stack's gradients."""
+    from turboae_tpu_torch.ops.conv1d import dense_stack_apply
+    layers = _dense_stack(3, 7, 16, 5, cuda_device)
+    leaves = [t.requires_grad_(True) for p in layers for t in (p['w'], p['b'])]
+    x = torch.randn((3, 12, 7), device=cuda_device, requires_grad=True)
+    before = ks.dense_stack_bf16.launches
+    out = ks.fused_dense_stack_apply_bf16(layers, x)
+    g = torch.randn(out.shape, device=cuda_device)
+    got = torch.autograd.grad(out, [x, *leaves], g.to(out.dtype))
+    assert ks.dense_stack_bf16.launches == before + 1
+    ref = torch.autograd.grad(dense_stack_apply(layers, x), [x, *leaves],
+                              g.to(out.dtype).float())
+    for a, b in zip(got, ref):      # cuDNN may pick another algorithm each call
+        torch.testing.assert_close(a, b)
+
+
+@pytest.mark.gpu
+def test_deepturbo_batch_launches_k3_twelve_times(cuda_device):
+    """A bf16 sweep batch of DeepTurbo with use_fused_conv: each of the 12
+    dense stacks one K3 launch and no K2 launch, no concatenation; its
+    decisions agree with the CPU's plain version of the same path."""
+    from turboae_tpu_torch.config import Config
+    from turboae_tpu_torch.models.channel_ae import forward_ae, init_ae, make_perms
+    from turboae_tpu_torch.ops import conv1d as cv
+    from turboae_tpu_torch.train.sweep import params_to
+    cfg = Config(encoder='Turbo_rate3_757', dtype='bfloat16', use_fused_conv=True)
+    params = init_ae(torch.Generator().manual_seed(0), cfg)
+    g = torch.Generator().manual_seed(2)
+    bits = (torch.rand((64, 100, 1), generator=g) < 0.5).float()
+    noise = torch.randn((64, 100, 3), generator=g)
+    k2, k3 = ks.conv_stack_bf16.launches, ks.dense_stack_bf16.launches
+    copied = cv.dense_stack_apply.copy_bytes
+    with torch.inference_mode():
+        got = forward_ae(params_to(params, cuda_device), cfg, bits.to(cuda_device),
+                         noise.to(cuda_device), make_perms(cfg, cuda_device), training=False)[0]
+        ref = forward_ae(params, cfg, bits, noise, make_perms(cfg, 'cpu'), training=False)[0]
+    torch.cuda.synchronize()
+    assert ks.dense_stack_bf16.launches - k3 == 12 and ks.conv_stack_bf16.launches == k2
+    assert cv.dense_stack_apply.copy_bytes == copied
+    assert (got.cpu().round() == ref.round()).float().mean().item() > 0.99
+
+
 @pytest.mark.gpu
 def test_trainer_marks_bracket_each_phase(cuda_device):
     """The CUDA events a step records when `Trainer.marks` is a list, read by

@@ -11,9 +11,10 @@ import torch
 
 from turboae_tpu_torch.kernels import conv_stack as ks
 
-# (wrapper, its layout, its packer)
-KERNELS = {'K2': (ks.conv_stack_bf16, ks.k2_layout, ks.pack_weights_bf16),
-           'K1': (ks.conv_stack_f32, ks.k1_layout, ks.pack_weights)}
+# (wrapper, its layout, its packer, whether its stack is dense)
+KERNELS = {'K2': (ks.conv_stack_bf16, ks.k2_layout, ks.pack_weights_bf16, False),
+           'K1': (ks.conv_stack_f32, ks.k1_layout, ks.pack_weights, False),
+           'K3': (ks.dense_stack_bf16, ks.dense_layout, ks.pack_dense_bf16, True)}
 
 
 @pytest.fixture(autouse=True)
@@ -23,9 +24,9 @@ def empty_cache():
     ks.clear_packs()
 
 
-def _layers(nl=3, cin=7, c=10, k=5, seed=0):
+def _layers(nl=3, cin=7, c=10, k=5, seed=0, dense=False):
     g = torch.Generator().manual_seed(seed)
-    return [{'w': torch.randn((c, cin if i == 0 else c, k), generator=g),
+    return [{'w': torch.randn((c, cin + i * c if dense else cin if i == 0 else c, k), generator=g),
              'b': torch.randn((c,), generator=g)} for i in range(nl)]
 
 
@@ -45,8 +46,8 @@ def _counts(wrapper):
 
 @pytest.mark.parametrize('kernel', KERNELS)
 def test_a_hit_returns_a_fresh_pack(kernel):
-    wrapper, layout, pack = KERNELS[kernel]
-    layers = _layers()
+    wrapper, layout, pack, dense = KERNELS[kernel]
+    layers = _layers(dense=dense)
     plan = _plan(layout, layers)
     h, m = _counts(wrapper)
     with torch.inference_mode():
@@ -62,10 +63,11 @@ def test_a_hit_returns_a_fresh_pack(kernel):
 @pytest.mark.parametrize('kernel', KERNELS)
 def test_a_change_misses_and_repacks(kernel, change):
     """An in-place write under no_grad (an optimizer's), new tensors of
-    equal values, another wgmma width or column groups, fewer layers: each
-    misses, and the pack it returns is the fresh one."""
-    wrapper, layout, pack = KERNELS[kernel]
-    layers = _layers()
+    equal values, another wgmma width or column groups (K3: another channel
+    layout), fewer layers: each misses, and the pack it returns is the fresh
+    one."""
+    wrapper, layout, pack, dense = KERNELS[kernel]
+    layers = _layers(dense=dense)
     plan = _plan(layout, layers)
     with torch.inference_mode():
         ks.packed(wrapper, layers, plan)
@@ -77,7 +79,7 @@ def test_a_change_misses_and_repacks(kernel, change):
     elif change == 'width':
         plan = dataclasses.replace(plan, N=128)
     elif change == 'groups':
-        plan = dataclasses.replace(plan, ngroups=2)
+        plan = dataclasses.replace(plan, **{'Cinp': plan.Cinp + 2} if dense else {'ngroups': 2})
     else:
         layers = layers[:2]
         plan = _plan(layout, layers)
@@ -92,8 +94,8 @@ def test_a_change_misses_and_repacks(kernel, change):
 def test_another_length_shares_the_entry(kernel):
     """Windows and halo windows of other lengths (other R, G, P, rows) pack
     the same: the key holds only the pack's own plan fields."""
-    wrapper, layout, pack = KERNELS[kernel]
-    layers = _layers()
+    wrapper, layout, pack, dense = KERNELS[kernel]
+    layers = _layers(dense=dense)
     short, long_ = _plan(layout, layers, L=20), _plan(layout, layers, L=37)
     assert short != long_
     with torch.inference_mode():
@@ -110,15 +112,15 @@ def test_no_lookup_or_store_where_it_must_not_serve(kernel, mode, monkeypatch):
     """Grad mode and no_grad (a caller that may train), a CUDA graph's
     capture in inference mode, and weights made in inference mode (no
     version to key on): every call packs, none is counted or kept."""
-    wrapper, layout, pack = KERNELS[kernel]
+    wrapper, layout, pack, dense = KERNELS[kernel]
     if mode == 'capture':
         monkeypatch.setattr(torch.backends.cuda, 'is_built', lambda: True)
         monkeypatch.setattr(torch.cuda, 'is_current_stream_capturing', lambda: True)
     if mode == 'inference_tensors':
         with torch.inference_mode():
-            layers = _layers()
+            layers = _layers(dense=dense)
     else:
-        layers = _layers()
+        layers = _layers(dense=dense)
     plan = _plan(layout, layers)
     h, m = _counts(wrapper)
     for _ in range(2):
@@ -136,13 +138,14 @@ def test_no_lookup_or_store_where_it_must_not_serve(kernel, mode, monkeypatch):
 
 
 def test_clear_packs_empties_the_cache():
-    layers = _layers()
+    stacks = {name: _layers(dense=k[3]) for name, k in KERNELS.items()}   # alive: entries stay
     with torch.inference_mode():
-        for wrapper, layout, _ in KERNELS.values():
-            ks.packed(wrapper, layers, _plan(layout, layers))
-    assert len(ks._packs) == 2
+        for name, (wrapper, layout, _, _) in KERNELS.items():
+            ks.packed(wrapper, stacks[name], _plan(layout, stacks[name]))
+    assert len(ks._packs) == 3
     ks.clear_packs()
     assert len(ks._packs) == 0
+    layers = _layers()
     h, m = _counts(ks.conv_stack_bf16)
     with torch.inference_mode():
         ks.packed(ks.conv_stack_bf16, layers, _plan(ks.k2_layout, layers))
@@ -151,8 +154,8 @@ def test_clear_packs_empties_the_cache():
 
 @pytest.mark.parametrize('kernel', KERNELS)
 def test_a_freed_weight_leaves_no_entry(kernel):
-    wrapper, layout, _ = KERNELS[kernel]
-    layers = _layers()
+    wrapper, layout, _, dense = KERNELS[kernel]
+    layers = _layers(dense=dense)
     plan = _plan(layout, layers)
     with torch.inference_mode():
         ks.packed(wrapper, layers, plan)

@@ -6,8 +6,10 @@ Host: `conv_encode`, `conv_encode_batch` and the windowed-traceback
 
 Device: `make_encoder(trellis, code_type)` returns a function of (B, L) int
 bits to (B, (L+M)*n) int64 code bits, on the bits' device (JAX :232-288).
-Its tables are small int64 tensors; each of the L steps gathers the batch's
-outputs and next states from them, a loop of L steps on the host. Code type
+Its tables are small int64 tensors. The states run as a prefix composition
+of the steps' state maps (each step's next state from every state, composed
+by gathers in log2 L rounds), so a call is a few dozen device operations,
+not a loop of L steps on the host; the outputs are then one gather. Code type
 'default' feeds M zeros after the message; 'rsc' instead appends, per final
 state, the M termination inputs that return the register toward 0 (the
 reversed state bits, commpy conv_encode :404-413), precomputed on the host.
@@ -250,7 +252,8 @@ def make_encoder(trellis: Trellis, code_type: str = 'default') -> Callable:
     if code_type not in ('default', 'rsc'):
         raise ValueError(f'unknown code type {code_type!r}')
     M, n = trellis.total_memory, trellis.n
-    host = {'nst': trellis.next_state_table, 'obits': trellis.output_bits()}
+    host = {'nst_by_input': np.ascontiguousarray(trellis.next_state_table.T),   # (inputs, S)
+            'obits': trellis.output_bits()}
     if code_type == 'rsc':
         host['term_inputs'], host['term_states'] = termination_tables(trellis)
     tables = device_tables(host)
@@ -261,15 +264,21 @@ def make_encoder(trellis: Trellis, code_type: str = 'default') -> Callable:
         inb = msgs.long()
         if code_type == 'default':
             inb = torch.cat([inb, inb.new_zeros((B, M))], dim=1)
-        state = inb.new_zeros(B)
-        outs = []
-        for u in inb.unbind(1):
-            outs.append(t['obits'][state, u])
-            state = t['nst'][state, u]
+        T = inb.shape[1]
+        # f[:, j, s]: the state after inputs i..j from state s, i = j - 2d + 1
+        # after the round of d (Hillis-Steele); at the end, after inputs 0..j
+        f = t['nst_by_input'][inb]                                   # (B, T, S)
+        d = 1
+        while d < T:
+            f = torch.cat([f[:, :d], torch.gather(f[:, d:], 2, f[:, :-d])], dim=1)
+            d *= 2
+        state = torch.cat([inb.new_zeros((B, 1)), f[:, :-1, 0]], dim=1)[:, :T]   # before input j
+        outs = t['obits'][state, inb]                                # (B, T, n)
         if code_type == 'rsc':
-            ts, ti = t['term_states'][state], t['term_inputs'][state]     # (B, M)
-            outs.extend(t['obits'][ts, ti].unbind(1))
-        return torch.stack(outs, dim=1).reshape(B, -1)
+            final = f[:, -1, 0] if T else inb.new_zeros(B)
+            ts, ti = t['term_states'][final], t['term_inputs'][final]     # (B, M)
+            outs = torch.cat([outs, t['obits'][ts, ti]], dim=1)
+        return outs.reshape(B, -1)
 
     return encode
 

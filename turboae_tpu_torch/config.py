@@ -7,8 +7,9 @@ copy because it imports nothing of the JAX package.
 Port meanings of the accelerator fields:
   - dtype='bfloat16' maps to torch.bfloat16 (conv stacks in bf16, heads f32);
   - use_fused_conv routes the decoder's plain conv stacks through the
-    hand-written CUDA kernel `kernels/conv_stack.py::conv_stack_bf16`; dense
-    stacks (every encoder but 'TurboAE_rate3_cnn') never fuse, as in JAX;
+    hand-written CUDA kernel `kernels/conv_stack.py::conv_stack_bf16`, and,
+    in bf16, its dense stacks (every encoder but 'TurboAE_rate3_cnn'; JAX
+    never fuses them) through `kernels/conv_stack.py::dense_stack_bf16`;
   - steps_per_call > 1 runs that many optimizer steps as one replay of a
     CUDA graph (train/trainer.py);
   - mesh_shape (N,) or (N, M) and shard_axis 'batch' | 'time' shard the

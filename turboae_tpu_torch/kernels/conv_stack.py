@@ -1,4 +1,5 @@
-"""Fused same-length Conv1d stacks: the ports of the Pallas kernels K1 and K2.
+"""Fused same-length Conv1d stacks: the ports of the Pallas kernels K1 and
+K2, and K3 for DenseNet-style stacks.
 
   - K1, `conv_stack_f32`, replaces `turboae_tpu/kernels/conv_stack.py::
     _fused_forward` (Pallas body `_stack_kernel`, exposed as
@@ -20,23 +21,36 @@
     on mbarriers) over a block of several batch rows laid out as one flat
     buffer (`K2Plan`, `k2_plan`), with its weights packed in wgmma's
     swizzled layout by `pack_weights_bf16`.
-Both packers are one gather (`_swizzle_gather`) at the kernel's element size.
+  - K3, `dense_stack_bf16`, replaces no Pallas kernel (the JAX package runs
+    dense stacks through XLA's convolutions). CUDA source
+    `csrc/dense_stack_bf16.cu`. A dense stack (ops/conv1d.py:
+    dense_stack_apply: layer i reads [x, out_0, ..., out_{i-1}]) in one
+    launch, K2's roundings and K2's Hopper design, with one shared-memory
+    buffer a block that holds every channel of the stack, so the running
+    concatenation never reaches device memory (`DensePlan`, `dense_plan`);
+    its weights are packed tap by tap and layer by layer by
+    `pack_dense_bf16`. models/decoders.py routes every dense stack to it
+    under use_fused_conv in bf16; on the card it raises on a stack it cannot
+    hold (more than DENSE_N output channels, or a window that keeps no row
+    beside its halo), as K2 does.
+K1's and K2's packers are one gather (`_swizzle_gather`) at the kernel's
+element size, K3's one gather of its own (`_dense_gather`).
 
 `build.py` compiles each source with nvcc for sm_90a; it is called through
 ctypes. For each kernel:
-  - `conv_stack_<t>(layers, x)` is the wrapper. On a CUDA tensor it launches
-    the kernel or raises; on a CPU tensor it runs the plain version.
-    `conv_stack_<t>.launches` counts the kernel's launches.
-  - `launch_alone(conv_stack_<t>, layers, x)` plans and packs once and
+  - `conv_stack_<t>(layers, x)` (K3: `dense_stack_bf16`) is the wrapper. On
+    a CUDA tensor it launches the kernel or raises; on a CPU tensor it runs
+    the plain version. `<wrapper>.launches` counts the kernel's launches.
+  - `launch_alone(<wrapper>, layers, x)` plans and packs once and
     returns the launch alone, for timing the kernel without the packing.
-  - `conv_stack_<t>_plain(layers, x)` is the plain PyTorch version: K shifted
-    matmuls per layer. K1's is exact f32. K2's multiplies bf16-rounded
-    operands in f32 and rounds to bf16 after every layer; it never uses a
-    bf16 matmul, which would round the sum before the bias add.
-  - `fused_stack_apply[_bf16](layers, x)` is the differentiable entry point:
-    its backward recomputes through the unfused f32 stack, as the JAX
-    package's `_bwd` and `_bwd_bf16` do. Neither Pallas kernel has a backward
-    kernel, so neither port has one.
+  - `<wrapper>_plain(layers, x)` is the plain PyTorch version: K shifted
+    matmuls per layer. K1's is exact f32. K2's and K3's multiply
+    bf16-rounded operands in f32 and round to bf16 after every layer; they
+    never use a bf16 matmul, which would round the sum before the bias add.
+  - `fused_stack_apply[_bf16](layers, x)` and `fused_dense_stack_apply_bf16`
+    are the differentiable entry points: the backward recomputes through
+    the unfused f32 stack, as the JAX package's `_bwd` and `_bwd_bf16` do.
+    Neither Pallas kernel has a backward kernel, so no port has one.
 
 Long blocks: a kernel keeps a block's activations on chip. Where not even one
 batch row fits in a block (its accumulators in one SM's registers, its
@@ -53,14 +67,15 @@ graph's replay, train/trainer.py:_StepGraph). `conv_stack_<t>.pack_hits`
 and `.pack_misses` count its lookups. Elsewhere (training, capture) every
 launch packs anew.
 
-Spans (utils/logging.py:span), `k2` for K2 and `k1` for K1: the wrapper's
+Spans (utils/logging.py:span), `k2` for K2, `k1` for K1, `k3` for K3: the wrapper's
 call (once more inside `k2.window` when it windows), `k2.window` (the
 windows' plan, gathers and inner call), `k2.pack` (the packed weights,
 the input's cast, the output's allocation), within it `k2.pack.weights`
 (the packing itself, absent on a hit) and `k2.launch` (the ctypes
 launch); `wait` around each copy that makes the host wait for the card.
 
-`layers` is a list of {'w': (C, Cin, K), 'b': (C,)} in PyTorch's layout.
+`layers` is a list of {'w': (C, Cin, K), 'b': (C,)} in PyTorch's layout
+(K3: layer i's w is (C, Cin + i*C, K)).
 """
 from __future__ import annotations
 
@@ -74,12 +89,12 @@ from typing import Callable, Dict, List, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from ..ops.conv1d import stack_apply
+from ..ops.conv1d import dense_stack_apply, stack_apply
 from ..utils.logging import span
 from . import build
 
 # each library is named after its wrapper: csrc/<name>.cu exports <name>_launch
-LIBRARIES = ('conv_stack_bf16', 'conv_stack_f32')
+LIBRARIES = ('conv_stack_bf16', 'conv_stack_f32', 'dense_stack_bf16')
 # shared memory one thread block can use on sm_90 (227 KB)
 SMEM_LIMIT = 232448
 
@@ -354,6 +369,110 @@ def k1_max_rows(Cin: int, C: int, K: int, num_layer: int) -> int:
     return L
 
 
+# ---------------------------------------------------------------- K3's layout
+# K3's one wgmma width, n104 (n56 + n48), for up to 104 output channels
+# (DeepTurbo's 100), and its most consumer warpgroups (K2's register rule,
+# csrc/dense_stack_bf16.cu `dense_stack_bf16_launch`): four, the most m64
+# tiles that two rows of DeepTurbo's stack fill, so each consumer starts
+# from 96 registers instead of K2's 80.
+DENSE_N = 104
+DENSE_NC = 4
+
+
+def _even(n: int) -> int:
+    return n + n % 2
+
+
+@dataclass(frozen=True)
+class DensePlan:
+    """K3's launch (struct Plan in dense_stack_bf16.cu, field for field).
+
+    A block holds up to R batch rows of P = L+K-1 rows each (K//2 zero halo
+    rows on each side), one after another in ONE bf16 buffer of row stride
+    S and `buf` values (R*P*S and a zero tail of 8) that holds every channel
+    of the stack: x in [0, Cin), a zero channel up to Cinp (Cin rounded up
+    to even), then layer i's output in [Cinp + i*Cs, Cinp + i*Cs + C) (Cs =
+    C rounded up to even); the last layer's output goes over [0, Cs). Layer
+    i contracts, tap by tap, its own channels rounded up to 16
+    (`tap_rows`): one (M, K * tap_rows(i)) x (.., N) product with M = R*P -
+    (K-1) in `nc` m64 tiles, one a consumer warpgroup. G blocks share the B
+    batch rows evenly, as K2's. The weights stream in chunks of 64
+    contraction rows and N columns through a ring of `stages` stages."""
+    L: int
+    Cin: int
+    C: int
+    K: int
+    num_layer: int
+    R: int
+    G: int
+    P: int
+    S: int
+    Cinp: int
+    Cs: int
+    N: int
+    nc: int
+    stages: int
+    buf: int
+
+    def tap_rows(self, i: int) -> int:
+        """Contraction rows of one tap of layer i: its channels rounded up to 16."""
+        return _cdiv(self.Cinp + i * self.Cs, 16) * 16
+
+    def chunks(self, i: int) -> int:
+        """Weight chunks of layer i (its last one zero-filled past its rows)."""
+        return _cdiv(self.K * self.tap_rows(i), K2_CHUNK)
+
+    @property
+    def smem(self) -> int:
+        """Bytes of dynamic shared memory: the ring's 1024-byte alignment,
+        the ring, the activation buffer in bf16, every layer's bias in f32,
+        and the ring's mbarriers."""
+        return (1024 + self.stages * self.N * 128 + 2 * self.buf
+                + 4 * self.num_layer * self.N + 16 * self.stages)
+
+    def fits(self) -> bool:
+        return self.Cs <= self.N and self.nc <= DENSE_NC and self.smem <= SMEM_LIMIT
+
+    def as_ints(self):
+        return [getattr(self, f.name) for f in fields(self)]
+
+
+def dense_layout(L: int, Cin: int, C: int, K: int, num_layer: int, R: int,
+                 G: int = 1) -> DensePlan:
+    """K3's block layout for R batch rows of length L (it may not fit)."""
+    Cinp, Cs, P = _even(Cin), _even(C), L + K - 1
+    S = k2_stride(max(Cinp + (num_layer - 1) * Cs, Cs))
+    nc = _cdiv(R * P - (K - 1), 64)
+    plans = [DensePlan(L, Cin, C, K, num_layer, R, G, P, S, Cinp, Cs, DENSE_N, nc,
+                       stages, R * P * S + 8) for stages in K2_STAGES]
+    return next((p for p in plans if p.smem <= SMEM_LIMIT), plans[-1])
+
+
+@functools.lru_cache(maxsize=256)
+def dense_plan(B: int, L: int, Cin: int, C: int, K: int, num_layer: int,
+               n_sm: int) -> Optional[DensePlan]:
+    """K3's launch for a call on a card of `n_sm` SMs, or None when not even
+    one row of length L fits in a block (then the wrapper windows the time
+    axis); K2's rule of whole rounds (`k2_plan`). At DeepTurbo's shape on
+    132 SMs (Rmax 2): B=2000 in 1056 blocks of 1-2 rows (8 rounds)."""
+    r_max = 0
+    while r_max < max(B, 1) and dense_layout(L, Cin, C, K, num_layer, r_max + 1).fits():
+        r_max += 1
+    if r_max == 0:
+        return None
+    G = max(1, min(B, n_sm * _cdiv(B, n_sm * r_max)))
+    return dense_layout(L, Cin, C, K, num_layer, _cdiv(B, G) if B else 1, G)
+
+
+@functools.lru_cache(maxsize=256)
+def dense_max_rows(Cin: int, C: int, K: int, num_layer: int) -> int:
+    """K3's longest time axis that one block holds (one batch row); 0 if none."""
+    L = 64 * DENSE_NC   # as many rows as the warpgroups cover
+    while L > 0 and not dense_layout(L, Cin, C, K, num_layer, 1).fits():
+        L -= 1
+    return L
+
+
 def window_plan(L: int, rows: int, halo: int, device='cpu'):
     """Overlapping windows of at most `rows` rows that cover [0, L).
 
@@ -519,6 +638,60 @@ def pack_weights_bf16(layers: Layers, plan: K2Plan):
     return w0, b[0], w[n0:].view(len(layers) - 1, plan.ngroups, -1, plan.N * K2_CHUNK), b[1:]
 
 
+@functools.lru_cache(maxsize=64)
+def _dense_gather(Cin: int, C: int, K: int, nl: int, N: int, Cinp: int, Cs: int, device: str):
+    """Indices that pack a dense stack into K3's chunks in one gather from
+    flat = cat(w_0, ..., w_{nl-1} flattened, b_0, ..., b_{nl-1}, [0]).
+
+    Layer i's W_i'[16*j + q, n], k16 step j = tap * T + g (T = tap_rows(i)
+    / 16), is W_i[n, ci, tap] for the buffer channel ch = 16*g + q: ci = ch
+    for ch < Cin, ci = Cin + s*C + cc for ch = Cinp + s*Cs + cc with cc < C
+    and ch below the layer's own Cinp + i*Cs; the last index (a zero)
+    elsewhere and for n >= C. Rows run in chunks of 64 (zero past K*16*T),
+    value (k, n) of a chunk at (n//8)*512 + (n%8)*64 + ((k//8) ^ (n%8))*8 +
+    k%8. Returns (idx_w, the layers' chunks one after another; idx_b (nl,
+    N), zero beyond C)."""
+    cins = [Cin + i * C for i in range(nl)]
+    offs = [sum(C * ci * K for ci in cins[:i]) for i in range(nl + 1)]
+    zero = offs[-1] + nl * C
+    q = torch.arange(N * K2_CHUNK)
+    n = q // (8 * K2_CHUNK) * 8 + q // K2_CHUNK % 8
+    k_in = (q // 8 % 8 ^ q // K2_CHUNK % 8) * 8 + q % 8
+    idx_w = []
+    for i in range(nl):
+        rows = _cdiv(Cinp + i * Cs, 16) * 16
+        k = torch.arange(_cdiv(K * rows, K2_CHUNK)).view(-1, 1) * K2_CHUNK + k_in   # (nch, N*64)
+        tap, ch = k // rows, k % rows
+        slot, cc = (ch - Cinp) // Cs, (ch - Cinp) % Cs
+        ci = torch.where(ch < Cin, ch, Cin + slot * C + cc)
+        ok = (tap < K) & (n < C) & (ch < Cinp + i * Cs) & ((ch < Cin) | ((ch >= Cinp) & (cc < C)))
+        idx_w.append(torch.where(ok, offs[i] + n * cins[i] * K + ci * K + tap, zero).reshape(-1))
+    nb = torch.arange(N)
+    idx_b = torch.stack([torch.where(nb < C, offs[-1] + i * C + nb, zero) for i in range(nl)])
+    return torch.cat(idx_w).to(device), idx_b.to(device)
+
+
+def pack_dense_bf16(layers: Layers, plan: DensePlan):
+    """Weights in K3's layout (`_dense_gather`): bf16 chunks of 64 rows of
+    W_i' and N columns in wgmma's swizzled layout, layer after layer;
+    biases f32, zero beyond C.
+
+    Returns (w0 (chunks(0), N*64), b0 (N,), wr (sum of chunks(i), i >= 1,
+    N*64), br (nl-1, N)), views of one buffer each; wr and br are None for
+    one layer."""
+    C, Cin, K = layers[0]['w'].shape
+    dev = layers[0]['w'].device
+    idx_w, idx_b = _dense_gather(Cin, C, K, len(layers), plan.N, plan.Cinp, plan.Cs, str(dev))
+    parts = [p['w'].reshape(-1) for p in layers] + [p['b'].reshape(-1) for p in layers]
+    flat = torch.cat(parts + [_zero(str(dev), parts[0].dtype)])
+    w = flat[idx_w].to(torch.bfloat16).view(-1, plan.N * K2_CHUNK)
+    b = flat[idx_b].float()
+    n0 = plan.chunks(0)
+    if len(layers) == 1:
+        return w[:n0], b[0], None, None
+    return w[:n0], b[0], w[n0:], b[1:]
+
+
 def _elu_exp(v: torch.Tensor) -> torch.Tensor:
     """The Pallas kernels' ELU, exp(min(v, 0)) - 1 below zero (conv_stack.py:45-47)."""
     return torch.where(v > 0, v, torch.exp(torch.clamp(v, max=0.0)) - 1.0)
@@ -549,6 +722,36 @@ def conv_stack_bf16_plain(layers: Layers, x: torch.Tensor) -> torch.Tensor:
     return h.to(torch.bfloat16)
 
 
+def dense_stack_bf16_plain(layers: Layers, x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K3: (B, L, Cin) -> (B, L, C) bf16, layer i
+    on the running concatenation [x, out_0, ..., out_{i-1}], each output
+    rounded to bf16 once (after bias and ELU in f32)."""
+    feats = x.to(torch.bfloat16).float()
+    for i, p in enumerate(layers):
+        w = p['w'].to(torch.bfloat16).float()
+        out = F.elu(_shifted_matmul_layer(feats, w, p['b'].float())).to(torch.bfloat16).float()
+        if i < len(layers) - 1:
+            feats = torch.cat([feats, out], dim=-1)
+    return out.to(torch.bfloat16)
+
+
+def _check_dense_layers(layers: Layers, cin: int):
+    if not layers:
+        raise ValueError('dense stack needs at least one layer')
+    C, cin0, K = layers[0]['w'].shape
+    if C > DENSE_N:
+        raise ValueError(f'dense_stack_bf16 holds at most {DENSE_N} output channels '
+                         f'(its one wgmma width), got {C}')
+    if cin0 != cin:
+        raise ValueError(f'layer 0 takes {cin0} channels, x has {cin}')
+    for i, p in enumerate(layers):
+        want = (C, cin + i * C, K)
+        if tuple(p['w'].shape) != want or tuple(p['b'].shape) != (C,):
+            raise ValueError(f'dense layer {i}: w {tuple(p["w"].shape)}, b '
+                             f'{tuple(p["b"].shape)}; expected w {want}, b ({C},)')
+    return C, K
+
+
 def _checked(name: str, layers: Layers, x: torch.Tensor):
     """(B, L, Cin, C, K) of a call on x's CUDA device, or ValueError."""
     if x.device.type != 'cuda':
@@ -556,7 +759,7 @@ def _checked(name: str, layers: Layers, x: torch.Tensor):
     if x.dim() != 3:
         raise ValueError(f'x must be (B, L, Cin), got shape {tuple(x.shape)}')
     B, L, Cin = x.shape
-    C, K = _check_layers(layers, Cin)
+    C, K = _SPECS[name].check(layers, Cin)
     for p in layers:
         if p['w'].device != x.device or p['b'].device != x.device:
             raise ValueError('weights and x must be on the same device')
@@ -584,7 +787,10 @@ class _Spec:
     max_rows: Callable      # k<i>_max_rows
     pack: Callable          # pack_weights[_bf16]
     dtype: torch.dtype      # of x and out
-    span: str               # the wrapper's span, 'k1' or 'k2'
+    span: str               # the wrapper's span, 'k1', 'k2' or 'k3'
+    check: Callable = _check_layers   # the layers' shapes against x's channels, -> (C, K)
+    # the plan's fields that the packed weights depend on (with the weights' shapes)
+    pack_key: Callable = lambda p: (p.N, p.ngroups, p.S, p.S0, p.Kc, p.Kc0)
 
 
 # the most stacks whose packed weights are kept; the least recently used goes
@@ -637,7 +843,7 @@ def packed(wrapper, layers: Layers, plan):
     if stamp is None:
         with span(f'{spec.span}.pack.weights'):
             return spec.pack(layers, plan)
-    key = (name, plan.N, plan.ngroups, plan.S, plan.S0, plan.Kc, plan.Kc0, *map(id, tensors))
+    key = (name, *spec.pack_key(plan), *map(id, tensors))
     hit = _packs.get(key)
     if hit is not None and hit.stamp == stamp:
         _packs.move_to_end(key)
@@ -739,44 +945,55 @@ def conv_stack_bf16(layers: Layers, x: torch.Tensor) -> torch.Tensor:
         return _launch(conv_stack_bf16, layers, x)
 
 
+def dense_stack_bf16(layers: Layers, x: torch.Tensor) -> torch.Tensor:
+    """K3's wrapper: a dense stack, (B, L, Cin) -> (B, L, C) bf16."""
+    with span('k3'):
+        if x.device.type == 'cpu':
+            return dense_stack_bf16_plain(layers, x)
+        return _launch(dense_stack_bf16, layers, x)
+
+
 _SPECS = {'conv_stack_f32': _Spec(k1_plan, k1_max_rows, pack_weights, torch.float32, 'k1'),
           'conv_stack_bf16': _Spec(k2_plan, k2_max_rows, pack_weights_bf16, torch.bfloat16,
-                                   'k2')}
+                                   'k2'),
+          'dense_stack_bf16': _Spec(dense_plan, dense_max_rows, pack_dense_bf16, torch.bfloat16,
+                                    'k3', _check_dense_layers, lambda p: (p.N, p.Cinp, p.Cs))}
 conv_stack_f32.launches = conv_stack_f32.pack_hits = conv_stack_f32.pack_misses = 0
 conv_stack_bf16.launches = conv_stack_bf16.pack_hits = conv_stack_bf16.pack_misses = 0
+dense_stack_bf16.launches = dense_stack_bf16.pack_hits = dense_stack_bf16.pack_misses = 0
 
 
 class _RecomputeStack(torch.autograd.Function):
     """Forward through a kernel; backward recomputes the unfused f32 stack
-    (JAX conv_stack.py:288-298, 318-326), the cotangent cast to f32. Only
-    the inputs that need a gradient get one."""
+    `unfused` (JAX conv_stack.py:288-298, 318-326), the cotangent cast to
+    f32. Only the inputs that need a gradient get one."""
 
     @staticmethod
-    def forward(ctx, kernel, x, n_layers, *flat):
+    def forward(ctx, kernel, unfused, x, n_layers, *flat):
         layers = [{'w': flat[2 * i], 'b': flat[2 * i + 1]} for i in range(n_layers)]
-        ctx.n_layers = n_layers
+        ctx.unfused, ctx.n_layers = unfused, n_layers
         ctx.save_for_backward(x, *flat)
         return kernel(layers, x)
 
     @staticmethod
     def backward(ctx, g):
         x, *flat = ctx.saved_tensors
-        need = [ctx.needs_input_grad[1], *ctx.needs_input_grad[3:]]
+        need = [ctx.needs_input_grad[2], *ctx.needs_input_grad[4:]]
         with torch.enable_grad():
             inputs = [t.detach().requires_grad_(n) for t, n in zip([x, *flat], need)]
             x, *flat = inputs
             layers = [{'w': flat[2 * i], 'b': flat[2 * i + 1]}
                       for i in range(ctx.n_layers)]
-            out = stack_apply(layers, x.float())
+            out = ctx.unfused(layers, x.float())
             grads = iter(torch.autograd.grad(out, [t for t in inputs if t.requires_grad],
                                              g.to(out.dtype)))
         x_grad, *w_grads = [next(grads) if n else None for n in need]
-        return (None, x_grad, None, *w_grads)
+        return (None, None, x_grad, None, *w_grads)
 
 
-def _fused(kernel, layers: Layers, x: torch.Tensor) -> torch.Tensor:
+def _fused(kernel, layers: Layers, x: torch.Tensor, unfused=stack_apply) -> torch.Tensor:
     flat = [t for p in layers for t in (p['w'], p['b'])]
-    return _RecomputeStack.apply(kernel, x, len(layers), *flat)
+    return _RecomputeStack.apply(kernel, unfused, x, len(layers), *flat)
 
 
 def fused_stack_apply(layers: Layers, x: torch.Tensor) -> torch.Tensor:
@@ -789,6 +1006,12 @@ def fused_stack_apply_bf16(layers: Layers, x: torch.Tensor) -> torch.Tensor:
     return _fused(conv_stack_bf16, layers, x)
 
 
+def fused_dense_stack_apply_bf16(layers: Layers, x: torch.Tensor) -> torch.Tensor:
+    """K3 forward, bf16 out; gradients of the unfused f32 dense stack
+    (ops/conv1d.py:dense_stack_apply)."""
+    return _fused(dense_stack_bf16, layers, x, dense_stack_apply)
+
+
 def conv_stack_work(B: int, L: int, Cin: int, C: int, K: int, num_layer: int,
                     itemsize: int):
     """(FLOP, bytes) one call needs: x, weights and output of `itemsize`
@@ -798,3 +1021,13 @@ def conv_stack_work(B: int, L: int, Cin: int, C: int, K: int, num_layer: int,
     nbytes = (B * L * Cin + n_w + B * L * C) * itemsize + num_layer * C * 4
     return 2 * macs, nbytes
 
+
+
+def dense_stack_work(B: int, L: int, Cin: int, C: int, K: int, num_layer: int,
+                     itemsize: int = 2):
+    """(FLOP, bytes) one dense stack needs, layer i reading Cin + i*C
+    channels: x, weights and output of `itemsize` bytes each read or written
+    once, f32 biases; no intermediate activation and no concatenation."""
+    n_w = K * C * sum(Cin + i * C for i in range(num_layer))
+    nbytes = (B * L * Cin + n_w + B * L * C) * itemsize + num_layer * C * 4
+    return 2 * B * L * n_w, nbytes

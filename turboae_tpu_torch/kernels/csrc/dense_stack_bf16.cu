@@ -1,0 +1,508 @@
+// Fused DenseNet-style Conv1d + ELU stack in bf16 on Hopper's warpgroup
+// tensor cores (sm_90a): DEC_LargeCNN's dense stacks in one launch a stack.
+//
+// Replaces no TPU kernel: the JAX package runs dense stacks through XLA's
+// convolutions (turboae_tpu/models/decoders.py: `use_fused_conv and not
+// dense`), and the port ran them as cuDNN convolutions with a running
+// torch.cat (ops/conv1d.py:dense_stack_apply), whose layout copies,
+// concatenations, bias adds and ELUs took five sixths of the stacks' device
+// time. What it computes, per batch row b:
+//   h_0 = x[b]                                              (L, Cin), bf16
+//   out_i = bf16(ELU(sum_k [h_0, out_0, .., out_{i-1}][l + k - K/2] @ W_i[k] + b_i))
+// with zero padding, bf16 operands, f32 accumulation, bias and ELU
+// (exp(min(v,0)) - 1) in f32. Only the last layer is written to device
+// memory.
+//
+// Bound: at DeepTurbo's shape (B=2000, L=100, Cin=7, C=100, K=5, 5 layers)
+// a call does 2*B*L*K*C*sum_i(Cin + i*C) = 2.07e11 FLOP on ~44 MB of input,
+// output and weights: ~4700 FLOP per byte, far above the H100's 295
+// FLOP/byte bf16 ridge, so the tensor cores' rate bounds it: 0.209 ms at
+// 989.4 TFLOP/s.
+//
+// Layout: K2's design (conv_stack_bf16.cu) with one activation buffer.
+//   - a block holds up to R batch rows of P = L+K-1 rows each (K/2 zero halo
+//     rows on each side), one after another, in ONE buffer of row stride S
+//     (an odd multiple of 8: 16-byte rows whose eight ldmatrix rows fall in
+//     distinct banks) that holds every channel of the stack: x in channels
+//     [0, Cin), a zero channel where Cin is odd (Cinp = Cin rounded up to
+//     even), then out_i in [Cinp + i*Cs, Cinp + i*Cs + C) (Cs = C rounded
+//     up to even, so every bf16 pair store is 4-byte aligned). No
+//     concatenation, transpose, memset or bias/ELU pass reaches device memory;
+//   - layer i contracts, for each tap k, the buffer's rows m + k over its
+//     own channels [0, Kr_i), Kr_i = Cinp + i*Cs rounded up to 16: A row m of
+//     tap k starts at (m + k)*S. The k16 steps run tap by tap, Kr_i/16 a
+//     tap, K*Kr_i/16 a layer (5,360 contraction rows a stack at DeepTurbo's
+//     shape against 5,175 exact). K2's fold of K*S contiguous values would
+//     contract every layer over all K*S values, twice this work;
+//   - the rows a layer's rounding adds beyond its channels have zero weights:
+//     they read out_i's slot (zero, or out_i itself once written) and, where
+//     Kr_i passes S, up to 8 values of the next row (x, or an earlier
+//     layer's output), all finite; the buffer's zero tail of 8 values covers
+//     the last row;
+//   - M = Rv*P - (K-1) output rows a layer (Rv the block's rows) in m64
+//     tiles, one a consumer warpgroup. The padded tiles' A rows are clamped
+//     to row M-1 (their results are never written), so the buffer holds
+//     R*P rows and not the 64*nc + K - 1 of K2's `rows_alloc`: two rows at
+//     DeepTurbo's shape, 2*104*408*2 + 16 = 169,744 bytes, beside a 4-stage
+//     ring of n104 chunks (53,248), the biases (2,080) and the barriers,
+//     226,160 bytes in all; M = 204 in four consumer warpgroups;
+//   - no read-write race, by a consumer barrier before each epilogue: a
+//     layer's epilogue writes out_i's slot, which the same layer's products
+//     read (zero weights) where Kr_i runs into it, and the last layer's
+//     epilogue writes its output over channels [0, Cs), which every layer
+//     reads. The barrier after each epilogue makes the next layer read what
+//     every warpgroup wrote. The last layer's valid rows and C columns then
+//     go from the buffer to `out` in coalesced 8-byte stores;
+//   - the weights of layer i are W_i'[16*j + q, n], k16 step j = tap*Kr_i/16
+//     + g, buffer channel g*16 + q, = W_i[n, input channel of that buffer
+//     channel, tap] (zero where the channel is a pad or >= the layer's own
+//     Cinp + i*Cs, or n >= C), cut into chunks of 64 rows (4 steps; the
+//     last chunk of a layer zero-filled) of N columns, each N*128 contiguous
+//     bytes in wgmma's K-major 128-byte-swizzle layout: element (k, n) at
+//     (n/8)*1024 + (n%8)*128 + ((k/8) ^ (n%8))*16 + (k%8)*2 bytes, packed by
+//     the wrapper (kernels/conv_stack.py:pack_dense_bf16). A descriptor over
+//     the chunk plus 32 bytes per k16 step reads it.
+//
+// Work: as K2. NC consumer warpgroups and a producer warpgroup of which one
+// warp streams the stack's chunks, layer after layer, through a ring of up
+// to 4 stages by bulk copies (cp.async.bulk) on `full` mbarriers; consumers
+// release a stage on its `empty` mbarrier, load A fragments by ldmatrix and
+// run wgmma.mma_async m64nNk16 with A from registers and B by descriptor
+// (n104 as n56 + n48); setmaxnreg moves the producer's registers to the
+// consumers. The producer loads the next layer's weights through the
+// epilogues. The wrapper spreads the batch rows over whole rounds of blocks
+// over the SMs (kernels/conv_stack.py:dense_plan), and windows the time axis
+// where one row does not fit (run_windowed).
+//
+// What still keeps it from its bound: at two rows a block the m64 tiles hold
+// 204 of 256 rows; each block streams the stack's 1.1 MB of chunks from L2
+// again; a warpgroup waits for each group of KB products before its next
+// ldmatrix (wgmma_wait_all); the epilogues and their two barriers stall the
+// tensor cores between layers.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include <string.h>
+
+namespace {
+
+constexpr int MAX_STAGES = 4;      // weight ring
+constexpr int CHUNK_K = 64;        // contraction rows a chunk: one 128-byte swizzle atom
+constexpr int SMEM_LIMIT = 232448;
+constexpr int PRODUCER_REGS = 24;
+
+// The block's layout; mirrors kernels/conv_stack.py::DensePlan field by field.
+struct Plan {
+  int L, Cin, C, K, num_layer, R, G, P, S, Cinp, Cs, N, nc, stages, buf;
+};
+
+typedef __nv_bfloat16 bf16;
+
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// contraction rows of one tap of layer i: its channels rounded up to 16
+__host__ __device__ constexpr int tap_rows(const Plan& p, int i) {
+  return cdiv(p.Cinp + i * p.Cs, 16) * 16;
+}
+
+// weight chunks of layer i
+__host__ __device__ constexpr int layer_chunks(const Plan& p, int i) {
+  return cdiv(p.K * tap_rows(p, i), CHUNK_K);
+}
+
+// Registers, as in K2: an SM's file is four quarters of 512 a lane; a block
+// of nc consumer warpgroups and the producer puts nc + 1 warps on each.
+__host__ __device__ constexpr int launch_regs(int nc) { return 512 / (nc + 1) / 8 * 8; }
+__host__ __device__ constexpr int consumer_regs(int nc) {
+  return ((nc + 1) * launch_regs(nc) - PRODUCER_REGS) / nc / 8 * 8;
+}
+
+__host__ __device__ constexpr size_t smem_bytes(const Plan& p) {
+  return 1024 +                                   // alignment of the ring
+         (size_t)p.stages * p.N * 128 +           // weight ring
+         2 * (size_t)p.buf +                      // the activation buffer
+         4 * (size_t)p.num_layer * p.N +          // biases, f32
+         16 * (size_t)p.stages;                   // full and empty mbarriers
+}
+
+__device__ __forceinline__ float elu(float v) {
+  // exp(min(v, 0)) - 1 below zero, exp as the hardware's ex2.approx
+  // (relative error ~2^-22, far below the bf16 rounding that follows)
+  float e;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(fminf(v, 0.f) * 1.4426950408889634f));
+  return v > 0.f ? v : e - 1.f;
+}
+
+__device__ __forceinline__ uint32_t saddr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t a, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+// ---- mbarriers and the bulk copy
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// waits for the phase of parity `parity`; traps after ~2^32 cycles, so a
+// fault in the ring ends the launch with an error instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  const long long t0 = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 32)) __trap();
+  }
+}
+
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// named barrier 1: the consumer warpgroups alone (0 is __syncthreads')
+__device__ __forceinline__ void consumers_sync(int threads) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(threads) : "memory");
+}
+
+// ---- wgmma
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// descriptor of a K-major, 128-byte-swizzled B operand at shared address
+// `addr`: start address >> 4 in bits 0-13, leading byte offset 1 (unused by
+// this layout), stride byte offset 1024 >> 4 between 8-row groups, swizzle
+// mode 1 (128 B) in bits 62-63
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) | (uint64_t)1 << 16 | (uint64_t)(1024 >> 4) << 32 |
+         (uint64_t)1 << 62;
+}
+
+// D (m64 x N f32, N/2 a thread) = A (m64 x k16 bf16 from registers) x B
+// (k16 x N, descriptor) (+ D when scale_d): n56 and n48, the two halves of
+// the one width, n104 (kernels/conv_stack.py DENSE_N)
+template <int N>
+struct Mma;
+
+template <>
+struct Mma<48> {
+  static __device__ __forceinline__ void run(float (&d)[24], const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, {%24, %25, %26, %27}, %28, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+template <>
+struct Mma<56> {
+  static __device__ __forceinline__ void run(float (&d)[28], const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %33, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n56k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27"
+      "}, {%28, %29, %30, %31}, %32, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+// n104 as n56 then n48 over the next 7 groups of 8 rows (7 * 1024 bytes on),
+// as in K2
+template <>
+struct Mma<104> {
+  static __device__ __forceinline__ void run(float (&d)[52], const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    Mma<56>::run(*reinterpret_cast<float(*)[28]>(d), a, desc, scale_d);
+    Mma<48>::run(*reinterpret_cast<float(*)[24]>(d + 28), a, desc + 7 * 1024 / 16, scale_d);
+  }
+};
+
+template <int N, int NCMAX>
+__global__ void __launch_bounds__((NCMAX + 1) * 128, 1)
+dense_stack_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
+                        const float* __restrict__ b0, const bf16* __restrict__ wr,
+                        const float* __restrict__ br, bf16* __restrict__ out, int B,
+                        const Plan p) {
+  constexpr int INC = consumer_regs(NCMAX);
+  static_assert(NCMAX * INC + PRODUCER_REGS <= 512, "a quarter of the register file");
+  static_assert(INC >= N / 2 + 32, "accumulators and A fragments");
+  constexpr int KB = INC - N / 2 >= 48 ? 4 : 2;  // k16 steps whose A fragments are held at once
+  constexpr int STAGE = N * 128;                 // bytes of one chunk
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = smem_raw + ((1024 - (saddr(smem_raw) & 1023)) & 1023);
+  const int stages = p.stages;
+  bf16* buf = reinterpret_cast<bf16*>(ring + (size_t)stages * STAGE);
+  float* sbias = reinterpret_cast<float*>(buf + p.buf);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sbias + p.num_layer * N);
+  const uint32_t full = saddr(bars), empty = saddr(bars + stages);   // 8 bytes a barrier
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int warp = __shfl_sync(0xffffffff, tid >> 5, 0);   // uniform in the warp
+  const int nct = p.nc * 128;                    // consumer threads
+  const int T0 = layer_chunks(p, 0);
+  int T = 0;                                     // the stack's chunks
+  for (int i = 0; i < p.num_layer; ++i) T += layer_chunks(p, i);
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * p.nc);        // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // one if-else, whose two paths never meet again: ptxas then holds each to
+  // its setmaxnreg count
+  if (warp >= 4 * p.nc) {
+    // ---- producer warpgroup: its first warp copies chunk t of the stack
+    // into stage t % stages
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (warp == 4 * p.nc && lane == 0) {
+      for (int t = 0; t < T; ++t) {
+        const int s = t % stages;
+        if (t >= stages) mbar_wait(empty + 8 * s, (t / stages - 1) & 1);
+        const bf16* src = t < T0 ? w0 + (size_t)t * (STAGE / 2)
+                                 : wr + (size_t)(t - T0) * (STAGE / 2);
+        mbar_expect_tx(full + 8 * s, STAGE);
+        bulk_copy(saddr(ring + s * STAGE), src, STAGE, full + 8 * s);
+      }
+    }
+  } else {
+    // ---- consumers
+    if constexpr (INC > launch_regs(NCMAX))
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(INC));
+    const int r0 = (int)((long long)blockIdx.x * B / gridDim.x);
+    const int Rv = (int)((long long)(blockIdx.x + 1) * B / gridDim.x) - r0;   // rows of this block
+    const int pad = p.K / 2, S = p.S;
+    // zero the buffer: halos, pads, the slots not yet written, absent rows,
+    // the tail
+    {
+      uint4* z = reinterpret_cast<uint4*>(buf);
+      for (int i = tid; i < p.buf / 8; i += nct) z[i] = make_uint4(0, 0, 0, 0);
+    }
+    for (int i = tid; i < p.num_layer * N; i += nct) sbias[i] = i < N ? b0[i] : br[i - N];
+    consumers_sync(nct);
+    // x's rows into channels [0, Cin) (Cin may be odd: scalar copies), eight
+    // loads in flight a thread
+    {
+      const int row = p.L * p.Cin, n = Rv * row;
+      const bf16* xb = x + (size_t)r0 * row;
+      for (int e0 = tid; e0 < n; e0 += 8 * nct) {
+        bf16 v[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int e = e0 + u * nct;
+          v[u] = e < n ? xb[e] : __float2bfloat16(0.f);
+        }
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int e = e0 + u * nct;
+          if (e < n) {
+            const int r = e / row, l = (e - r * row) / p.Cin, ci = e - r * row - l * p.Cin;
+            buf[(size_t)(r * p.P + pad + l) * S + ci] = v[u];
+          }
+        }
+      }
+    }
+    consumers_sync(nct);
+
+    const int wg = warp >> 2;                      // this warpgroup's m64 tile
+    const int m_warp = wg * 64 + (warp & 3) * 16;  // this warp's first row
+    const int M = Rv * p.P - (p.K - 1);            // output rows of the block
+    // a warpgroup whose tile holds no row of the block issues no product
+    const bool active = wg * 64 < M;
+    // ldmatrix rows: A row m_warp + lane%16, clamped to the block's last
+    // output row (the padded rows' results are never written), at channel
+    // 8*(lane/16) of tap 0
+    const uint32_t a_base =
+        saddr(buf + (size_t)min(m_warp + (lane & 15), M - 1) * S + (lane >> 4) * 8);
+    float acc[N / 2];
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;   // read by the first product, which scales it by 0
+    uint32_t a[KB][4];
+    int t = 0;                                     // the stack's chunk counter
+    for (int layer = 0; layer < p.num_layer; ++layer) {
+      const int kpt = tap_rows(p, layer) / 16;     // k16 steps a tap
+      const int nsteps = p.K * kpt, nch = cdiv(nsteps, 4);
+      for (int c = 0; c < nch; ++c, ++t) {
+        const int s = t % stages;
+        mbar_wait(full + 8 * s, (t / stages) & 1);
+        if (active) {
+          const uint64_t d = desc_sw128(saddr(ring + s * STAGE));
+          const int nks = min(4, nsteps - 4 * c);   // k16 steps of the chunk
+          // step j = 4c reads tap j / kpt at channel 16 * (j % kpt): offset
+          // tap*S + 16*g values from the tap's row
+          int tap = 4 * c / kpt, g = 4 * c - tap * kpt;
+          int off = tap * S + 16 * g;
+#pragma unroll
+          for (int k0 = 0; k0 < 4; k0 += KB) {
+            if (k0 >= nks) break;
+#pragma unroll
+            for (int i = 0; i < KB; ++i) {
+              if (k0 + i < nks) {
+                ldsm_x4(a_base + 2 * off, a[i]);
+                off += 16;
+                if (++g == kpt) {                  // on to the next tap's row
+                  g = 0;
+                  off += S - 16 * kpt;
+                }
+              }
+            }
+            wgmma_fence();
+#pragma unroll
+            for (int i = 0; i < KB; ++i)
+              if (k0 + i < nks) Mma<N>::run(acc, a[i], d + 2 * (k0 + i), c | (k0 + i));
+            wgmma_commit();
+            wgmma_wait_all();      // the A registers (and, at the last, the stage) are free again
+          }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * s);
+      }
+      // every warpgroup's products of this layer are done before any
+      // epilogue writes channels that they read
+      consumers_sync(nct);
+      if (active) {
+        // epilogue: bias, ELU and bf16 on the accumulators, valid rows only,
+        // into out_i's slot (the last layer: channels [0, Cs))
+        const float* bias = sbias + layer * N;
+        const int col0 = layer == p.num_layer - 1 ? 0 : p.Cinp + layer * p.Cs;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = m_warp + (lane >> 2) + 8 * h;
+          const int r = m / p.P, l = m - r * p.P;
+          if (r >= Rv || l >= p.L) continue;
+          bf16* drow = buf + (size_t)(m + pad) * S + col0;
+#pragma unroll
+          for (int j = 0; j < N / 8; ++j) {
+            const int n = j * 8 + 2 * (lane & 3);
+            if (n >= p.Cs) continue;
+            const float2 bn = *reinterpret_cast<const float2*>(bias + n);
+            *reinterpret_cast<__nv_bfloat162*>(drow + n) =   // 4-byte aligned: S, col0, n even
+                __floats2bfloat162_rn(elu(acc[4 * j + 2 * h] + bn.x),
+                                      elu(acc[4 * j + 2 * h + 1] + bn.y));
+          }
+        }
+      }
+      // the next layer (or the copy below) reads rows that other
+      // warpgroups wrote
+      consumers_sync(nct);
+    }
+    // the last layer's valid rows and C columns to `out`, where the block's
+    // rows lie one after another: consecutive threads store consecutive
+    // 8 bytes (single values where C is no multiple of 4)
+    bf16* ob = out + (size_t)r0 * p.L * p.C;
+    const int LC = p.L * p.C;
+    if ((p.C & 3) == 0) {
+      for (int u = tid; u < Rv * LC / 4; u += nct) {
+        const int e = 4 * u, r = e / LC, l = (e - r * LC) / p.C, c = e - r * LC - l * p.C;
+        *reinterpret_cast<uint2*>(ob + e) =
+            *reinterpret_cast<const uint2*>(buf + (size_t)(r * p.P + pad + l) * S + c);
+      }
+    } else {
+      for (int e = tid; e < Rv * LC; e += nct) {
+        const int r = e / LC, l = (e - r * LC) / p.C, c = e - r * LC - l * p.C;
+        ob[e] = buf[(size_t)(r * p.P + pad + l) * S + c];
+      }
+    }
+  }
+}
+
+template <int N, int NCMAX>
+int launch(const void* x, const void* w0, const void* b0, const void* wr, const void* br,
+           void* out, int B, const Plan& p, cudaStream_t stream) {
+  auto kernel = dense_stack_bf16_kernel<N, NCMAX>;
+  if (p.nc < 1 || p.nc > NCMAX) return (int)cudaErrorInvalidValue;
+  // once a device (each a host call): the register count and the shared
+  // memory limit
+  static int regs[64];
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (regs[dev] == 0) {
+    cudaFuncAttributes attr;
+    e = cudaFuncGetAttributes(&attr, kernel);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+    if (e != cudaSuccess) return (int)e;
+    regs[dev] = cdiv(attr.numRegs, 8) * 8;
+  }
+  // setmaxnreg.inc blocks until the block's registers can give what it asks:
+  // refuse a build whose register count leaves the consumers short of them
+  constexpr int INC = consumer_regs(NCMAX);
+  if (INC > launch_regs(NCMAX) && p.nc * INC + PRODUCER_REGS > (p.nc + 1) * regs[dev])
+    return (int)cudaErrorInvalidConfiguration;
+  kernel<<<p.G, (p.nc + 1) * 128, smem_bytes(p), stream>>>(
+      (const bf16*)x, (const bf16*)w0, (const float*)b0, (const bf16*)wr, (const float*)br,
+      (bf16*)out, B, p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// x (B, L, Cin) bf16; w0 (layer_chunks(0), N*64) bf16 chunks and b0 (N,) f32
+// of layer 0; wr (sum of layer_chunks(i) for i >= 1, N*64) bf16 and br
+// (num_layer-1, N) f32 of the other layers, NULL when num_layer == 1; out
+// (B, L, C) bf16. All contiguous and 16-byte aligned, in the layout
+// described above. `plan` holds the n_plan ints of struct Plan, from
+// kernels/conv_stack.py::DensePlan. Launches G blocks of nc consumer
+// warpgroups and a producer warpgroup on `stream`, block i taking batch rows
+// [i*B/G, (i+1)*B/G); returns a CUDA error code (0 on success).
+extern "C" int dense_stack_bf16_launch(const void* x, const void* w0, const void* b0,
+                                       const void* wr, const void* br, void* out,
+                                       int B, const int* plan, int n_plan,
+                                       void* stream) {
+  Plan p;
+  if (n_plan != (int)(sizeof(Plan) / sizeof(int))) return (int)cudaErrorInvalidValue;
+  memcpy(&p, plan, sizeof(p));
+  const int channels = p.Cinp + (p.num_layer - 1) * p.Cs;   // the buffer's channels
+  if (p.S % 8 || p.Cinp % 2 || p.Cs % 2 || p.Cinp < p.Cin || p.Cs < p.C || p.Cs > p.N ||
+      channels > p.S || p.Cs > p.S || p.P != p.L + p.K - 1 || p.buf % 8 ||
+      p.buf < p.R * p.P * p.S + 8 || p.G < 1 || p.G > B || (B + p.G - 1) / p.G > p.R ||
+      smem_bytes(p) > SMEM_LIMIT || (p.num_layer > 1 && (wr == nullptr || br == nullptr)) ||
+      p.nc * 64 < p.R * p.P - (p.K - 1) || p.stages < 2 || p.stages > MAX_STAGES)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  // kernels/conv_stack.py DENSE_N, DENSE_NC: the one width and its most
+  // consumer warpgroups
+  if (p.N != 104) return (int)cudaErrorInvalidValue;
+  return launch<104, 4>(x, w0, b0, wr, br, out, B, p, s);
+}

@@ -14,9 +14,13 @@ params = {'iters': [it_0, ..., it_{n-1}]}, each
 last iteration's dec2 head emits one channel. The iterations run as a Python
 loop.
 
-With cfg.use_fused_conv every conv stack goes through the hand-written bf16
-kernel (kernels/conv_stack.py), its output cast back to cfg.dtype, as
-JAX decoders.py:99-104 routes them through the Pallas kernel.
+With cfg.use_fused_conv every plain conv stack goes through the
+hand-written bf16 kernel K2 (kernels/conv_stack.py), its output cast back
+to cfg.dtype, as JAX decoders.py:99-104 routes them through the Pallas
+kernel. Dense stacks, which JAX leaves to XLA, go under the same flag in
+bf16 through the hand-written dense kernel K3 (one launch a stack), which
+raises on the card where it cannot hold a stack; f32 dense stacks never
+fuse.
 
 DEC_LargeCNN2Int ('TurboAE_rate3_cnn_2inter', 'turboae_2int') and
 DEC_LargeCNN_rate2 ('TurboAE_rate2_cnn') have DEC_LargeCNN's params but
@@ -54,7 +58,7 @@ from __future__ import annotations
 import torch
 
 from ..dist import mesh as dm
-from ..kernels.conv_stack import fused_stack_apply_bf16
+from ..kernels.conv_stack import fused_dense_stack_apply_bf16, fused_stack_apply_bf16
 from ..ops import conv1d as cv
 from ..ops import gru as rnn
 from ..ops.activations import activation
@@ -95,8 +99,11 @@ def largecnn_apply(params, cfg, received, perms, training=False, generator=None)
     perms holds 'p1' and its inverse 'p1_inv' as int64 tensors."""
     dt = torch_dtype(cfg.dtype)
     if dense(cfg):
+        fused = (fused_dense_stack_apply_bf16 if cfg.use_fused_conv and dt == torch.bfloat16
+                 else None)
+
         def stackf(layers, x):
-            return cv.dense_stack_apply(layers, x, compute_dtype=dt)
+            return cv.dense_stack_apply(layers, x, compute_dtype=dt, fused=fused)
     elif cfg.use_fused_conv:
         def stackf(layers, x):
             return fused_stack_apply_bf16(layers, x).to(dt)

@@ -93,23 +93,31 @@ def stack_apply(layers: List[Layer], x: torch.Tensor, act=F.elu,
 
 
 def dense_stack_apply(layers: List[Layer], x: torch.Tensor, act=F.elu,
-                      compute_dtype=torch.float32) -> torch.Tensor:
+                      compute_dtype=torch.float32, fused=None) -> torch.Tensor:
     """DenseNet-style stack: layer i reads the running concat
     [x, out_0, ..., out_{i-1}] in that channel order, ELU after every layer.
     Each layer rounds its input to compute_dtype, so the concat's dtype does
     not change the result.
 
+    `fused(layers, x)`, where given, computes the whole ELU stack at once
+    in place of the layers (the decoder's bf16 kernel, kernels/conv_stack.py:
+    fused_dense_stack_apply_bf16, which writes no concatenation to device
+    memory); `act` is then ELU.
+
     The call is the span `dense`. `dense_stack_apply.calls` counts the calls
     and `dense_stack_apply.copy_bytes` the bytes the running concat's
     `torch.cat`s write: B * L * itemsize * sum_i (Cin + i * Cout) for
-    i = 1 .. num_layer - 1."""
+    i = 1 .. num_layer - 1, and 0 for a fused call."""
     with span('dense'):
-        inp = x.to(compute_dtype)
-        out = act(conv1d_apply(layers[0], inp, compute_dtype))
-        for p in layers[1:]:
-            inp = torch.cat([inp, out], dim=-1)
-            dense_stack_apply.copy_bytes += inp.numel() * inp.element_size()
-            out = act(conv1d_apply(p, inp, compute_dtype))
+        if fused is not None:
+            out = fused(layers, x)
+        else:
+            inp = x.to(compute_dtype)
+            out = act(conv1d_apply(layers[0], inp, compute_dtype))
+            for p in layers[1:]:
+                inp = torch.cat([inp, out], dim=-1)
+                dense_stack_apply.copy_bytes += inp.numel() * inp.element_size()
+                out = act(conv1d_apply(p, inp, compute_dtype))
         dense_stack_apply.calls += 1
     return out
 
