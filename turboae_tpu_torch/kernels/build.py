@@ -1,15 +1,16 @@
 """Builds the port's CUDA sources into shared libraries loaded with ctypes.
 
 Each source under `csrc/` has a plain `extern "C"` interface and includes no
-PyTorch header, so `nvcc` compiles it in seconds:
+PyTorch header, only the headers beside it (`csrc/*.cuh`), so `nvcc` compiles
+it in seconds:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -I csrc -o _build/<name>-<hash>.so csrc/<name>.cu
 
 The library is built at first use into `_build/` beside this file (listed in
-.gitignore), named by a hash of the source and the flags, so an edited source
-builds anew and an unchanged one is loaded as it is. Several sources build in
-parallel: one nvcc process each, all started together.
+.gitignore), named by a hash of the source, every header and the flags, so an
+edited source or header builds anew and an unchanged one is loaded as it is.
+Several sources build in parallel: one nvcc process each, all started together.
 """
 from __future__ import annotations
 
@@ -52,9 +53,17 @@ def find_nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f'{name}.cu').read_bytes()
-    digest = hashlib.sha256(src + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f'{name}-{digest}.so'
+    digest = hashlib.sha256((CSRC / f'{name}.cu').read_bytes())
+    for header in sorted(CSRC.glob('*.cuh')):
+        digest.update(header.read_bytes())
+    digest.update(' '.join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f'{name}-{digest.hexdigest()[:16]}.so'
+
+
+def _command(src: Path, out: Path) -> List[str]:
+    """nvcc's command line that builds `src` into the library `out`; `-I`
+    finds the headers of `csrc/` from a source anywhere (a variant's)."""
+    return [find_nvcc(), *NVCC_FLAGS, '-I', str(CSRC), '-o', str(out), str(src)]
 
 
 def build(names: List[str]) -> Dict[str, Built]:
@@ -72,8 +81,7 @@ def build(names: List[str]) -> Dict[str, Built]:
             _BUILT[name] = Built(out, 0.0, log.read_text() if log.exists() else '')
             continue
         tmp = out.with_suffix(f'.{os.getpid()}.tmp')
-        cmd = [find_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(CSRC / f'{name}.cu')]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+        proc = subprocess.Popen(_command(CSRC / f'{name}.cu', tmp), stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True)
         todo[name] = (proc, tmp, out, time.perf_counter())
     failed = []
@@ -103,9 +111,8 @@ def build_texts(texts: Dict[str, str], out_dir: Path) -> Dict[str, Built]:
     for name, text in texts.items():
         (out_dir / f'{name}.cu').write_text(text)
         procs[name] = (subprocess.Popen(
-            [find_nvcc(), *NVCC_FLAGS, '-o', str(out_dir / f'{name}.so'),
-             str(out_dir / f'{name}.cu')], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True), time.perf_counter())
+            _command(out_dir / f'{name}.cu', out_dir / f'{name}.so'), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), time.perf_counter())
     built = {}
     for name, (proc, t0) in procs.items():
         log = proc.communicate()[0]

@@ -1,26 +1,24 @@
 """Fused same-length Conv1d stacks: the ports of the Pallas kernels K1 and
-K2, and K3 for DenseNet-style stacks.
+K2, and K3 for DenseNet-style stacks. All three run on Hopper's warpgroup
+tensor cores (wgmma: A from registers, B from a ring of weight chunks that a
+producer warp fills by bulk copies on mbarriers) over a block of batch rows
+laid out as one flat buffer, with their weights packed in wgmma's swizzled
+layout. Their sources share one header, `csrc/hopper.cuh`: the register
+rule, the mbarrier, bulk-copy and wgmma helpers, K2's and K3's ELU and bf16
+products, and the launchers' prelude.
 
   - K1, `conv_stack_f32`, replaces `turboae_tpu/kernels/conv_stack.py::
     _fused_forward` (Pallas body `_stack_kernel`, exposed as
     `fused_stack_apply`). CUDA source `csrc/conv_stack_f32.cu`. Every layer is
     ELU(sum_k h[l + k - K//2] @ W[k] + b) with zero padding, f32 in and out,
-    f32 bias and ELU. It runs on Hopper's warpgroup tensor cores by 3xTF32
-    (wgmma m64nNk8 TF32: each operand split into two TF32 parts, three
-    products per product, ~1e-6 from exact f32; A from registers, B from a
-    ring of weight chunks that a producer warp fills by bulk copies on
-    mbarriers) over a block of batch rows laid out as one flat buffer
-    (`K1Plan`, `k1_plan`), with its weights packed by `pack_weights` as
-    TF32 big and small planes in wgmma's swizzled layout.
+    f32 bias and ELU, by 3xTF32 (wgmma m64nNk8 TF32: each operand split into
+    two TF32 parts, three products per product, ~1e-6 from exact f32;
+    `K1Plan`, `k1_plan`); `pack_weights` packs TF32 big and small planes.
   - K2, `conv_stack_bf16`, replaces `_fused_forward_im2col` (Pallas body
     `_stack_kernel_im2col`, exposed as `fused_stack_apply_bf16`). CUDA source
     `csrc/conv_stack_bf16.cu`. x is rounded to bf16; bf16 operands, f32
-    accumulation, f32 bias and ELU, bf16 between layers and at the output.
-    It runs on Hopper's warpgroup tensor cores (wgmma, A from registers, B
-    from a ring of weight chunks that a producer warp fills by bulk copies
-    on mbarriers) over a block of several batch rows laid out as one flat
-    buffer (`K2Plan`, `k2_plan`), with its weights packed in wgmma's
-    swizzled layout by `pack_weights_bf16`.
+    accumulation, f32 bias and ELU, bf16 between layers and at the output
+    (`K2Plan`, `k2_plan`, `pack_weights_bf16`).
   - K3, `dense_stack_bf16`, replaces no Pallas kernel (the JAX package runs
     dense stacks through XLA's convolutions). CUDA source
     `csrc/dense_stack_bf16.cu`. A dense stack (ops/conv1d.py:
@@ -33,8 +31,11 @@ K2, and K3 for DenseNet-style stacks.
     under use_fused_conv in bf16; on the card it raises on a stack it cannot
     hold (more than DENSE_N output channels, or a window that keeps no row
     beside its halo), as K2 does.
-K1's and K2's packers are one gather (`_swizzle_gather`) at the kernel's
-element size, K3's one gather of its own (`_dense_gather`).
+K2 and K3 share one plan rule, whole rounds of blocks over the SMs
+(`_whole_rounds`); all three one search for the longest row a block holds
+(`_longest_row`). K1's and K2's packers are one gather (`_swizzle_gather`)
+at the kernel's element size, K3's one of its own (`_dense_gather`), both
+from one flat tensor of the stack (`_gathered`).
 
 `build.py` compiles each source with nvcc for sm_90a; it is called through
 ctypes. For each kernel:
@@ -115,18 +116,52 @@ def _library(name: str) -> ctypes.CDLL:
     return lib
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+class _Plan:
+    """A launch plan whose dataclass fields are the ints of the source's struct Plan."""
+    def as_ints(self):
+        return [getattr(self, f.name) for f in fields(self)]
+
+
+def _whole_rounds(layout: Callable, B: int, L: int, Cin: int, C: int, K: int, num_layer: int,
+                  n_sm: int):
+    """K2's and K3's launch by their `layout(L, Cin, C, K, num_layer, R, G)`
+    on a card of `n_sm` SMs (one block an SM at a time), or None when not
+    even one row of length L fits in the registers and shared memory of a
+    block: then the wrapper windows the time axis. With Rmax the most rows a
+    block holds, the call needs rounds = ceil(B / (n_sm * Rmax)) rounds of
+    blocks over the SMs. It launches G = min(B, n_sm * rounds) blocks and
+    shares the rows evenly among them, ceil(B / G) or one fewer a block:
+    every round is whole, and a block of fewer rows issues fewer products."""
+    r_max = 0
+    while r_max < max(B, 1) and layout(L, Cin, C, K, num_layer, r_max + 1).fits():
+        r_max += 1
+    if r_max == 0:
+        return None
+    G = max(1, min(B, n_sm * _cdiv(B, n_sm * r_max)))
+    return layout(L, Cin, C, K, num_layer, _cdiv(B, G) if B else 1, G)
+
+
+def _longest_row(layout: Callable, L: int, Cin: int, C: int, K: int, num_layer: int) -> int:
+    """The longest time axis of which `layout` fits one batch row in a
+    block, searched down from L (the callers': as many rows as the
+    warpgroups cover); 0 if none."""
+    while L > 0 and not layout(L, Cin, C, K, num_layer, 1).fits():
+        L -= 1
+    return L
+
+
 # ---------------------------------------------------------------- K2's layout
 # wgmma width N -> the most consumer warpgroups a block holds, each with an
 # m64 x N tile of f32 accumulators (N/2 registers a thread), beside the
 # producer warpgroup within one SM's register file (csrc/conv_stack_bf16.cu
-# `conv_stack_bf16_launch`, `consumer_regs`)
+# `conv_stack_bf16_launch`; csrc/hopper.cuh `consumer_regs`)
 K2_WIDTHS = {32: 7, 104: 5, 128: 4, 256: 2}
 K2_STAGES = (4, 3, 2)   # stages of the weight ring, the most that fit first
 K2_CHUNK = 64        # contraction rows of a weight chunk: one 128-byte swizzle atom (CHUNK_K)
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
 
 
 def k2_stride(c: int) -> int:
@@ -148,7 +183,7 @@ def k2_width(c: int):
 
 
 @dataclass(frozen=True)
-class K2Plan:
+class K2Plan(_Plan):
     """K2's launch (struct Plan in conv_stack_bf16.cu, field for field).
 
     A block holds up to R batch rows of P = L+K-1 rows each (K//2 zero halo
@@ -190,9 +225,6 @@ class K2Plan:
     def fits(self) -> bool:
         return self.nc <= K2_WIDTHS[self.N] and self.smem <= SMEM_LIMIT
 
-    def as_ints(self):
-        return [getattr(self, f.name) for f in fields(self)]
-
 
 def k2_layout(L: int, Cin: int, C: int, K: int, num_layer: int, R: int, G: int = 1) -> K2Plan:
     """K2's block layout for R batch rows of length L (it may not fit)."""
@@ -211,32 +243,16 @@ def k2_layout(L: int, Cin: int, C: int, K: int, num_layer: int, R: int, G: int =
 @functools.lru_cache(maxsize=256)
 def k2_plan(B: int, L: int, Cin: int, C: int, K: int, num_layer: int,
             n_sm: int) -> Optional[K2Plan]:
-    """K2's launch for a call on a card of `n_sm` SMs (one block an SM at a
-    time), or None when not even one row of length L fits in the registers
-    and shared memory of a block: then the wrapper windows the time axis.
-
-    With Rmax the most rows a block holds, the call needs
-    rounds = ceil(B / (n_sm * Rmax)) rounds of blocks over the SMs. It
-    launches G = min(B, n_sm * rounds) blocks and shares the rows evenly
-    among them, ceil(B / G) or one fewer a block: every round is whole, and
-    a block of fewer rows issues fewer products. At the decoder's shape on
-    132 SMs (Rmax 3): B=2000 in 792 blocks of 2-3 rows (6 rounds), 500 in
-    264 of 1-2, 334 in 132 of 2-3, 64 in 64 of 1."""
-    r_max = 0
-    while r_max < max(B, 1) and k2_layout(L, Cin, C, K, num_layer, r_max + 1).fits():
-        r_max += 1
-    if r_max == 0:
-        return None
-    G = max(1, min(B, n_sm * _cdiv(B, n_sm * r_max)))
-    return k2_layout(L, Cin, C, K, num_layer, _cdiv(B, G) if B else 1, G)
+    """K2's launch for a call on a card of `n_sm` SMs, or None (windowed):
+    whole rounds of blocks (`_whole_rounds`). At the decoder's shape on 132
+    SMs (Rmax 3): B=2000 in 792 blocks of 2-3 rows (6 rounds), 500 in 264 of
+    1-2, 334 in 132 of 2-3, 64 in 64 of 1."""
+    return _whole_rounds(k2_layout, B, L, Cin, C, K, num_layer, n_sm)
 
 
 def k2_max_rows(Cin: int, C: int, K: int, num_layer: int) -> int:
     """K2's longest time axis that one block holds (one batch row); 0 if none."""
-    L = 64 * K2_WIDTHS[k2_width(C)[0]]   # as many rows as the warpgroups cover
-    while L > 0 and not k2_layout(L, Cin, C, K, num_layer, 1).fits():
-        L -= 1
-    return L
+    return _longest_row(k2_layout, 64 * K2_WIDTHS[k2_width(C)[0]], Cin, C, K, num_layer)
 
 
 # ---------------------------------------------------------------- K1's layout
@@ -244,9 +260,9 @@ def k2_max_rows(Cin: int, C: int, K: int, num_layer: int) -> int:
 # tiles each runs): a warpgroup holds an m64 x N tile of f32 accumulators
 # for each of its tiles and one partial set (N/2 registers a thread each)
 # and a chunk's split A fragments, beside the producer warpgroup within one
-# SM's register file (csrc/conv_stack_f32.cu `conv_stack_f32_launch`,
-# `consumer_regs`). Wider C takes column groups of at most 128, each on its
-# own warpgroups.
+# SM's register file (csrc/conv_stack_f32.cu `conv_stack_f32_launch`;
+# csrc/hopper.cuh `consumer_regs`). Wider C takes column groups of at most
+# 128, each on its own warpgroups.
 K1_WIDTHS = {32: (4, 1), 104: (2, 2), 128: (2, 1)}
 K1_STAGES = (8, 6, 4, 3, 2)   # stages of the weight ring, the most that fit first
 K1_CHUNK = 32        # contraction rows of a weight chunk: one 128-byte swizzle atom (CHUNK_K)
@@ -271,7 +287,7 @@ def k1_width(c: int):
 
 
 @dataclass(frozen=True)
-class K1Plan:
+class K1Plan(_Plan):
     """K1's launch (struct Plan in conv_stack_f32.cu, field for field).
 
     K2's flat layout in f32: a block holds R batch rows of P = L+K-1 rows
@@ -314,9 +330,6 @@ class K1Plan:
     def fits(self) -> bool:
         ncmax, tpw = K1_WIDTHS[self.N]
         return self.nc <= ncmax and self.tpw <= tpw and self.smem <= SMEM_LIMIT
-
-    def as_ints(self):
-        return [getattr(self, f.name) for f in fields(self)]
 
 
 def k1_layout(L: int, Cin: int, C: int, K: int, num_layer: int, R: int) -> K1Plan:
@@ -363,18 +376,15 @@ def k1_max_rows(Cin: int, C: int, K: int, num_layer: int) -> int:
     """K1's longest time axis that one block holds (one batch row); 0 if none."""
     N, ngroups = k1_width(C)
     ncmax, tpw = K1_WIDTHS[N]
-    L = 64 * tpw * (ncmax // ngroups)   # as many rows as the warpgroups cover
-    while L > 0 and not k1_layout(L, Cin, C, K, num_layer, 1).fits():
-        L -= 1
-    return L
+    return _longest_row(k1_layout, 64 * tpw * (ncmax // ngroups), Cin, C, K, num_layer)
 
 
 # ---------------------------------------------------------------- K3's layout
 # K3's one wgmma width, n104 (n56 + n48), for up to 104 output channels
 # (DeepTurbo's 100), and its most consumer warpgroups (K2's register rule,
-# csrc/dense_stack_bf16.cu `dense_stack_bf16_launch`): four, the most m64
-# tiles that two rows of DeepTurbo's stack fill, so each consumer starts
-# from 96 registers instead of K2's 80.
+# csrc/hopper.cuh; csrc/dense_stack_bf16.cu `dense_stack_bf16_launch`):
+# four, the most m64 tiles that two rows of DeepTurbo's stack fill, so each
+# consumer starts from 96 registers instead of K2's 80.
 DENSE_N = 104
 DENSE_NC = 4
 
@@ -384,7 +394,7 @@ def _even(n: int) -> int:
 
 
 @dataclass(frozen=True)
-class DensePlan:
+class DensePlan(_Plan):
     """K3's launch (struct Plan in dense_stack_bf16.cu, field for field).
 
     A block holds up to R batch rows of P = L+K-1 rows each (K//2 zero halo
@@ -433,9 +443,6 @@ class DensePlan:
     def fits(self) -> bool:
         return self.Cs <= self.N and self.nc <= DENSE_NC and self.smem <= SMEM_LIMIT
 
-    def as_ints(self):
-        return [getattr(self, f.name) for f in fields(self)]
-
 
 def dense_layout(L: int, Cin: int, C: int, K: int, num_layer: int, R: int,
                  G: int = 1) -> DensePlan:
@@ -453,24 +460,15 @@ def dense_plan(B: int, L: int, Cin: int, C: int, K: int, num_layer: int,
                n_sm: int) -> Optional[DensePlan]:
     """K3's launch for a call on a card of `n_sm` SMs, or None when not even
     one row of length L fits in a block (then the wrapper windows the time
-    axis); K2's rule of whole rounds (`k2_plan`). At DeepTurbo's shape on
-    132 SMs (Rmax 2): B=2000 in 1056 blocks of 1-2 rows (8 rounds)."""
-    r_max = 0
-    while r_max < max(B, 1) and dense_layout(L, Cin, C, K, num_layer, r_max + 1).fits():
-        r_max += 1
-    if r_max == 0:
-        return None
-    G = max(1, min(B, n_sm * _cdiv(B, n_sm * r_max)))
-    return dense_layout(L, Cin, C, K, num_layer, _cdiv(B, G) if B else 1, G)
+    axis); K2's rule of whole rounds (`_whole_rounds`). At DeepTurbo's shape
+    on 132 SMs (Rmax 2): B=2000 in 1056 blocks of 1-2 rows (8 rounds)."""
+    return _whole_rounds(dense_layout, B, L, Cin, C, K, num_layer, n_sm)
 
 
 @functools.lru_cache(maxsize=256)
 def dense_max_rows(Cin: int, C: int, K: int, num_layer: int) -> int:
     """K3's longest time axis that one block holds (one batch row); 0 if none."""
-    L = 64 * DENSE_NC   # as many rows as the warpgroups cover
-    while L > 0 and not dense_layout(L, Cin, C, K, num_layer, 1).fits():
-        L -= 1
-    return L
+    return _longest_row(dense_layout, 64 * DENSE_NC, Cin, C, K, num_layer)
 
 
 def window_plan(L: int, rows: int, halo: int, device='cpu'):
@@ -569,18 +567,18 @@ def _swizzle_gather(Cin: int, C: int, K: int, nl: int, N: int, ngroups: int, S: 
     return torch.cat(idx_w).to(device), idx_b.to(device)
 
 
-def _gathered(layers: Layers, N: int, ngroups: int, S: int, S0: int, Kc: int, Kc0: int,
-              elems: int, chunk_major: bool):
-    """(weights, biases) of the stack gathered by `_swizzle_gather`, in the
+def _gathered(layers: Layers, index: Callable, *args):
+    """(weights, biases) of the stack gathered by `index(Cin, C, K, nl,
+    *args, device)` (`_swizzle_gather`, `_dense_gather`) from flat =
+    cat(w_0, ..., w_{nl-1} flattened, b_0, ..., b_{nl-1}, [0]), in the
     weights' own type: one concatenation and two gathers, whatever the
     depth (each op is a launch on the host's clock, and a wrapper packs at
     every call that `packed` does not serve)."""
     C, Cin, K = layers[0]['w'].shape
-    dev = layers[0]['w'].device
-    idx_w, idx_b = _swizzle_gather(Cin, C, K, len(layers), N, ngroups, S, S0, Kc, Kc0, elems,
-                                   chunk_major, str(dev))
     parts = [p['w'].reshape(-1) for p in layers] + [p['b'].reshape(-1) for p in layers]
-    flat = torch.cat(parts + [_zero(str(dev), parts[0].dtype)])
+    dev = str(parts[0].device)
+    flat = torch.cat(parts + [_zero(dev, parts[0].dtype)])
+    idx_w, idx_b = index(Cin, C, K, len(layers), *args, dev)
     return flat[idx_w], flat[idx_b]
 
 
@@ -604,7 +602,8 @@ def pack_weights(layers: Layers, plan: K1Plan):
     Returns (w0 (ceil(Kc0/32), ngroups, 2, N*32), b0 (ngroups*N,), wr (nl-1,
     ceil(Kc/32), ngroups, 2, N*32), br (nl-1, ngroups*N)), views of one
     buffer each; wr and br are None for one layer."""
-    w, b = _gathered(layers, plan.N, plan.ngroups, plan.S, plan.S0, plan.Kc, plan.Kc0, 4, True)
+    w, b = _gathered(layers, _swizzle_gather, plan.N, plan.ngroups, plan.S, plan.S0, plan.Kc,
+                     plan.Kc0, 4, True)
     w, b = w.float().view(-1, plan.N * K1_CHUNK), b.float()
     planes = torch.stack(tf32_split(w), dim=1)            # (chunks, 2, N*32)
     nch0 = _cdiv(plan.Kc0, K1_CHUNK)
@@ -629,7 +628,8 @@ def pack_weights_bf16(layers: Layers, plan: K2Plan):
     Returns (w0 (ngroups, ceil(Kc0/64), N*64), b0 (ngroups*N,), wr (nl-1,
     ngroups, ceil(Kc/64), N*64), br (nl-1, ngroups*N)), views of one
     buffer each; wr and br are None for one layer."""
-    w, b = _gathered(layers, plan.N, plan.ngroups, plan.S, plan.S0, plan.Kc, plan.Kc0, 8, False)
+    w, b = _gathered(layers, _swizzle_gather, plan.N, plan.ngroups, plan.S, plan.S0, plan.Kc,
+                     plan.Kc0, 8, False)
     w, b = w.to(torch.bfloat16), b.float()
     n0 = plan.ngroups * _cdiv(plan.Kc0, K2_CHUNK) * plan.N * K2_CHUNK
     w0 = w[:n0].view(plan.ngroups, -1, plan.N * K2_CHUNK)
@@ -679,13 +679,8 @@ def pack_dense_bf16(layers: Layers, plan: DensePlan):
     Returns (w0 (chunks(0), N*64), b0 (N,), wr (sum of chunks(i), i >= 1,
     N*64), br (nl-1, N)), views of one buffer each; wr and br are None for
     one layer."""
-    C, Cin, K = layers[0]['w'].shape
-    dev = layers[0]['w'].device
-    idx_w, idx_b = _dense_gather(Cin, C, K, len(layers), plan.N, plan.Cinp, plan.Cs, str(dev))
-    parts = [p['w'].reshape(-1) for p in layers] + [p['b'].reshape(-1) for p in layers]
-    flat = torch.cat(parts + [_zero(str(dev), parts[0].dtype)])
-    w = flat[idx_w].to(torch.bfloat16).view(-1, plan.N * K2_CHUNK)
-    b = flat[idx_b].float()
+    w, b = _gathered(layers, _dense_gather, plan.N, plan.Cinp, plan.Cs)
+    w, b = w.to(torch.bfloat16).view(-1, plan.N * K2_CHUNK), b.float()
     n0 = plan.chunks(0)
     if len(layers) == 1:
         return w[:n0], b[0], None, None
@@ -1016,11 +1011,9 @@ def conv_stack_work(B: int, L: int, Cin: int, C: int, K: int, num_layer: int,
                     itemsize: int):
     """(FLOP, bytes) one call needs: x, weights and output of `itemsize`
     bytes each read or written once, f32 biases; no intermediate activation."""
-    macs = B * L * (K * Cin * C + (num_layer - 1) * K * C * C)
     n_w = K * Cin * C + (num_layer - 1) * K * C * C
     nbytes = (B * L * Cin + n_w + B * L * C) * itemsize + num_layer * C * 4
-    return 2 * macs, nbytes
-
+    return 2 * B * L * n_w, nbytes
 
 
 def dense_stack_work(B: int, L: int, Cin: int, C: int, K: int, num_layer: int,

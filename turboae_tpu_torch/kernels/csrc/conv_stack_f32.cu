@@ -103,16 +103,17 @@
 // (no_fold's error); the ring's stages within 3 %. The wrapper windows
 // longer rows
 // (kernels/conv_stack.py: k1_plan, k1_max_rows).
-#include <cuda_runtime.h>
-#include <stdint.h>
+// The register rule, the mbarrier, bulk-copy and wgmma helpers and the
+// launcher's prelude (`prepare`) are hopper.cuh's, shared with K2 and K3;
+// the ELU, the TF32 split and the TF32 products are this file's own.
 #include <string.h>
+
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int MAX_STAGES = 8;      // weight ring
 constexpr int CHUNK_K = 32;        // contraction rows a chunk: one 128-byte swizzle atom of f32
-constexpr int SMEM_LIMIT = 232448;
-constexpr int PRODUCER_REGS = 24;
 constexpr bool PREFETCH = true;    // a tile's A fragments load while the last tile's products run
 
 // The block's layout; mirrors kernels/conv_stack.py::K1Plan field by field.
@@ -120,18 +121,6 @@ struct Plan {
   int L, Cin, C, K, num_layer, R, P, S, S0, N, ngroups, nc, tpw, stages, Kc, Kc0, rows_alloc,
       rows_alloc0;
 };
-
-__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-// Registers: an SM's file is four quarters of 512 a lane, warp w on quarter
-// w % 4, allocated in units of 8. A block of nc consumer warpgroups and the
-// producer warpgroup puts nc + 1 warps on each quarter, so each thread starts
-// with launch_regs(nc); setmaxnreg.dec drops the producer's to
-// PRODUCER_REGS and setmaxnreg.inc gives the consumers what that frees.
-__host__ __device__ constexpr int launch_regs(int nc) { return 512 / (nc + 1) / 8 * 8; }
-__host__ __device__ constexpr int consumer_regs(int nc) {
-  return ((nc + 1) * launch_regs(nc) - PRODUCER_REGS) / nc / 8 * 8;
-}
 
 __host__ __device__ constexpr size_t smem_bytes(const Plan& p) {
   return 1024 +                                              // alignment of the ring
@@ -141,8 +130,9 @@ __host__ __device__ constexpr size_t smem_bytes(const Plan& p) {
          16 * (size_t)p.stages;                              // full and empty mbarriers
 }
 
-__device__ __forceinline__ float elu(float v) {
-  // the Pallas kernel's ELU (conv_stack.py:45-47), with the full expf
+// the Pallas kernel's ELU (conv_stack.py:45-47), with the full expf; K2's and
+// K3's `elu` (hopper.cuh) takes ex2.approx
+__device__ __forceinline__ float elu_expf(float v) {
   return v > 0.f ? v : expf(fminf(v, 0.f)) - 1.f;
 }
 
@@ -159,66 +149,6 @@ __device__ __forceinline__ void split(uint32_t a, uint32_t& big, uint32_t& small
   small = tf32_rna(__uint_as_float(a) - __uint_as_float(big));
 }
 
-__device__ __forceinline__ uint32_t saddr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t a, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-// ---- mbarriers and the bulk copy
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// waits until the phase of parity `parity` of the barrier has completed; a
-// barrier that stays incomplete for ~2^32 cycles (seconds) traps, so a fault
-// in the ring ends the launch with an error instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  const long long t0 = clock64();
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (clock64() - t0 > (1ll << 32)) __trap();
-  }
-}
-
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, int bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
-}
-
-// named barrier 1: the consumer warpgroups alone (0 is __syncthreads')
-__device__ __forceinline__ void consumers_sync(int threads) {
-  asm volatile("bar.sync 1, %0;\n" ::"r"(threads) : "memory");
-}
-
-// ---- wgmma
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
 // pins registers at this point of the program: an accumulator set after a
 // wait (the compiler may not move a read of it above the wait), A fragments
 // before wgmma.fence (nor the instructions that write them below it, which
@@ -232,16 +162,6 @@ template <int n>
 __device__ __forceinline__ void fence_operands(uint32_t (&r)[n]) {
 #pragma unroll
   for (int i = 0; i < n; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-// descriptor of a K-major, 128-byte-swizzled B operand at shared address
-// `addr` (1024-aligned atom rows, advanced by 32 bytes a k8 step): start
-// address >> 4 in bits 0-13, leading byte offset 1 (unused by this layout),
-// stride byte offset 1024 >> 4 between 8-row groups, swizzle mode 1 (128 B)
-// in bits 62-63
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return (uint64_t)((addr >> 4) & 0x3FFF) | (uint64_t)1 << 16 | (uint64_t)(1024 >> 4) << 32 |
-         (uint64_t)1 << 62;
 }
 
 // D (m64 x N f32, N/2 a thread) = A (m64 x k8 TF32, from registers: each
@@ -490,8 +410,8 @@ conv_stack_f32_kernel(const float* __restrict__ x, const float* __restrict__ w0,
           for (int jn = 0; jn < N / 8; ++jn) {
             const int nl = jn * 8 + 2 * (lane & 3), n = g * N + nl;
             const float2 bn = *reinterpret_cast<const float2*>(bias + nl);
-            const float v0 = elu(acc[j][4 * jn + 2 * h] + bn.x);
-            const float v1 = elu(acc[j][4 * jn + 2 * h + 1] + bn.y);
+            const float v0 = elu_expf(acc[j][4 * jn + 2 * h] + bn.x);
+            const float v1 = elu_expf(acc[j][4 * jn + 2 * h + 1] + bn.y);
             if (n + 1 < p.C)
               *reinterpret_cast<float2*>(drow + n) = make_float2(v0, v1);   // 8-byte aligned: S, n even
             else if (n < p.C)
@@ -526,28 +446,9 @@ conv_stack_f32_kernel(const float* __restrict__ x, const float* __restrict__ w0,
 template <int N, int NCMAX, int TPW>
 int launch(const void* x, const void* w0, const void* b0, const void* wr, const void* br,
            void* out, int B, const Plan& p, cudaStream_t stream) {
-  auto kernel = conv_stack_f32_kernel<N, NCMAX, TPW>;
-  if (p.nc < 1 || p.nc > NCMAX || p.tpw < 1 || p.tpw > TPW) return (int)cudaErrorInvalidValue;
-  // once a device (each a host call): the register count and the shared
-  // memory limit
-  static int regs[64];
-  int dev;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (regs[dev] == 0) {
-    cudaFuncAttributes attr;
-    e = cudaFuncGetAttributes(&attr, kernel);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
-    if (e != cudaSuccess) return (int)e;
-    regs[dev] = cdiv(attr.numRegs, 8) * 8;
-  }
-  // setmaxnreg.inc blocks until the block's registers can give what it asks:
-  // refuse a build whose register count leaves the consumers short of them
-  constexpr int INC = consumer_regs(NCMAX);
-  if (INC > launch_regs(NCMAX) && p.nc * INC + PRODUCER_REGS > (p.nc + 1) * regs[dev])
-    return (int)cudaErrorInvalidConfiguration;
+  constexpr auto kernel = conv_stack_f32_kernel<N, NCMAX, TPW>;
+  if (p.tpw < 1 || p.tpw > TPW) return (int)cudaErrorInvalidValue;
+  if (const int e = prepare<kernel, NCMAX>(p.nc)) return e;
   kernel<<<cdiv(B, p.R), (p.nc + 1) * 128, smem_bytes(p), stream>>>(
       (const float*)x, (const float*)w0, (const float*)b0, (const float*)wr, (const float*)br,
       (float*)out, B, p);

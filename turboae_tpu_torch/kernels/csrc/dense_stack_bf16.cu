@@ -79,17 +79,18 @@
 // again; a warpgroup waits for each group of KB products before its next
 // ldmatrix (wgmma_wait_all); the epilogues and their two barriers stall the
 // tensor cores between layers.
+// The register rule, the mbarrier, bulk-copy and wgmma helpers, the ELU, the
+// bf16 products (MmaBf16) and the launcher's prelude (`prepare`) are
+// hopper.cuh's, shared with K1 and K2.
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
 #include <string.h>
+
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int MAX_STAGES = 4;      // weight ring
 constexpr int CHUNK_K = 64;        // contraction rows a chunk: one 128-byte swizzle atom
-constexpr int SMEM_LIMIT = 232448;
-constexpr int PRODUCER_REGS = 24;
 
 // The block's layout; mirrors kernels/conv_stack.py::DensePlan field by field.
 struct Plan {
@@ -98,7 +99,10 @@ struct Plan {
 
 typedef __nv_bfloat16 bf16;
 
-__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+// hopper.cuh's bf16 products: n104 as n56 + n48, the one width
+// (kernels/conv_stack.py DENSE_N)
+template <int N>
+using Mma = MmaBf16<N>;
 
 // contraction rows of one tap of layer i: its channels rounded up to 16
 __host__ __device__ constexpr int tap_rows(const Plan& p, int i) {
@@ -110,13 +114,6 @@ __host__ __device__ constexpr int layer_chunks(const Plan& p, int i) {
   return cdiv(p.K * tap_rows(p, i), CHUNK_K);
 }
 
-// Registers, as in K2: an SM's file is four quarters of 512 a lane; a block
-// of nc consumer warpgroups and the producer puts nc + 1 warps on each.
-__host__ __device__ constexpr int launch_regs(int nc) { return 512 / (nc + 1) / 8 * 8; }
-__host__ __device__ constexpr int consumer_regs(int nc) {
-  return ((nc + 1) * launch_regs(nc) - PRODUCER_REGS) / nc / 8 * 8;
-}
-
 __host__ __device__ constexpr size_t smem_bytes(const Plan& p) {
   return 1024 +                                   // alignment of the ring
          (size_t)p.stages * p.N * 128 +           // weight ring
@@ -124,135 +121,6 @@ __host__ __device__ constexpr size_t smem_bytes(const Plan& p) {
          4 * (size_t)p.num_layer * p.N +          // biases, f32
          16 * (size_t)p.stages;                   // full and empty mbarriers
 }
-
-__device__ __forceinline__ float elu(float v) {
-  // exp(min(v, 0)) - 1 below zero, exp as the hardware's ex2.approx
-  // (relative error ~2^-22, far below the bf16 rounding that follows)
-  float e;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(fminf(v, 0.f) * 1.4426950408889634f));
-  return v > 0.f ? v : e - 1.f;
-}
-
-__device__ __forceinline__ uint32_t saddr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t a, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-// ---- mbarriers and the bulk copy
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// waits for the phase of parity `parity`; traps after ~2^32 cycles, so a
-// fault in the ring ends the launch with an error instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  const long long t0 = clock64();
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (clock64() - t0 > (1ll << 32)) __trap();
-  }
-}
-
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, int bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
-}
-
-// named barrier 1: the consumer warpgroups alone (0 is __syncthreads')
-__device__ __forceinline__ void consumers_sync(int threads) {
-  asm volatile("bar.sync 1, %0;\n" ::"r"(threads) : "memory");
-}
-
-// ---- wgmma
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// descriptor of a K-major, 128-byte-swizzled B operand at shared address
-// `addr`: start address >> 4 in bits 0-13, leading byte offset 1 (unused by
-// this layout), stride byte offset 1024 >> 4 between 8-row groups, swizzle
-// mode 1 (128 B) in bits 62-63
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return (uint64_t)((addr >> 4) & 0x3FFF) | (uint64_t)1 << 16 | (uint64_t)(1024 >> 4) << 32 |
-         (uint64_t)1 << 62;
-}
-
-// D (m64 x N f32, N/2 a thread) = A (m64 x k16 bf16 from registers) x B
-// (k16 x N, descriptor) (+ D when scale_d): n56 and n48, the two halves of
-// the one width, n104 (kernels/conv_stack.py DENSE_N)
-template <int N>
-struct Mma;
-
-template <>
-struct Mma<48> {
-  static __device__ __forceinline__ void run(float (&d)[24], const uint32_t (&a)[4],
-                                             uint64_t desc, int scale_d) {
-    asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23"
-      "}, {%24, %25, %26, %27}, %28, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
-  }
-};
-
-template <>
-struct Mma<56> {
-  static __device__ __forceinline__ void run(float (&d)[28], const uint32_t (&a)[4],
-                                             uint64_t desc, int scale_d) {
-    asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %33, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n56k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27"
-      "}, {%28, %29, %30, %31}, %32, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
-  }
-};
-
-// n104 as n56 then n48 over the next 7 groups of 8 rows (7 * 1024 bytes on),
-// as in K2
-template <>
-struct Mma<104> {
-  static __device__ __forceinline__ void run(float (&d)[52], const uint32_t (&a)[4],
-                                             uint64_t desc, int scale_d) {
-    Mma<56>::run(*reinterpret_cast<float(*)[28]>(d), a, desc, scale_d);
-    Mma<48>::run(*reinterpret_cast<float(*)[24]>(d + 28), a, desc + 7 * 1024 / 16, scale_d);
-  }
-};
 
 template <int N, int NCMAX>
 __global__ void __launch_bounds__((NCMAX + 1) * 128, 1)
@@ -448,28 +316,8 @@ dense_stack_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
 template <int N, int NCMAX>
 int launch(const void* x, const void* w0, const void* b0, const void* wr, const void* br,
            void* out, int B, const Plan& p, cudaStream_t stream) {
-  auto kernel = dense_stack_bf16_kernel<N, NCMAX>;
-  if (p.nc < 1 || p.nc > NCMAX) return (int)cudaErrorInvalidValue;
-  // once a device (each a host call): the register count and the shared
-  // memory limit
-  static int regs[64];
-  int dev;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (regs[dev] == 0) {
-    cudaFuncAttributes attr;
-    e = cudaFuncGetAttributes(&attr, kernel);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
-    if (e != cudaSuccess) return (int)e;
-    regs[dev] = cdiv(attr.numRegs, 8) * 8;
-  }
-  // setmaxnreg.inc blocks until the block's registers can give what it asks:
-  // refuse a build whose register count leaves the consumers short of them
-  constexpr int INC = consumer_regs(NCMAX);
-  if (INC > launch_regs(NCMAX) && p.nc * INC + PRODUCER_REGS > (p.nc + 1) * regs[dev])
-    return (int)cudaErrorInvalidConfiguration;
+  constexpr auto kernel = dense_stack_bf16_kernel<N, NCMAX>;
+  if (const int e = prepare<kernel, NCMAX>(p.nc)) return e;
   kernel<<<p.G, (p.nc + 1) * 128, smem_bytes(p), stream>>>(
       (const bf16*)x, (const bf16*)w0, (const float*)b0, (const bf16*)wr, (const float*)br,
       (bf16*)out, B, p);
