@@ -799,7 +799,8 @@ def kernel_check_phase(crown, gen, dev):
                 kp, shown = ks.k2_plan(B, L, cin, c, k, nl, n_sm), ('R', 'G', 'nc', 'N', 'ngroups')
                 windowed = {'windowed_rows': ks.k2_max_rows(cin, c, k, nl)}
             elif kname == 'dense_stack_bf16':
-                kp, shown = ks.dense_plan(B, L, cin, c, k, nl, n_sm), ('R', 'G', 'nc', 'N', 'S')
+                kp, shown = ks.dense_plan(B, L, cin, c, k, nl, n_sm), ('R', 'G', 'nc', 'N', 'GS',
+                                                                      'groups')
                 windowed = {'windowed_rows': ks.dense_max_rows(cin, c, k, nl)}
             else:
                 kp, shown = ks.k1_plan(B, L, cin, c, k, nl, n_sm), ('R', 'nc', 'tpw', 'N',

@@ -14,7 +14,8 @@ from turboae_tpu_torch.kernels.conv_stack import LIBRARIES
 # defined once, in hopper.cuh, and in no kernel source
 HELPERS = ('cdiv', 'launch_regs', 'consumer_regs', 'elu', 'saddr', 'ldsm_x4', 'mbar_init',
            'mbar_arrive', 'mbar_expect_tx', 'mbar_wait', 'bulk_copy', 'consumers_sync',
-           'wgmma_fence', 'wgmma_commit', 'wgmma_wait_all', 'desc_sw128', 'prepare')
+           'wgmma_fence', 'wgmma_commit', 'wgmma_wait_all', 'wgmma_wait', 'fence_proxy_async',
+           'desc_sw128', 'desc_kmajor', 'prepare')
 
 
 @pytest.fixture
@@ -112,11 +113,12 @@ def test_helpers_are_defined_in_the_header_alone(helper):
 
 
 def test_bf16_products_are_in_the_header_alone():
-    """The bf16 wgmma instructions (K2's and K3's) are written once, in the
-    header; K1's TF32 instructions stay in its source."""
+    """The bf16 wgmma instructions (K2's, A from registers, and K3's n104, A
+    by descriptor) are written once, in the header; K1's TF32 instructions
+    stay in its source."""
     bf16 = re.compile(r'wgmma\.mma_async\.sync\.aligned\.m64n(\d+)k16\.f32\.bf16\.bf16')
     assert sorted(int(n) for n in bf16.findall((build.CSRC / 'hopper.cuh').read_text())) == [
-        32, 48, 56, 128, 256]
+        32, 48, 56, 104, 128, 256]
     for name in LIBRARIES:
         assert not bf16.findall((build.CSRC / f'{name}.cu').read_text()), name
     tf32 = re.findall(r'm64n(\d+)k8\.f32\.tf32\.tf32', (build.CSRC / 'conv_stack_f32.cu').read_text())

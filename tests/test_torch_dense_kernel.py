@@ -1,9 +1,9 @@
 """K3, the dense conv-stack kernel (kernels/conv_stack.py: dense_stack_bf16,
 csrc/dense_stack_bf16.cu), on the CPU: its plan, its packer read back as
-wgmma's descriptor reads it, a CPU model of the kernel's one-buffer layout,
-the plain version against the f32 dense stack, the decoder's routing, the
-counters and the gradient. The kernel itself runs only on the card
-(tests/test_torch_gpu.py). The file imports no JAX.
+wgmma's descriptor reads it, a CPU model of the kernel's channel-blocked
+buffer read by descriptor, the plain version against the f32 dense stack,
+the decoder's routing, the counters and the gradient. The kernel itself runs
+only on the card (tests/test_torch_gpu.py). The file imports no JAX.
 """
 import numpy as np
 import pytest
@@ -40,24 +40,28 @@ def _x(B, L, cin, seed=1):
 def test_plan_at_deepturbos_shape():
     """B=2000, L=100, Cin=7, C=100, K=5, 5 layers on 132 SMs: two batch rows
     a block (M = 204 in four m64 tiles, four consumer warpgroups of n104),
-    one buffer of 408 channels (x, a zero channel, four slots of 100) over
-    2 x 104 rows and a zero tail of 8, a 4-stage ring of 13,312-byte chunks,
-    five f32 biases and eight mbarriers: 226,160 bytes. The padded tiles'
-    A rows are clamped into the buffer: K2's allocation of 64*nc + K - 1
-    rows would take 260 rows, 212,160 bytes, and not fit beside the ring.
+    one channel-blocked buffer of 52 groups of 8 channels (x, a zero channel,
+    four slots of 100: 408 channels, and the group that layer 4's rounding
+    to 416 reads), each 2 x 104 rows of 16 bytes (the group stride, 3,328
+    bytes), and a tail of the 52 rows that the padded tiles read past the
+    last group (rows 208..259): 173,888 bytes, beside a 4-stage ring of
+    13,312-byte chunks, five f32 biases and eight mbarriers: 230,304 bytes.
     Each layer contracts 16, 112, 208, 320, 416 rows a tap: 5,360 a stack
     against 5,175 exact. Three rows need five warpgroups and do not fit."""
     plan = ks.dense_plan(2000, 100, 7, 100, 5, 5, n_sm=132)
     assert (plan.R, plan.G, plan.nc, plan.N, plan.stages) == (2, 1056, 4, 104, 4)
-    assert (plan.P, plan.S, plan.Cinp, plan.Cs, plan.buf) == (104, 408, 8, 100, 2 * 104 * 408 + 8)
-    assert plan.smem == 1024 + 4 * 104 * 128 + 2 * plan.buf + 4 * 5 * 104 + 16 * 4 == 226160
+    assert (plan.P, plan.Cinp, plan.Cs) == (104, 8, 100)
+    assert (plan.GS, plan.groups, plan.tail) == (8 * 208, 52, 8 * 52)
+    assert 2 * plan.GS == 3328 and 2 * plan.tail == 832 == 16 * (64 * plan.nc + 5 - 1 - 208)
+    assert 2 * plan.buf == 52 * 208 * 16 + 832 == 173888
+    assert plan.smem == 1024 + 4 * 104 * 128 + 2 * plan.buf + 4 * 5 * 104 + 16 * 4 == 230304
     assert plan.smem <= ks.SMEM_LIMIT == 232448
-    assert (64 * plan.nc + 5 - 1) * plan.S * 2 == 212160
+    assert 8 * plan.groups == plan.tap_rows(4) == 416 and 8 + 4 * 100 == 408
     assert [plan.tap_rows(i) for i in range(5)] == [16, 112, 208, 320, 416]
     assert 5 * sum(plan.tap_rows(i) for i in range(5)) == 5360
     assert 5 * sum(7 + 100 * i for i in range(5)) == 5175
     assert [plan.chunks(i) for i in range(5)] == [2, 9, 17, 25, 33]
-    assert len(plan.as_ints()) == 15
+    assert len(plan.as_ints()) == 16
     three = ks.dense_layout(100, 7, 100, 5, 5, R=3)
     assert three.nc == 5 and not three.fits()
 
@@ -79,17 +83,22 @@ def test_plan_fills_whole_rounds(B, L, cin, c):
     assert sum(sizes) == B and max(sizes) == plan.R and min(sizes) >= plan.R - 1
     assert plan.fits() and plan.nc * 64 >= plan.R * plan.P - 4
     assert plan.N == ks.DENSE_N and plan.nc <= ks.DENSE_NC and plan.Cs <= plan.N
-    assert plan.Cinp + 4 * plan.Cs <= plan.S and plan.S % 8 == 0 and (plan.S // 8) % 2 == 1
+    assert plan.GS == 8 * plan.R * plan.P and 8 * plan.groups >= plan.tap_rows(4) >= \
+        plan.Cinp + 4 * plan.Cs
+    assert plan.tail == 8 * (64 * plan.nc + 4 - plan.R * plan.P) >= 0
 
 
 def test_long_blocks_are_windowed():
-    """At L=1000 no block holds a row (the most: 244, in four m64 tiles
-    with a 2-stage ring), so the wrapper windows the time axis, halo
-    5 * (5 // 2) = 10 each side: 5 windows of 220 rows, each window a row
-    of a plan that fits (a 3-stage ring). L=244 still fits whole."""
+    """At L=1000 no block holds a row (the most: 239, in four m64 tiles
+    with a 2-stage ring; 52 groups of 243 rows and a tail of 17), so the
+    wrapper windows the time axis, halo 5 * (5 // 2) = 10 each side: 5
+    windows of 220 rows, each window a row of a plan that fits (a 3-stage
+    ring). L=239 still fits whole, L=240 does not."""
     assert ks.dense_plan(16, 1000, 7, 100, 5, 5, n_sm=132) is None
-    assert ks.dense_max_rows(7, 100, 5, 5) == 244
-    assert ks.dense_layout(244, 7, 100, 5, 5, R=1).stages == 2
+    assert ks.dense_max_rows(7, 100, 5, 5) == 239
+    longest = ks.dense_layout(239, 7, 100, 5, 5, R=1)
+    assert (longest.stages, longest.groups, longest.GS, longest.tail) == (2, 52, 8 * 243, 8 * 17)
+    assert longest.fits() and not ks.dense_layout(240, 7, 100, 5, 5, R=1).fits()
     idx_in, _, r = ks.window_plan(1000, ks.dense_max_rows(7, 100, 5, 5), 10)
     assert (idx_in.numel() // r, r) == (5, 220)
     plan = ks.dense_plan(16 * 5, r, 7, 100, 5, 5, n_sm=132)
@@ -100,8 +109,8 @@ def test_what_does_not_fit_is_refused():
     """K3 has one wgmma width, n104: C = 104 fits, more output channels never
     do, and the wrapper's check refuses them on the card. A stack whose halo
     fills every window is refused by window_plan's ValueError, as K2's is:
-    C=100, K=5, 40 layers hold a row of 20 at most and need a halo of 80 on
-    each side; only the shapes are read."""
+    C=100, K=5, 40 layers hold a row of 19 at most (490 groups of 23 rows)
+    and need a halo of 80 on each side; only the shapes are read."""
     assert ks.dense_layout(100, 8, 104, 5, 2, R=1).fits()
     assert ks.dense_max_rows(7, 105, 5, 2) == ks.dense_max_rows(7, 300, 5, 2) == 0
     assert not ks.dense_layout(100, 7, 105, 5, 2, R=1).fits()
@@ -110,7 +119,7 @@ def test_what_does_not_fit_is_refused():
             ks._check_dense_layers(_stack(2, 7, c, 5), 7)
     assert ks._check_dense_layers(_stack(2, 7, 104, 5), 7) == (104, 5)
     rows = ks.dense_max_rows(7, 100, 5, 40)
-    assert rows == 20
+    assert rows == 19 and ks.dense_layout(rows, 7, 100, 5, 40, R=1).groups == 490
     with pytest.raises(ValueError, match='shared memory'):
         ks.window_plan(100, rows, 40 * (5 // 2))
 
@@ -201,20 +210,56 @@ def test_packer_reads_back_per_tap_and_layer(cin, c, k, nl):
 
 
 # ---------------------------------------------------------------- the layout model
-def _model(layers, x, plan):
+def _index(plan, m, c):
+    """The buffer's value index of channel c of row m: channel-blocked,
+    groups of 8 channels GS values apart, 8 values a row."""
+    return c // 8 * plan.GS + 8 * m + c % 8
+
+
+def _a_operand(plan, tile, tap, g):
+    """Value indices (64, 16) of the A operand that wgmma reads by
+    descriptor for m64 tile `tile`, tap `tap`, k16 step g of the tap: start
+    at groups 2g, 2g+1 and row 64*tile + tap (16 bytes a row); row r of the
+    operand at (r//8)*SBO + (r%8)*16 bytes, column q at (q//8)*LBO + (q%8)*2,
+    SBO = 128, LBO = the group stride GS*2. Nothing clamps a row."""
+    start = 2 * (2 * g * plan.GS) + 16 * (64 * tile + tap)
+    r, q = torch.arange(64).view(-1, 1), torch.arange(16)
+    return (start + r // 8 * 128 + r % 8 * 16 + q // 8 * 2 * plan.GS + q % 8 * 2) // 2
+
+
+def _unread(plan, Rv):
+    """The values of a block's buffer that no valid output reads with a
+    nonzero weight: the absent rows (past Rv*P) of every group, the tail,
+    and every pad channel (the zero channel, C..Cs-1 of a slot, the groups
+    past the last slot) of every row."""
+    v = torch.arange(plan.buf)
+    g, rest = v // plan.GS, v % plan.GS
+    row, ch = rest // 8, g * 8 + rest % 8
+    tail = v >= plan.groups * plan.GS
+    slot = ch - plan.Cinp
+    real = (ch < plan.Cin) | ((slot >= 0) & (slot < (plan.num_layer - 1) * plan.Cs)
+                              & (slot % plan.Cs < plan.C))
+    return tail | (row >= Rv * plan.P) | ~real
+
+
+def _model(layers, x, plan, poison=None):
     """K3's arithmetic in K3's own layout, on the CPU: block i takes batch
-    rows [i*B//G, (i+1)*B//G) into one zeroed buffer of `buf` values and row
-    stride S, x in channels [0, Cin); each layer, per tap, the A rows
-    (clamped to the block's last output row M-1) read at (row + tap)*S over
-    tap_rows(i) values (past S into the next row), times that tap's W' as
-    wgmma reads it from the chunks, in f32 over the m64 tiles that hold a
-    row; bias, ELU and bf16 written to the valid rows of the layer's slot
-    (the last layer: channels [0, Cs)) only after every product of the
-    layer; the output read back from the buffer."""
+    rows [i*B//G, (i+1)*B//G) into one zeroed channel-blocked buffer of
+    `buf` values (`_index`), x in channels [0, Cin); each layer, per tap,
+    the A operand of each m64 tile that holds a row, read as the descriptor
+    reads it (`_a_operand`: the padded rows on into the next group and the
+    tail), times that tap's W' as wgmma reads it from the chunks, in f32;
+    bias, ELU and bf16 written to the valid rows of the layer's slot (the
+    last layer: channels [0, Cs)) only after every product of the layer;
+    the output read back from the buffer. The kernel runs four products a
+    chunk, so past a layer's last k16 step it multiplies the chunk's rows
+    beyond K * tap_rows(i), which must be zero. `poison`, a value written
+    over what no valid output reads with a nonzero weight (`_unread`) once
+    x is in."""
     w0, b0, wr, br = ks.pack_dense_bf16(layers, plan)
     Ws = _layer_weights(w0, wr, plan)
     B, L, Cin = x.shape
-    P, pad, S = plan.P, plan.K // 2, plan.S
+    P, pad = plan.P, plan.K // 2
     outs = []
     for blk in range(plan.G):
         r0, r1 = blk * B // plan.G, (blk + 1) * B // plan.G
@@ -224,54 +269,83 @@ def _model(layers, x, plan):
         tiles = -(-M // 64)
         assert tiles <= plan.nc
         m = torch.arange(64 * tiles)
-        arow = m.clamp(max=M - 1)
         valid = (m // P < Rv) & (m % P < L)
         buf = torch.zeros(plan.buf, dtype=torch.bfloat16)
-        rows = buf[:Rv * P * S].view(Rv * P, S)
         for r in range(Rv):
-            rows[r * P + pad:r * P + pad + L, :Cin] = x[r0 + r].to(torch.bfloat16)
+            rows = (r * P + pad + torch.arange(L)).view(-1, 1)
+            buf[_index(plan, rows, torch.arange(Cin))] = x[r0 + r].to(torch.bfloat16)
+        if poison is not None:
+            buf[_unread(plan, Rv)] = poison
         for i in range(plan.num_layer):
             W, _ = Ws[i]
             tr = plan.tap_rows(i)
+            assert not W[plan.K * tr:].any()
             v = 0
             for tap in range(plan.K):
-                at = ((arow + tap) * S).view(-1, 1) + torch.arange(tr)
+                at = torch.cat([torch.cat([_a_operand(plan, t, tap, g) for g in range(tr // 16)],
+                                          dim=1) for t in range(tiles)])
                 assert int(at.max()) < plan.buf
                 v = v + buf[at].float() @ W[tap * tr:(tap + 1) * tr].float()
             b = b0 if i == 0 else br[i - 1]
             y = torch.nn.functional.elu(v + b).to(torch.bfloat16)[:, :plan.Cs]
             col0 = 0 if i == plan.num_layer - 1 else plan.Cinp + i * plan.Cs
-            where = ((m[valid] + pad) * S).view(-1, 1) + col0 + torch.arange(plan.Cs)
-            buf[where] = y[valid]
-        rows = buf[:Rv * P * S].view(Rv * P, S)
-        outs += [rows[r * P + pad:r * P + pad + L, :plan.C] for r in range(Rv)]
+            buf[_index(plan, (m[valid] + pad).view(-1, 1), col0 + torch.arange(plan.Cs))] = \
+                y[valid]
+        outs += [buf[_index(plan, (r * P + pad + torch.arange(L)).view(-1, 1),
+                            torch.arange(plan.C))] for r in range(Rv)]
     return torch.stack(outs)
+
+
+def _blocks_partly_filled(L, cin, c, k, nl):
+    """(plan, B): B = 2 Rmax + 1 rows over two SMs, so blocks hold fewer rows
+    than the plan and their m64 tiles are partly filled."""
+    r_max = 1
+    while ks.dense_layout(L, cin, c, k, nl, r_max + 1).fits():
+        r_max += 1
+    B = 2 * r_max + 1
+    return ks.dense_plan(B, L, cin, c, k, nl, n_sm=2), B
 
 
 @pytest.mark.parametrize('cin,c,k,nl', [(7, 100, 5, 5), (7, 13, 3, 3), (8, 30, 5, 2),
                                         (3, 9, 1, 4), (7, 12, 5, 1), (7, 104, 3, 2)])
 def test_layout_model_equals_plain(cin, c, k, nl):
-    """The one-buffer layout, the packer, the descriptor reads, the clamped
-    A rows and the row mask, run on the CPU, give the plain version's output:
-    both round to bf16 once a layer, but the model sums per tap over the
-    buffer's channel order and pads, so a sum on a rounding boundary may
-    round the other way: at most one bf16 step (2^-8 of the largest
-    output) on under 1e-3 of the outputs. A fault of the layout moves
-    most outputs. B = 2 Rmax + 1 rows over two SMs leaves blocks of fewer
-    rows than the plan holds and m64 tiles partly filled."""
+    """The channel-blocked layout, the packer, both descriptors' reads (the
+    padded tiles' rows reading on into the next group and the tail) and the
+    row mask, run on the CPU, give the plain version's output: both round
+    to bf16 once a layer, but the model sums per tap over the buffer's
+    channel order and pads, so a sum on a rounding boundary may round the
+    other way: at most one bf16 step (2^-8 of the largest output) on under
+    1e-3 of the outputs. A fault of the layout moves most outputs. B = 2
+    Rmax + 1 rows over two SMs leaves blocks of fewer rows than the plan
+    holds and m64 tiles partly filled."""
     layers = _stack(nl, cin, c, k)
     L = 40
-    r_max = 1
-    while ks.dense_layout(L, cin, c, k, nl, r_max + 1).fits():
-        r_max += 1
-    B = 2 * r_max + 1
-    plan = ks.dense_plan(B, L, cin, c, k, nl, n_sm=2)
+    plan, B = _blocks_partly_filled(L, cin, c, k, nl)
     x = _x(B, L, cin, seed=3)
     got = _model(layers, x, plan)
     ref = ks.dense_stack_bf16_plain(layers, x)
     assert got.shape == ref.shape == (B, L, c) and got.dtype == torch.bfloat16
     assert _rel(got, ref) <= 2 ** -8
     assert (got != ref).float().mean().item() < 1e-3
+
+
+@pytest.mark.parametrize('cin,c,k,nl', [(7, 100, 5, 5), (7, 13, 3, 3), (3, 9, 1, 4),
+                                        (7, 12, 5, 1)])
+def test_layout_model_ignores_what_valid_rows_do_not_read(cin, c, k, nl):
+    """Large finite values (2^100) over the tail, the absent rows of every
+    group (which only the padded tiles read) and every pad channel (read
+    with zero weights) leave every valid output bit for bit as it was: the
+    kernel may leave them unzeroed without changing a result, and the
+    padded rows read only finite values. L = 100, as DeepTurbo's: two rows a
+    plan, a tail of 52 to 56 rows, blocks of one row beside blocks of two."""
+    layers = _stack(nl, cin, c, k)
+    plan, B = _blocks_partly_filled(100, cin, c, k, nl)
+    x = _x(B, 100, cin, seed=4)
+    assert plan.tail > 0 and any(
+        (i + 1) * B // plan.G - i * B // plan.G < plan.R for i in range(plan.G))
+    clean, poisoned = _model(layers, x, plan), _model(layers, x, plan, poison=2.0 ** 100)
+    assert torch.isfinite(poisoned.float()).all()
+    assert torch.equal(poisoned, clean)
 
 
 # ---------------------------------------------------------------- plain version

@@ -1,8 +1,9 @@
 """Fused same-length Conv1d stacks: the ports of the Pallas kernels K1 and
 K2, and K3 for DenseNet-style stacks. All three run on Hopper's warpgroup
-tensor cores (wgmma: A from registers, B from a ring of weight chunks that a
-producer warp fills by bulk copies on mbarriers) over a block of batch rows
-laid out as one flat buffer, with their weights packed in wgmma's swizzled
+tensor cores (wgmma: B from a ring of weight chunks that a producer warp
+fills by bulk copies on mbarriers; A from registers in K1 and K2, by
+descriptor from a channel-blocked buffer in K3) over a block of batch rows
+laid out in one buffer, with their weights packed in wgmma's swizzled
 layout. Their sources share one header, `csrc/hopper.cuh`: the register
 rule, the mbarrier, bulk-copy and wgmma helpers, K2's and K3's ELU and bf16
 products, and the launchers' prelude.
@@ -23,9 +24,10 @@ products, and the launchers' prelude.
     dense stacks through XLA's convolutions). CUDA source
     `csrc/dense_stack_bf16.cu`. A dense stack (ops/conv1d.py:
     dense_stack_apply: layer i reads [x, out_0, ..., out_{i-1}]) in one
-    launch, K2's roundings and K2's Hopper design, with one shared-memory
-    buffer a block that holds every channel of the stack, so the running
-    concatenation never reaches device memory (`DensePlan`, `dense_plan`);
+    launch, K2's roundings and K2's Hopper design, with one channel-blocked
+    shared-memory buffer a block that holds every channel of the stack, so
+    the running concatenation never reaches device memory and the tensor
+    cores read A from it by descriptor (`DensePlan`, `dense_plan`);
     its weights are packed tap by tap and layer by layer by
     `pack_dense_bf16`. models/decoders.py routes every dense stack to it
     under use_fused_conv in bf16; on the card it raises on a stack it cannot
@@ -380,11 +382,12 @@ def k1_max_rows(Cin: int, C: int, K: int, num_layer: int) -> int:
 
 
 # ---------------------------------------------------------------- K3's layout
-# K3's one wgmma width, n104 (n56 + n48), for up to 104 output channels
-# (DeepTurbo's 100), and its most consumer warpgroups (K2's register rule,
-# csrc/hopper.cuh; csrc/dense_stack_bf16.cu `dense_stack_bf16_launch`):
-# four, the most m64 tiles that two rows of DeepTurbo's stack fill, so each
-# consumer starts from 96 registers instead of K2's 80.
+# K3's one wgmma width, n104 (one instruction, both operands by descriptor),
+# for up to 104 output channels (DeepTurbo's 100), and its most consumer
+# warpgroups (K2's register rule, csrc/hopper.cuh; csrc/dense_stack_bf16.cu
+# `dense_stack_bf16_launch`): four, the most m64 tiles that two rows of
+# DeepTurbo's stack fill, so each consumer starts from 96 registers instead
+# of K2's 80.
 DENSE_N = 104
 DENSE_NC = 4
 
@@ -398,16 +401,20 @@ class DensePlan(_Plan):
     """K3's launch (struct Plan in dense_stack_bf16.cu, field for field).
 
     A block holds up to R batch rows of P = L+K-1 rows each (K//2 zero halo
-    rows on each side), one after another in ONE bf16 buffer of row stride
-    S and `buf` values (R*P*S and a zero tail of 8) that holds every channel
-    of the stack: x in [0, Cin), a zero channel up to Cinp (Cin rounded up
-    to even), then layer i's output in [Cinp + i*Cs, Cinp + i*Cs + C) (Cs =
-    C rounded up to even); the last layer's output goes over [0, Cs). Layer
-    i contracts, tap by tap, its own channels rounded up to 16
-    (`tap_rows`): one (M, K * tap_rows(i)) x (.., N) product with M = R*P -
-    (K-1) in `nc` m64 tiles, one a consumer warpgroup. G blocks share the B
-    batch rows evenly, as K2's. The weights stream in chunks of 64
-    contraction rows and N columns through a ring of `stages` stages."""
+    rows on each side), one after another, in ONE channel-blocked bf16
+    buffer of `buf` values that holds every channel of the stack: x in
+    [0, Cin), a zero channel up to Cinp (Cin rounded up to even), then layer
+    i's output in [Cinp + i*Cs, Cinp + i*Cs + C) (Cs = C rounded up to
+    even); the last layer's output goes over [0, Cs). Channel c of row m
+    lies at value (c//8)*GS + 8*m + c%8: `groups` groups of 8 channels, GS
+    = 8*R*P values apart, each 8 rows by 8 channels of it one 128-byte
+    wgmma core matrix; then a zero `tail`, which the padded m64 tiles of the
+    last group read (the others read on into the next group). Layer i
+    contracts, tap by tap, its own channels rounded up to 16 (`tap_rows`):
+    one (M, K * tap_rows(i)) x (.., N) product with M = R*P - (K-1) in `nc`
+    m64 tiles, one a consumer warpgroup. G blocks share the B batch rows
+    evenly, as K2's. The weights stream in chunks of 64 contraction rows and
+    N columns through a ring of `stages` stages."""
     L: int
     Cin: int
     C: int
@@ -416,7 +423,8 @@ class DensePlan(_Plan):
     R: int
     G: int
     P: int
-    S: int
+    GS: int
+    groups: int
     Cinp: int
     Cs: int
     N: int
@@ -433,6 +441,12 @@ class DensePlan(_Plan):
         return _cdiv(self.K * self.tap_rows(i), K2_CHUNK)
 
     @property
+    def tail(self) -> int:
+        """Values past the last group: the rows that the padded m64 tiles
+        read beyond the last group's R*P (64*nc + K - 1 - R*P), 8 a row."""
+        return self.buf - self.groups * self.GS
+
+    @property
     def smem(self) -> int:
         """Bytes of dynamic shared memory: the ring's 1024-byte alignment,
         the ring, the activation buffer in bf16, every layer's bias in f32,
@@ -446,12 +460,17 @@ class DensePlan(_Plan):
 
 def dense_layout(L: int, Cin: int, C: int, K: int, num_layer: int, R: int,
                  G: int = 1) -> DensePlan:
-    """K3's block layout for R batch rows of length L (it may not fit)."""
+    """K3's block layout for R batch rows of length L (it may not fit):
+    groups enough for the deepest layer's tap rows and for the last layer's
+    output, 8*R*P values each, and a tail of the rows that the padded tiles
+    read past the last group."""
     Cinp, Cs, P = _even(Cin), _even(C), L + K - 1
-    S = k2_stride(max(Cinp + (num_layer - 1) * Cs, Cs))
     nc = _cdiv(R * P - (K - 1), 64)
-    plans = [DensePlan(L, Cin, C, K, num_layer, R, G, P, S, Cinp, Cs, DENSE_N, nc,
-                       stages, R * P * S + 8) for stages in K2_STAGES]
+    GS = 8 * R * P
+    groups = _cdiv(max(_cdiv(Cinp + (num_layer - 1) * Cs, 16) * 16, Cs), 8)
+    buf = groups * GS + 8 * (64 * nc + K - 1 - R * P)
+    plans = [DensePlan(L, Cin, C, K, num_layer, R, G, P, GS, groups, Cinp, Cs, DENSE_N, nc,
+                       stages, buf) for stages in K2_STAGES]
     return next((p for p in plans if p.smem <= SMEM_LIMIT), plans[-1])
 
 

@@ -149,15 +149,10 @@ __device__ __forceinline__ void split(uint32_t a, uint32_t& big, uint32_t& small
   small = tf32_rna(__uint_as_float(a) - __uint_as_float(big));
 }
 
-// pins registers at this point of the program: an accumulator set after a
-// wait (the compiler may not move a read of it above the wait), A fragments
-// before wgmma.fence (nor the instructions that write them below it, which
-// would make ptxas add a warpgroup.arrive before each product)
-template <int n>
-__device__ __forceinline__ void fence_operands(float (&r)[n]) {
-#pragma unroll
-  for (int i = 0; i < n; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
+// pins registers at this point of the program (hopper.cuh's fence_operands
+// for accumulators): A fragments before wgmma.fence (nor the instructions
+// that write them below it, which would make ptxas add a warpgroup.arrive
+// before each product)
 template <int n>
 __device__ __forceinline__ void fence_operands(uint32_t (&r)[n]) {
 #pragma unroll

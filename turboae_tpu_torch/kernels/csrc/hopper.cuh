@@ -5,10 +5,12 @@
 //   - the block's register rule (one producer warpgroup beside nc consumer
 //     warpgroups) and the shared-memory limit;
 //   - shared addresses, ldmatrix, the mbarriers, the bulk copy, the
-//     consumers' named barrier, the wgmma fences and the descriptor of a
-//     128-byte-swizzled B operand;
+//     consumers' named barrier, the wgmma fences and waits, the proxy and
+//     operand fences, the descriptor of a 128-byte-swizzled B operand and
+//     that of a K-major operand without swizzle (K3's A);
 //   - K2's and K3's ELU (ex2.approx) and their bf16 wgmma products
-//     (MmaBf16<N>; K1 has its own ELU and TF32 products);
+//     (MmaBf16<N>, A from registers; MmaBf16Smem<N>, A by descriptor; K1
+//     has its own ELU and TF32 products);
 //   - the launchers' once-a-device prelude (`prepare`).
 // kernels/build.py hashes this header into every library's name, so an edit
 // here builds all three anew.
@@ -102,6 +104,30 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// waits until at most `pending` committed groups of this warpgroup still run
+template <int pending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(pending) : "memory");
+}
+// pins registers at this point of the program: an accumulator set after a
+// wait (the compiler may not move a read of it above the wait), descriptors
+// before wgmma.fence (nor the instructions that set them below it, which
+// would make ptxas add a warpgroup.arrive before each product)
+template <int n>
+__device__ __forceinline__ void fence_operands(float (&r)[n]) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int n>
+__device__ __forceinline__ void fence_operands(uint64_t (&r)[n]) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) asm volatile("" : "+l"(r[i])::"memory");
+}
+// makes this thread's shared-memory stores visible to the async proxy,
+// through which wgmma reads its descriptor operands; a barrier follows
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 
 // descriptor of a K-major, 128-byte-swizzled B operand at shared address
 // `addr` (1024-aligned atom rows, advanced by 32 bytes a k16 step in bf16, a
@@ -113,11 +139,19 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
          (uint64_t)1 << 62;
 }
 
+// descriptor of a K-major operand without swizzle at shared address `addr`
+// (16-byte aligned): core matrices of 8 rows of 16 contiguous bytes, `lbo`
+// bytes apart along K and `sbo` bytes apart along M (or N); layout type 0
+// in bits 62-63
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
+         (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
+}
+
 // D (m64 x N f32, N/2 a thread) = A (m64 x k16 bf16, from registers: each
 // warp's 16 rows as mma.m16n8k16's A fragment) x B (k16 x N, descriptor)
 // (+ D when scale_d), the instruction's operand list written out: one
-// instruction for each width of kernels/conv_stack.py K2_WIDTHS but 104,
-// which is also K3's DENSE_N
+// instruction for each width of kernels/conv_stack.py K2_WIDTHS but 104
 template <int N>
 struct MmaBf16;
 
@@ -240,6 +274,37 @@ struct MmaBf16<104> {
                                              uint64_t desc, int scale_d) {
     MmaBf16<56>::run(*reinterpret_cast<float(*)[28]>(d), a, desc, scale_d);
     MmaBf16<48>::run(*reinterpret_cast<float(*)[24]>(d + 28), a, desc + 7 * 1024 / 16, scale_d);
+  }
+};
+
+// D (m64 x N f32, N/2 a thread) = A (m64 x k16 bf16, K-major by descriptor,
+// desc_kmajor) x B (k16 x N, descriptor) (+ D when scale_d): K3's product,
+// n104 in one instruction (52 accumulators and two descriptors a thread,
+// within the 96 registers that a block of four consumer warpgroups and the
+// producer starts each thread with), so each k16 step reads its A once
+template <int N>
+struct MmaBf16Smem;
+
+template <>
+struct MmaBf16Smem<104> {
+  static __device__ __forceinline__ void run(float (&d)[52], uint64_t desc_a, uint64_t desc_b,
+                                             int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %54, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n104k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51"
+      "}, %52, %53, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
   }
 };
 
