@@ -96,6 +96,11 @@ Phases, each printing one JSON line:
                of 0.3; then cli/main.py with the pair for one f32 epoch
                (num_block 1,000): finite, below the untrained 0.69, its train
                blocks/s;
+  rnn_curve    artifacts/turboae_rnn.msgpack (the rnn_eval cell's TurboAE-RNN)
+               at 2 dB, one point of 20,000 blocks in bf16 through
+               sweep_counts (cuDNN's GRUs, no K2 or K3 launch), its BLER
+               against artifacts/eval_turboae_rnn.json by the two-proportion
+               z, |z| < MAX_Z;
   ftae_curve   path 12: cli/eval_ftae.py on artifacts/ftae_pa.msgpack
                (pos_phase, batch 2000, feedback at 40 dB, block_len 50) at
                -2..1 dB, 20,000 blocks a point: f32 held to
@@ -328,6 +333,7 @@ GRU_SHAPE = (500, 100, 7, 100, 2)   # B, L, In, H, layers: the rate-3 RNN decode
 GRU_F32_TOL = 1e-5                  # cuDNN's f32 GRU against the plain scan, relative
 RNN_EPOCH_LOSS_MAX = 0.69           # the untrained BCE, log 2; fixed before the first card run
 RNN_NUM_BLOCK = 1000
+RNN_POINTS = (2.0,)                 # rnn_curve's point of eval_turboae_rnn.json
 FTAE_POINTS = (-2.0, -1.0, 0.0, 1.0)  # 2 dB expects ~2 block errors at 20,000
 FTAE_NUM_BLOCK = 5000               # the cli/ftae_main.py epoch: 10 steps at batch 500
 FTAE_BATCH = 500
@@ -607,6 +613,10 @@ def main() -> int:
     gru_forward_phase(dev)
     paths['rnn_forward'] = rnn_forward_phase(dev, gen, batch=RNN_FORWARD_BATCH)
     paths['rnn_train'] = rnn_train_phase(dev, gen)
+    paths['rnn_curve'] = curve_phase(
+        'rnn_curve', dev, 'turboae_rnn.msgpack', 'eval_turboae_rnn.json',
+        ['--encoder', 'Turboae_rate3_rnn', '--decoder', 'TurboAE_rate3_rnn'], snrs=RNN_POINTS,
+        stacks=0)
     paths['ftae_curve'] = ftae_curve_phase(dev, 'ftae_curve', 'ftae_pa.msgpack',
                                            'eval_ftae_pa.json', 'pos_phase', refuse='pos')
     paths['ftae_train'] = ftae_train_phase(dev, gen)

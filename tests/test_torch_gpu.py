@@ -306,6 +306,76 @@ def test_gru_cudnn_route_matches_the_scan(cuda_device, kind, tol):
 
 
 @pytest.mark.gpu
+def test_gru_cudnn_bf16_at_the_rnn_cells_shape(cuda_device):
+    """The rnn_eval cell's decoder biGRU (B=2000, L=100, In=7, H=100, 2
+    layers): ops/gru.py's cuDNN route in bf16 against the bf16 scan and the
+    exact function (the f64 scan), within REL_TOL, the repo's bf16
+    tolerance: both routes round every operand to bf16 (unit roundoff
+    2^-8), and cuDNN also keeps its hidden state in bf16 between steps where
+    the scan keeps f32, so their gap is a few roundings of 2^-8 relative
+    (chip_smoke's gru_forward holds it to the same tolerance at B=500).
+    One call counts one stack, two layers, and in `pack_bytes` the bytes of
+    the two layers' flat weight buffers; the scan packs nothing."""
+    from turboae_tpu_torch.ops import gru
+    B, L, IN, H, NL = 2000, 100, 7, 100, 2
+    g = torch.Generator().manual_seed(28)
+    layers = gru.bigru_init(g, IN, H, NL, cuda_device)
+    x = torch.randn((B, L, IN), generator=g).to(cuda_device)
+    f = gru.birnn_apply
+    flat = sum(gru._cudnn_layout('gru', IN if i == 0 else 2 * H, H, torch.bfloat16,
+                                 x.device)[0] for i in range(NL)) * 2
+    with torch.inference_mode():
+        before = (f.calls, f.layers, f.pack_bytes)
+        cud = f(layers, x, 'gru', torch.bfloat16, route='cudnn')
+        assert (f.calls - before[0], f.layers - before[1], f.pack_bytes - before[2]) == \
+            (1, NL, flat)
+        packed = f.pack_bytes
+        scan = f(layers, x, 'gru', torch.bfloat16, route='scan')
+        assert f.pack_bytes == packed
+        exact = f(layers, x.double(), 'gru', torch.float64, route='scan')
+    torch.cuda.synchronize()
+
+    def rel(a, b):
+        return float((a.double() - b).abs().max() / b.abs().max())
+    assert cud.shape == (B, L, 2 * H) and bool(torch.isfinite(cud).all())
+    assert rel(cud, scan.double()) < REL_TOL
+    assert rel(cud, exact) < REL_TOL and rel(scan, exact) < REL_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('kind,dt', [('gru', torch.bfloat16), ('gru', torch.float32),
+                                     ('lstm', torch.bfloat16)])
+def test_cudnn_graph_replays_the_eager_call(cuda_device, kind, dt):
+    """Without gradients `_cudnn_layer` replays a captured CUDA graph of
+    cuDNN's call: bit for bit the eager call on the same flat buffer, at the
+    rnn_eval cell's two layer shapes (In=7 and 2H=200). A replay on other
+    inputs leaves the output already returned as it was (in f32 too, where
+    no cast copies it), and a call with gradients runs eagerly."""
+    from turboae_tpu_torch.ops import gru
+    B, L, H = 2000, 100, 100
+    g = torch.Generator().manual_seed(280)
+    for n_in in (7, 2 * H):
+        layer = gru.birnn_init(g, n_in, H, 1, kind, cuda_device)[0]
+        xs = [torch.randn((B, L, n_in), generator=g).to(cuda_device) for _ in range(2)]
+        numel, places = gru._cudnn_layout(kind, n_in, H, dt, cuda_device)
+        buf = torch.zeros(numel, dtype=dt, device=cuda_device)
+        for (off, _), t in zip(places, [layer[d][k] for d in ('fwd', 'bwd')
+                                        for k in gru._DIR_KEYS]):
+            buf[off:off + t.numel()] = t.to(dt).reshape(-1)
+        with torch.no_grad():
+            eager = [gru._cudnn_call(kind, x.to(dt).contiguous(), buf, places, H,
+                                     False).float() for x in xs]
+        with torch.inference_mode():
+            first = gru._cudnn_layer(layer, xs[0], kind, dt)
+            second = gru._cudnn_layer(layer, xs[1], kind, dt)
+        assert torch.equal(first, eager[0]) and torch.equal(second, eager[1])
+        assert not torch.equal(first, second)
+        with torch.enable_grad():
+            trained = gru._cudnn_layer(layer, xs[0], kind, dt)
+        assert trained.shape == first.shape and bool(torch.isfinite(trained).all())
+
+
+@pytest.mark.gpu
 def test_rnn_decoder_bf16_takes_cudnn_on_the_card(cuda_device):
     from turboae_tpu_torch.config import Config
     from turboae_tpu_torch.models.channel_ae import forward_ae, init_ae, make_perms

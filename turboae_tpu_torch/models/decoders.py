@@ -172,7 +172,8 @@ def largernn_init(gen: torch.Generator, cfg, device='cpu'):
 
 
 def largernn_apply(params, cfg, received, perms, training=False, generator=None):
-    """DEC_LargeRNN (JAX decoders.py:176-241): dec_act on every head."""
+    """DEC_LargeRNN (JAX decoders.py:176-241): dec_act on every head. Each
+    iteration, the last included, is a span `decode.iter`."""
     dt = torch_dtype(cfg.dtype)
     act = activation(cfg.dec_act)
     p, inv = perms['p1'], perms['p1_inv']
@@ -195,19 +196,21 @@ def largernn_apply(params, cfg, received, perms, training=False, generator=None)
     prior = torch.zeros((b, l, cfg.num_iter_ft), dtype=torch.float32, device=received.device)
     *iters, final = params['iters']
     for w in iters:
-        x_plr = half_iter(w['dec1_rnn'], w['dec1_lin'],
+        with span('decode.iter'):
+            x_plr = half_iter(w['dec1_rnn'], w['dec1_lin'],
+                              torch.cat([r_sys, r_par1, prior], dim=2), prior)
+            x_plr_int = interleave(x_plr, p)
+            x_plr2 = half_iter(w['dec2_rnn'], w['dec2_lin'],
+                               torch.cat([r_sys_int, r_par2, x_plr_int], dim=2), x_plr_int)
+            prior = deinterleave(x_plr2, inv)
+    with span('decode.iter'):
+        x_plr = half_iter(final['dec1_rnn'], final['dec1_lin'],
                           torch.cat([r_sys, r_par1, prior], dim=2), prior)
         x_plr_int = interleave(x_plr, p)
-        x_plr2 = half_iter(w['dec2_rnn'], w['dec2_lin'],
-                           torch.cat([r_sys_int, r_par2, x_plr_int], dim=2), x_plr_int)
-        prior = deinterleave(x_plr2, inv)
-    x_plr = half_iter(final['dec1_rnn'], final['dec1_lin'],
-                      torch.cat([r_sys, r_par1, prior], dim=2), prior)
-    x_plr_int = interleave(x_plr, p)
-    # the final dec2 RNN runs without inter-layer dropout (JAX :235-240)
-    h = rnn.birnn_apply(final['dec2_rnn'], torch.cat([r_sys_int, r_par2, x_plr_int], dim=2),
-                        cfg.dec_rnn, compute_dtype=dt)
-    return torch.sigmoid(deinterleave(head(final['dec2_lin'], h), inv))
+        # the final dec2 RNN runs without inter-layer dropout (JAX :235-240)
+        h = rnn.birnn_apply(final['dec2_rnn'], torch.cat([r_sys_int, r_par2, x_plr_int], dim=2),
+                            cfg.dec_rnn, compute_dtype=dt)
+        return torch.sigmoid(deinterleave(head(final['dec2_lin'], h), inv))
 
 
 def largernn_rate2_init(gen: torch.Generator, cfg, device='cpu'):

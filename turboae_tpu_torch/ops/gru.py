@@ -19,7 +19,14 @@ Two routes compute the same function:
     eight tensors into one buffer laid out as cuDNN lays out its weights
     (`torch._cudnn_rnn_flatten_weight`'s offsets, found once per shape), so
     cuDNN runs on views of it and neither copies nor warns; gradients reach
-    the params through the copy.
+    the params through the copy. Without gradients the call is a CUDA graph
+    captured once per (kind, shape, dtype, device): cuDNN's standard RNN
+    launches a GEMM and a cell kernel for every step and direction (400
+    launches a layer at L=100), which the replay issues without the host.
+    The pack writes straight into the graph's weight buffer and the input's
+    cast into its input buffer; the output is copied out as f32, so the next
+    replay may overwrite it. Under gradients, or inside another
+    capture, the call runs eagerly.
 A tensor on the CPU always takes the scan, one on the card cuDNN, in f32 and
 in bf16: cuDNN's bf16 RNN keeps its hidden state in bf16 where JAX's scan
 keeps f32, and still lands within 5e-3 of the bf16 scan with the RNN
@@ -35,6 +42,13 @@ or one layer there is none.
 ROUTE_CALLS counts the layer calls of each route, so a caller can see which
 one ran.
 
+A stack's call is the span `rnn`, each of its layers a span `rnn.layer`
+(either route), and the build of cuDNN's flat weight buffer a span
+`rnn.pack` inside it (utils/logging.py: recorded only under a profiler
+session). `birnn_apply.calls` counts the stacks, `birnn_apply.layers` their
+layers and `birnn_apply.pack_bytes` the bytes written into flat buffers (0
+on the scan).
+
 A recurrence over time has no local form over a rank's positions: under a
 mesh that shards time (dist/mesh.py) `birnn_apply` gathers its input, runs
 on the whole block with no mesh in effect (its dropout masks drawn at the
@@ -43,6 +57,7 @@ positions (`whole_time`).
 """
 from __future__ import annotations
 
+import gc
 import math
 from functools import lru_cache
 from typing import Dict, List, Optional
@@ -50,6 +65,7 @@ from typing import Dict, List, Optional
 import torch
 
 from ..dist import mesh as dm
+from ..utils.logging import span
 
 Layer = Dict[str, Dict[str, torch.Tensor]]
 
@@ -154,29 +170,68 @@ def _cudnn_layout(kind: str, input_size: int, hidden_size: int, dtype, device):
     return buf.numel(), [(d.storage_offset(), s) for d, s in zip(dummies, shapes)]
 
 
+def _cudnn_call(kind: str, xin: torch.Tensor, buf: torch.Tensor, places, H: int,
+                train: bool) -> torch.Tensor:
+    """cuDNN's call of one bidirectional layer on views of the flat buffer."""
+    weights = [buf[off:off + math.prod(s)].view(s) for off, s in places]
+    h0 = torch.zeros((2, xin.shape[0], H), dtype=xin.dtype, device=xin.device)
+    if kind == 'lstm':
+        return torch._VF.lstm(xin, (h0, h0), weights, True, 1, 0.0, train, True, True)[0]
+    return torch._VF.gru(xin, h0, weights, True, 1, 0.0, train, True, True)[0]
+
+
+@lru_cache(maxsize=None)
+def _cudnn_graph(kind: str, shape, H: int, dtype, device):
+    """(graph, input buffer, weight buffer, output) of the inference call at
+    `shape` (B, L, In), captured once. A first call on a side stream sets
+    up cuDNN's handle and workspace outside the capture; the cycle collector
+    is paused during it, since a graph it destroys would break the capture
+    (train/trainer.py:_StepGraph)."""
+    numel, places = _cudnn_layout(kind, shape[-1], H, dtype, device)
+    with torch.inference_mode(False), torch.no_grad():
+        xin = torch.zeros(shape, dtype=dtype, device=device)
+        buf = torch.zeros(numel, dtype=dtype, device=device)
+        cur = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            _cudnn_call(kind, xin, buf, places, H, False)
+        cur.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        gc.collect()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                out = _cudnn_call(kind, xin, buf, places, H, False)
+        finally:
+            gc.enable()
+    return graph, xin, buf, out
+
+
 def _cudnn_layer(layer: Layer, x: torch.Tensor, kind: str, dtype) -> torch.Tensor:
-    B = x.shape[0]
     H = layer['fwd']['w_hh'].shape[1]
     numel, places = _cudnn_layout(kind, x.shape[-1], H, dtype, x.device)
     tensors = [layer[d][k] for d in ('fwd', 'bwd') for k in _DIR_KEYS]
-    pieces, at = [], 0
-    for (off, _), t in sorted(zip(places, tensors), key=lambda pt: pt[0][0]):
-        if off > at:
-            pieces.append(torch.zeros(off - at, dtype=dtype, device=x.device))
-        pieces.append(t.to(dtype).reshape(-1))
-        at = off + t.numel()
-    if numel > at:
-        pieces.append(torch.zeros(numel - at, dtype=dtype, device=x.device))
-    buf = torch.cat(pieces)
-    weights = [buf[off:off + math.prod(s)].view(s) for off, s in places]
-    h0 = torch.zeros((2, B, H), dtype=dtype, device=x.device)
     train = torch.is_grad_enabled()
-    xin = x.to(dtype).contiguous()
-    if kind == 'lstm':
-        out = torch._VF.lstm(xin, (h0, h0), weights, True, 1, 0.0, train, True, True)[0]
-    else:
-        out = torch._VF.gru(xin, h0, weights, True, 1, 0.0, train, True, True)[0]
-    return out.float()
+    graphed = not train and not torch.cuda.is_current_stream_capturing()
+    if graphed:
+        graph, xin, buf, out = _cudnn_graph(kind, tuple(x.shape), H, dtype, x.device)
+    with span('rnn.pack'):
+        pieces, at = [], 0
+        for (off, _), t in sorted(zip(places, tensors), key=lambda pt: pt[0][0]):
+            if off > at:
+                pieces.append(torch.zeros(off - at, dtype=dtype, device=x.device))
+            pieces.append(t.to(dtype).reshape(-1))
+            at = off + t.numel()
+        if numel > at:
+            pieces.append(torch.zeros(numel - at, dtype=dtype, device=x.device))
+        buf = torch.cat(pieces, out=buf) if graphed else torch.cat(pieces)
+        birnn_apply.pack_bytes += buf.numel() * buf.element_size()
+    if graphed:
+        xin.copy_(x)
+        graph.replay()
+        return out.to(torch.float32, copy=True)
+    return _cudnn_call(kind, x.to(dtype).contiguous(), buf, places, H, train).float()
 
 
 # ---------------------------------------------------------------- apply
@@ -211,19 +266,28 @@ def birnn_apply(layers: List[Layer], x: torch.Tensor, kind: str = 'gru',
                 compute_dtype=torch.float32, dropout: float = 0.0,
                 generator: Optional[torch.Generator] = None,
                 route: Optional[str] = None) -> torch.Tensor:
-    """(B, L, In) -> (B, L, 2H) f32 (f64 for the f64 scan)."""
-    return dm.whole_time(lambda full: _birnn(layers, full, kind, compute_dtype, dropout,
-                                             generator, route), x)
+    """(B, L, In) -> (B, L, 2H) f32 (f64 for the f64 scan). The call is the
+    span `rnn`; it counts in `birnn_apply.calls` (see the module's docstring)."""
+    with span('rnn'):
+        out = dm.whole_time(lambda full: _birnn(layers, full, kind, compute_dtype, dropout,
+                                                generator, route), x)
+        birnn_apply.calls += 1
+    return out
+
+
+birnn_apply.calls = birnn_apply.layers = birnn_apply.pack_bytes = 0
 
 
 def _birnn(layers, x, kind, compute_dtype, dropout, generator, route):
     r = _route(x, route)
     for i, layer in enumerate(layers):
         ROUTE_CALLS[r] += 1
-        if r == 'cudnn':
-            x = _cudnn_layer(layer, x, kind, compute_dtype)
-        else:
-            x = _scan_layer(layer, x, kind, compute_dtype)
+        with span('rnn.layer'):
+            if r == 'cudnn':
+                x = _cudnn_layer(layer, x, kind, compute_dtype)
+            else:
+                x = _scan_layer(layer, x, kind, compute_dtype)
+            birnn_apply.layers += 1
         x = _interlayer_dropout(x, dropout, generator, i, len(layers))
     return x
 
