@@ -79,17 +79,23 @@ Phases, each printing one JSON line:
                decoder steps across the syncs at counts 0 and 5, card
                against CPU; then `-optimizer lookahead -loss maxBCE`
                through cli/main.main (bf16, fused), its K2 launches counted;
-  gru_forward  ops/gru.py's card route (cuDNN, one call a layer) against its
-               plain scan on the card and against the scan in f64, B=500,
-               L=100, In=7, H=100, 2 layers: GRU f32 within 1e-5 relative,
-               LSTM within F32_REL_TOL, GRU gradients within 1e-4, no cuDNN
-               weight-copy warning; bf16 cuDNN (the port's bf16 route)
-               within KERNEL_REL_TOL of the bf16 scan; ms a call of each;
+  gru_forward  ops/gru.py's card routes (cuDNN, one call a layer; K4, one
+               launch a layer) against the plain scan on the card and
+               against the scan in f64, B=500, L=100, In=7, H=100, 2 layers:
+               GRU f32 within 1e-5 relative, LSTM within F32_REL_TOL, GRU
+               gradients within 1e-4, no cuDNN weight-copy warning; bf16
+               cuDNN within KERNEL_REL_TOL of the bf16 scan; K4 (the bf16
+               GRU's own route) within KERNEL_REL_TOL of it and nearer the
+               f64 scan than cuDNN; ms a call of each; at rnn_eval's layer
+               shapes (B=2000, In=1, 7, 200; one layer) K4 against its plain
+               version on the card, ms of K4 launched alone and called, of
+               the plain version and of cuDNN's graphed call;
   rnn_forward  the RNN zoo at full width from one seeded init (batch 32,
                0 dB), card against CPU: the rate-3 RNN pair, GRU and LSTM,
                rnn_sys + rate-3 decoder, the rate-2 pair, nbcjr; f32 within
-               1e-4 and through cuDNN only; bf16 (cuDNN's bf16 RNN on the
-               card, the bf16 scan on the CPU) decisions > 99 % agreeing;
+               1e-4 and through cuDNN only; bf16 (K4 for a GRU, cuDNN's bf16
+               RNN for an LSTM, on the card; the bf16 scan on the CPU)
+               decisions > 99 % agreeing;
   rnn_train    path 11: a joint f32 step of the rate-3 RNN pair, card against
                CPU (loss 1e-4, gradients 1e-3 of each leaf's largest); the
                share of head units dropped under -dropout 0.3 within 4 sigma
@@ -98,7 +104,7 @@ Phases, each printing one JSON line:
                blocks/s;
   rnn_curve    artifacts/turboae_rnn.msgpack (the rnn_eval cell's TurboAE-RNN)
                at 2 dB, one point of 20,000 blocks in bf16 through
-               sweep_counts (cuDNN's GRUs, no K2 or K3 launch), its BLER
+               sweep_counts (K4, 30 launches a batch, no K2 or K3 launch), its BLER
                against artifacts/eval_turboae_rnn.json by the two-proportion
                z, |z| < MAX_Z;
   ftae_curve   path 12: cli/eval_ftae.py on artifacts/ftae_pa.msgpack
@@ -330,10 +336,13 @@ LOSSES_NUM_BLOCK = 1000     # the cli/main.py run: 2 steps an epoch at batch 500
 LOSSES_BATCH = 500
 RNN_FORWARD_BATCH = 32              # rnn_forward's blocks, card and CPU (a depth cut from 64)
 GRU_SHAPE = (500, 100, 7, 100, 2)   # B, L, In, H, layers: the rate-3 RNN decoder's first biGRU
+GRU_CELL_BATCH = 2000                # rnn_eval's batch, and its layers' inputs (H = 100)
+GRU_CELL_INPUTS = (1, 7, 200)
 GRU_F32_TOL = 1e-5                  # cuDNN's f32 GRU against the plain scan, relative
 RNN_EPOCH_LOSS_MAX = 0.69           # the untrained BCE, log 2; fixed before the first card run
 RNN_NUM_BLOCK = 1000
 RNN_POINTS = (2.0,)                 # rnn_curve's point of eval_turboae_rnn.json
+RNN_LAYERS = 30                     # TurboAE-RNN's biGRU layers a batch, each one K4 launch
 FTAE_POINTS = (-2.0, -1.0, 0.0, 1.0)  # 2 dB expects ~2 block errors at 20,000
 FTAE_NUM_BLOCK = 5000               # the cli/ftae_main.py epoch: 10 steps at batch 500
 FTAE_BATCH = 500
@@ -616,7 +625,7 @@ def main() -> int:
     paths['rnn_curve'] = curve_phase(
         'rnn_curve', dev, 'turboae_rnn.msgpack', 'eval_turboae_rnn.json',
         ['--encoder', 'Turboae_rate3_rnn', '--decoder', 'TurboAE_rate3_rnn'], snrs=RNN_POINTS,
-        stacks=0)
+        stacks=0, gru_layers=RNN_LAYERS)
     paths['ftae_curve'] = ftae_curve_phase(dev, 'ftae_curve', 'ftae_pa.msgpack',
                                            'eval_ftae_pa.json', 'pos_phase', refuse='pos')
     paths['ftae_train'] = ftae_train_phase(dev, gen)
@@ -908,11 +917,11 @@ def channels_phase(dev):
 
 
 def curve_phase(phase, dev, ckpt, ref_name, flags, snrs=SWEEP_POINTS, stacks=12,
-                dense_stacks=0, **fields):
+                dense_stacks=0, gru_layers=0, **fields):
     """Evenly spaced points of a committed curve through
-    cli/eval_flagship.evaluate at the sweep's settings, `stacks` K2 and
-    `dense_stacks` K3 launches a batch; returns the kernels' launch counts
-    of the run. `fields` go into the phase's line."""
+    cli/eval_flagship.evaluate at the sweep's settings, `stacks` K2,
+    `dense_stacks` K3 and `gru_layers` K4 launches a batch; returns the
+    kernels' launch counts of the run. `fields` go into the phase's line."""
     from turboae_tpu_torch.cli import eval_flagship
     from turboae_tpu_torch.train import sweep as sweep_mod
     from turboae_tpu_torch.utils.device import nvidia_smi
@@ -940,6 +949,7 @@ def curve_phase(phase, dev, ckpt, ref_name, flags, snrs=SWEEP_POINTS, stacks=12,
     n_batches = SWEEP_BLOCKS // SWEEP_BATCH
     expected = stacks * n_batches * len(snrs)
     expected_dense = dense_stacks * n_batches * len(snrs)
+    expected_gru = gru_layers * n_batches * len(snrs)
     with open(args.ref) as f:
         ref = json.load(f)
     points = [{'snr': s, 'blk_errors': out['blk_errors'][i], 'n_blocks': out['n_blocks'][i],
@@ -949,7 +959,7 @@ def curve_phase(phase, dev, ckpt, ref_name, flags, snrs=SWEEP_POINTS, stacks=12,
     emit(phase, ckpt=ckpt, flags=flags, points=points, legacy_noise=out['legacy_noise'],
          z_n=LEGACY_N if out['legacy_noise'] else 'n_blocks', noise_draws=len(draws),
          launches=counts, expected_launches=expected, expected_dense_launches=expected_dense,
-         blocks_per_s=out['eval_blocks_per_s'], device=out['device'], card=nvidia_smi(),
+         expected_gru_launches=expected_gru, blocks_per_s=out['eval_blocks_per_s'], device=out['device'], card=nvidia_smi(),
          **fields)
     check(out['snr'] == list(snrs), f'{phase}: points {out["snr"]}')
     check(counts['conv_stack_bf16'] == expected,
@@ -957,6 +967,8 @@ def curve_phase(phase, dev, ckpt, ref_name, flags, snrs=SWEEP_POINTS, stacks=12,
     check(counts['dense_stack_bf16'] == expected_dense,
           f"{phase}: dense_stack_bf16 launched {counts['dense_stack_bf16']} times, "
           f'not {expected_dense}')
+    check(counts['gru_bf16'] == expected_gru,
+          f"{phase}: gru_bf16 launched {counts['gru_bf16']} times, not {expected_gru}")
     if out['legacy_noise']:
         check(len(draws) == 1, f'{phase}: the sweep drew its noise {len(draws)} times')
     for p in points:
@@ -1288,8 +1300,9 @@ def grads_rel(ga, gb) -> float:
 
 def gru_forward_phase(dev):
     """ops/gru.py's routes on the card at the RNN decoder's shape: cuDNN
-    against the plain scan in f32 (GRU, LSTM; GRU gradients) and bf16, with
-    ms a call of each."""
+    against the plain scan in f32 (GRU, LSTM; GRU gradients) and bf16, K4
+    (the bf16 GRU's own route) against the bf16 scan and the f64 scan beside
+    cuDNN, with ms a call of each."""
     import warnings
     from turboae_tpu_torch.ops import gru
     from turboae_tpu_torch.utils.device import nvidia_smi
@@ -1313,16 +1326,26 @@ def gru_forward_phase(dev):
                   gru.ROUTE_CALLS['scan'] == before['scan'] + NL, f'gru {kind}: routes')
             check(cud.shape == (B, L, 2 * H) and bool(torch.isfinite(cud).all()),
                   f'gru {kind}: shape or non-finite values')
-            case = {'kind': kind, 'dtype': str(dtype).split('.')[-1],
+            # the route a call takes by itself: K4 for the bf16 GRU, cuDNN else
+            own = 'kernel' if (kind, dtype) == ('gru', torch.bfloat16) else 'cudnn'
+            before = dict(gru.ROUTE_CALLS)
+            run(None)
+            check(gru.ROUTE_CALLS[own] == before[own] + NL, f'gru {kind}: not routed to {own}')
+            case = {'kind': kind, 'dtype': str(dtype).split('.')[-1], 'own_route': own,
                     'cudnn_vs_scan_rel': rel_diff(cud, scan),
                     'cudnn_ms': cuda_ms(lambda: run('cudnn'), iters=20),
                     'scan_ms': cuda_ms(lambda: run('scan'), iters=3, warmup=1)}
-            if dtype == torch.float32:
-                # both f32 routes against the exact function (the scan in f64)
-                with torch.inference_mode():
-                    exact = gru.birnn_apply(layers, x.double(), kind, torch.float64, route='scan')
-                case['cudnn_vs_f64_rel'] = rel_diff(cud, exact)
-                case['scan_vs_f64_rel'] = rel_diff(scan, exact)
+            with torch.inference_mode():
+                exact = gru.birnn_apply(layers, x.double(), kind, torch.float64, route='scan')
+            case['cudnn_vs_f64_rel'] = rel_diff(cud, exact)
+            case['scan_vs_f64_rel'] = rel_diff(scan, exact)
+            if own == 'kernel':
+                k4_out = run('kernel')
+                check(k4_out.shape == (B, L, 2 * H) and bool(torch.isfinite(k4_out).all()),
+                      'gru bf16: K4 shape or non-finite values')
+                case.update(kernel_vs_scan_rel=rel_diff(k4_out, scan),
+                            kernel_vs_f64_rel=rel_diff(k4_out, exact),
+                            kernel_ms=cuda_ms(lambda: run('kernel'), iters=20))
             out[f'{kind}_{case["dtype"]}'] = case
         # gradients of a scalar loss through both routes, f32 GRU
         layers = gru.birnn_init(g, IN, H, NL, 'gru', dev)
@@ -1334,8 +1357,31 @@ def gru_forward_phase(dev):
         out['gru_float32']['grad_rel'] = grads_rel(grads['cudnn'], grads['scan'])
         sync(dev)
     weight_warnings = [str(c.message) for c in caught if 'contiguous' in str(c.message)]
+    # K4 at the rnn_eval cell's layer shapes (one bidirectional layer): launched
+    # alone on weights packed once, a wrapper call (x in f32 for a stack's
+    # first layer, bf16 as the layer before writes it for the second), its
+    # plain version on the card, cuDNN's graphed call
+    from turboae_tpu_torch.kernels import gru as k4
+    cell = {}
+    for n_in in GRU_CELL_INPUTS:
+        layer = gru.birnn_init(g, n_in, H, 1, 'gru', dev)[0]
+        xc = torch.randn((GRU_CELL_BATCH, L, n_in), generator=g).to(dev)
+        if n_in == 2 * H:
+            xc = xc.to(torch.bfloat16)
+        with torch.inference_mode():
+            alone = k4.launch_alone(layer, xc)
+            got = alone()
+            cell[f'in{n_in}'] = {
+                'kernel_vs_plain_rel': rel_diff(got, k4.gru_bf16_plain(layer, xc)),
+                'kernel_alone_ms': cuda_ms(alone, iters=20),
+                'kernel_call_ms': cuda_ms(lambda: k4.gru_bf16(layer, xc), iters=20),
+                'plain_ms': cuda_ms(lambda: k4.gru_bf16_plain(layer, xc), iters=3, warmup=1),
+                'cudnn_graphed_ms': cuda_ms(
+                    lambda: gru._cudnn_layer(layer, xc, 'gru', torch.bfloat16), iters=10)}
     emit('gru_forward', shape=list(GRU_SHAPE), cases=out, weight_warnings=weight_warnings,
-         card=nvidia_smi())
+         cell_layers=cell, card=nvidia_smi())
+    for k, v in cell.items():
+        check(v['kernel_vs_plain_rel'] < KERNEL_REL_TOL, f'K4 against its plain version {k}: {v}')
     check(not weight_warnings, f'cuDNN copied the RNN weights: {weight_warnings}')
     # the GRU to 1e-5; the LSTM to the repo's f32 kernel tolerance, since
     # cuDNN's f32 LSTM itself lies ~1.2e-5 from the exact (f64) function,
@@ -1344,8 +1390,14 @@ def gru_forward_phase(dev):
         check(out[k]['cudnn_vs_scan_rel'] < tol, f'{k}: cuDNN against the scan {out[k]}')
         check(out[k]['cudnn_vs_f64_rel'] < tol, f'{k}: cuDNN against the f64 scan {out[k]}')
     check(out['gru_float32']['grad_rel'] < 1e-4, f"gru gradients {out['gru_float32']}")
-    check(out['gru_bfloat16']['cudnn_vs_scan_rel'] < KERNEL_REL_TOL,
-          f"gru bf16: cuDNN against the scan {out['gru_bfloat16']}")
+    bf = out['gru_bfloat16']
+    check(bf['cudnn_vs_scan_rel'] < KERNEL_REL_TOL, f'gru bf16: cuDNN against the scan {bf}')
+    # K4 does the scan's bf16 arithmetic with its f32 carry: within the
+    # kernel tolerance of it, and nearer the f64 scan than cuDNN's bf16 RNN,
+    # which carries h in bf16
+    check(bf['kernel_vs_scan_rel'] < KERNEL_REL_TOL, f'gru bf16: K4 against the scan {bf}')
+    check(bf['kernel_vs_f64_rel'] < bf['cudnn_vs_f64_rel'],
+          f'gru bf16: K4 no nearer the f64 scan than cuDNN {bf}')
 
 
 RNN_MODELS = (('Turboae_rate3_rnn', 'TurboAE_rate3_rnn', {}),
@@ -1401,6 +1453,11 @@ def rnn_forward_phase(dev, gen, batch=PARITY_BATCH):
         check(c['float32']['card_routes']['scan'] == 0 and
               c['float32']['card_routes']['cudnn'] > 0, f'{name}: f32 did not run on cuDNN')
         check(c['bfloat16']['decision_agreement'] > 0.99, f'{name}: bf16 decisions differ {c}')
+        # bf16 on the card: K4 for a GRU, cuDNN for an LSTM
+        bf_routes = c['bfloat16']['card_routes']
+        own = 'cudnn' if c.get('enc_rnn') == 'lstm' else 'kernel'
+        check(bf_routes['scan'] == 0 and bf_routes[own] > 0,
+              f'{name}: bf16 did not run on {own} {bf_routes}')
     check(counts['conv_stack_bf16'] == 0, 'rnn_forward: K2 launched')
     return counts
 
@@ -1519,7 +1576,9 @@ def ftae_curve_phase(dev, phase, ckpt_name, ref_name, mode, refuse):
         check(abs(p['z_bler']) < MAX_Z, f"{phase}: f32 BLER at {p['snr']} dB: z = {p['z_bler']}")
     check(all(0.0 < p['bler'] < 1.0 for p in curves['bfloat16']['points']),
           f'{phase}: bf16 BLER out of range')
-    check(not any(counts.values()), f'{phase} launched a conv-stack kernel: {counts}')
+    # the bf16 sweep's turboae_rnn decoder takes K4; no conv-stack kernel runs
+    check(not any(v for k, v in counts.items() if k != 'gru_bf16'),
+          f'{phase} launched a conv-stack kernel: {counts}')
     return counts
 
 
@@ -2599,16 +2658,20 @@ def sync(dev):
 
 def reset_counts():
     from turboae_tpu_torch.kernels import conv_stack as ks
+    from turboae_tpu_torch.kernels import gru as k4
     ks.conv_stack_bf16.launches = 0
     ks.conv_stack_f32.launches = 0
     ks.dense_stack_bf16.launches = 0
+    k4.gru_bf16.launches = 0
 
 
 def read_counts():
     from turboae_tpu_torch.kernels import conv_stack as ks
+    from turboae_tpu_torch.kernels import gru as k4
     return {'conv_stack_bf16': ks.conv_stack_bf16.launches,
             'conv_stack_f32': ks.conv_stack_f32.launches,
-            'dense_stack_bf16': ks.dense_stack_bf16.launches}
+            'dense_stack_bf16': ks.dense_stack_bf16.launches,
+            'gru_bf16': k4.gru_bf16.launches}
 
 
 def time_kernel(wrapper, plain, dtype, shape, layers, gen, dev, dense=False):

@@ -51,7 +51,7 @@ def test_target_hashes_the_headers(csrc, name):
 @pytest.mark.parametrize('name', LIBRARIES)
 def test_every_include_is_a_hashed_header(name):
     """Each `#include "..."` of a kernel source names a header of csrc/
-    that `_target` hashes; the three sources include hopper.cuh."""
+    that `_target` hashes; the four sources include hopper.cuh."""
     local = re.findall(r'^#include "([^"]+)"', (build.CSRC / f'{name}.cu').read_text(), re.M)
     assert 'hopper.cuh' in local
     hashed = {p.name for p in build.CSRC.glob('*.cuh')}
@@ -113,12 +113,12 @@ def test_helpers_are_defined_in_the_header_alone(helper):
 
 
 def test_bf16_products_are_in_the_header_alone():
-    """The bf16 wgmma instructions (K2's, A from registers, and K3's n104, A
-    by descriptor) are written once, in the header; K1's TF32 instructions
-    stay in its source."""
+    """The bf16 wgmma instructions (K2's, A from registers; K3's n104 and
+    K4's n56 and n48, A by descriptor) are written once, in the header; K1's
+    TF32 instructions stay in its source."""
     bf16 = re.compile(r'wgmma\.mma_async\.sync\.aligned\.m64n(\d+)k16\.f32\.bf16\.bf16')
     assert sorted(int(n) for n in bf16.findall((build.CSRC / 'hopper.cuh').read_text())) == [
-        32, 48, 56, 104, 128, 256]
+        32, 48, 48, 56, 56, 104, 128, 256]
     for name in LIBRARIES:
         assert not bf16.findall((build.CSRC / f'{name}.cu').read_text()), name
     tf32 = re.findall(r'm64n(\d+)k8\.f32\.tf32\.tf32', (build.CSRC / 'conv_stack_f32.cu').read_text())

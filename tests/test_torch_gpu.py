@@ -377,6 +377,8 @@ def test_cudnn_graph_replays_the_eager_call(cuda_device, kind, dt):
 
 @pytest.mark.gpu
 def test_rnn_decoder_bf16_takes_cudnn_on_the_card(cuda_device):
+    """The bf16 RNN pair in inference: every GRU layer takes K4 (the route
+    that took cuDNN until K4 came), none the scan or cuDNN."""
     from turboae_tpu_torch.config import Config
     from turboae_tpu_torch.models.channel_ae import forward_ae, init_ae, make_perms
     from turboae_tpu_torch.ops import gru
@@ -389,7 +391,191 @@ def test_rnn_decoder_bf16_takes_cudnn_on_the_card(cuda_device):
         out, _, _ = forward_ae(params, cfg, bits, torch.zeros((8, 20, 3), device=cuda_device),
                                make_perms(cfg, cuda_device), training=False)
     assert torch.isfinite(out).all()
-    assert gru.ROUTE_CALLS['cudnn'] > before['cudnn'] and gru.ROUTE_CALLS['scan'] == before['scan']
+    assert gru.ROUTE_CALLS['kernel'] > before['kernel']
+    assert gru.ROUTE_CALLS['scan'] == before['scan'] and gru.ROUTE_CALLS['cudnn'] == before['cudnn']
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('case', ['f32', 'lstm', 'gradient'])
+def test_rnn_calls_k4_cannot_take_stay_on_cudnn(cuda_device, case):
+    """f32, the LSTM and a call that needs gradients keep cuDNN."""
+    from turboae_tpu_torch.ops import gru
+    kind = 'lstm' if case == 'lstm' else 'gru'
+    dtype = torch.float32 if case == 'f32' else torch.bfloat16
+    layers = gru.birnn_init(torch.Generator().manual_seed(1), 7, 16, 2, kind, cuda_device)
+    x = torch.randn((8, 20, 7), device=cuda_device)
+    before = dict(gru.ROUTE_CALLS)
+    if case == 'gradient':
+        for layer in layers:
+            for d in layer.values():
+                for t in d.values():
+                    t.requires_grad_(True)
+        out = gru.birnn_apply(layers, x, kind, dtype)
+        out.sum().backward()
+    else:
+        with torch.inference_mode():
+            out = gru.birnn_apply(layers, x, kind, dtype)
+    assert bool(torch.isfinite(out).all())
+    assert gru.ROUTE_CALLS['cudnn'] == before['cudnn'] + 2
+    assert gru.ROUTE_CALLS['kernel'] == before['kernel']
+
+
+# ---------------------------------------------------------------- K4
+# the rnn_eval cell's three layer shapes (In = 1, 7, 2H) at H = 100
+K4_SHAPES = [(B, L, In) for In in (1, 7, 200) for B in (1, 63, 65, 500, 2000) for L in (1, 7, 100)]
+
+
+def _rel(a, b):
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def _rms(a, b):
+    """Root-mean-square error of a against b, relative to b's: over a few
+    steps both bf16 routes err by the same rounding of x and the weights, and
+    a maximum picks one value of that noise; the mean shows the carry."""
+    a, b = a.double(), b.double()
+    return float((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('B,L,In', K4_SHAPES)
+def test_k4_matches_the_scans(cuda_device, B, L, In):
+    """One layer, both directions: K4 within the kernel tolerance of the bf16
+    scan, and nearer the f64 scan than cuDNN's bf16 RNN on the same input
+    (root-mean-square: K4 writes f32 and carries h in f32, cuDNN rounds both
+    to bf16); its bf16 output is its f32 output rounded."""
+    from turboae_tpu_torch.kernels import gru as k4
+    from turboae_tpu_torch.ops import gru
+    g = torch.Generator().manual_seed(B + L + In)
+    layer = gru.birnn_init(g, In, 100, 1, 'gru', cuda_device)[0]
+    x = torch.randn((B, L, In), generator=g).to(cuda_device)
+    with torch.inference_mode():
+        got = k4.gru_bf16(layer, x)
+        half = k4.gru_bf16(layer, x, out_f32=False)
+        scan = gru._scan_layer(layer, x, 'gru', torch.bfloat16)
+        exact = gru._scan_layer(layer, x.double(), 'gru', torch.float64)
+        cud = gru._cudnn_layer(layer, x, 'gru', torch.bfloat16)
+    torch.cuda.synchronize()
+    assert got.shape == (B, L, 200) and got.dtype == torch.float32
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, scan) < REL_TOL
+    assert _rms(got, exact) < _rms(cud, exact)
+    assert torch.equal(half, got.to(torch.bfloat16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('B,L,In,H', [(5, 9, 13, 37), (70, 5, 150, 64), (33, 20, 208, 104)])
+def test_k4_other_widths(cuda_device, B, L, In, H):
+    """Odd and partial widths (x padded to 8 channels, units past H, the
+    widest block) against K4's plain version on the card, f32 and bf16 out."""
+    from turboae_tpu_torch.kernels import gru as k4
+    from turboae_tpu_torch.ops import gru
+    g = torch.Generator().manual_seed(B * In)
+    layer = gru.birnn_init(g, In, H, 1, 'gru', cuda_device)[0]
+    x = torch.randn((B, L, In), generator=g).to(cuda_device)
+    with torch.inference_mode():
+        for out_f32 in (True, False):
+            got = k4.gru_bf16(layer, x, out_f32=out_f32)
+            want = k4.gru_bf16_plain(layer, x, out_f32=out_f32)
+            assert got.shape == (B, L, 2 * H) and got.dtype == want.dtype
+            assert _rel(got, want) < REL_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('In', [7, 200])
+def test_k4_stack_of_two_layers(cuda_device, In):
+    """A 2-layer stack through birnn_apply's own route: K4 twice, the inner
+    layer handing bf16 to the outer, against the stack's bf16 and f64 scans."""
+    from turboae_tpu_torch.ops import gru
+    g = torch.Generator().manual_seed(In)
+    layers = gru.birnn_init(g, In, 100, 2, 'gru', cuda_device)
+    x = torch.randn((500, 100, In), generator=g).to(cuda_device)
+    before = dict(gru.ROUTE_CALLS)
+    with torch.inference_mode():
+        got = gru.birnn_apply(layers, x, 'gru', torch.bfloat16)
+        scan = gru.birnn_apply(layers, x, 'gru', torch.bfloat16, route='scan')
+        exact = gru.birnn_apply(layers, x.double(), 'gru', torch.float64, route='scan')
+        cud = gru.birnn_apply(layers, x, 'gru', torch.bfloat16, route='cudnn')
+    assert gru.ROUTE_CALLS['kernel'] == before['kernel'] + 2
+    assert got.dtype == torch.float32 and got.shape == (500, 100, 200)
+    assert _rel(got, scan) < REL_TOL
+    assert _rms(got, exact) < _rms(cud, exact)
+
+
+@pytest.mark.gpu
+def test_k4_counters(cuda_device):
+    """One launch a layer; in inference mode a miss packs the layer, the
+    second call hits, and only the miss adds its bytes to pack_bytes."""
+    from turboae_tpu_torch.kernels import gru as k4
+    from turboae_tpu_torch.ops import gru
+    layers = gru.birnn_init(torch.Generator().manual_seed(3), 7, 100, 2, 'gru', cuda_device)
+    x = torch.randn((300, 50, 7), device=cuda_device)
+    ks.clear_packs()
+    f = gru.birnn_apply
+    counts = lambda: (k4.gru_bf16.launches, k4.gru_bf16.pack_hits, k4.gru_bf16.pack_misses,
+                      f.layers, f.pack_bytes, gru.ROUTE_CALLS['kernel'])
+    with torch.inference_mode():
+        c0 = counts()
+        first = gru.birnn_apply(layers, x, 'gru', torch.bfloat16)
+        c1 = counts()
+        second = gru.birnn_apply(layers, x, 'gru', torch.bfloat16)
+        c2 = counts()
+    ks.clear_packs()
+    assert torch.equal(first, second)
+    packed = k4.packed_bytes(7) + k4.packed_bytes(200)
+    assert tuple(b - a for a, b in zip(c0, c1)) == (2, 0, 2, 2, packed, 2)
+    assert tuple(b - a for a, b in zip(c1, c2)) == (2, 2, 0, 2, 0, 2)
+
+
+@pytest.mark.gpu
+def test_k4_refuses_what_it_cannot_hold(cuda_device):
+    """H = 120 passes K4's block: route='kernel' raises, and the call's own
+    route is cuDNN."""
+    from turboae_tpu_torch.kernels import gru as k4
+    from turboae_tpu_torch.ops import gru
+    layers = gru.birnn_init(torch.Generator().manual_seed(4), 7, 120, 1, 'gru', cuda_device)
+    x = torch.randn((16, 10, 7), device=cuda_device)
+    with torch.inference_mode():
+        with pytest.raises(ValueError):
+            gru.birnn_apply(layers, x, 'gru', torch.bfloat16, route='kernel')
+        with pytest.raises(ValueError):
+            k4.gru_bf16(layers[0], x)
+        before = dict(gru.ROUTE_CALLS)
+        out = gru.birnn_apply(layers, x, 'gru', torch.bfloat16)
+    assert out.shape == (16, 10, 240)
+    assert gru.ROUTE_CALLS['cudnn'] == before['cudnn'] + 1
+    assert gru.ROUTE_CALLS['kernel'] == before['kernel']
+
+
+@pytest.mark.gpu
+def test_k4_in_a_cuda_graph(cuda_device):
+    """A launch captured in a CUDA graph replays equal to the eager launch,
+    on new input too; the cache does not serve under the capture."""
+    from turboae_tpu_torch.kernels import gru as k4
+    from turboae_tpu_torch.ops import gru
+    layer = gru.birnn_init(torch.Generator().manual_seed(5), 200, 100, 1, 'gru', cuda_device)[0]
+    xs = [torch.randn((130, 40, 200), device=cuda_device) for _ in range(2)]
+    with torch.inference_mode():
+        eager = [k4.gru_bf16(layer, x) for x in xs]
+        static = xs[0].clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            k4.gru_bf16(layer, static)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        hits = k4.gru_bf16.pack_hits
+        with torch.cuda.graph(graph):
+            out = k4.gru_bf16(layer, static)
+        assert k4.gru_bf16.pack_hits == hits
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager[0])
+        static.copy_(xs[1])
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager[1])
 
 
 @pytest.mark.gpu

@@ -68,7 +68,8 @@ share them; an in-place write bumps `_version` and the next call repacks.
 `clear_packs()` empties the cache, for writers that bump no version (a CUDA
 graph's replay, train/trainer.py:_StepGraph). `conv_stack_<t>.pack_hits`
 and `.pack_misses` count its lookups. Elsewhere (training, capture) every
-launch packs anew.
+launch packs anew. K4, the GRU layer of kernels/gru.py, keeps its packed
+weights in the same cache.
 
 Spans (utils/logging.py:span), `k2` for K2, `k1` for K1, `k3` for K3: the wrapper's
 call (once more inside `k2.window` when it windows), `k2.window` (the
@@ -97,7 +98,8 @@ from ..utils.logging import span
 from . import build
 
 # each library is named after its wrapper: csrc/<name>.cu exports <name>_launch
-LIBRARIES = ('conv_stack_bf16', 'conv_stack_f32', 'dense_stack_bf16')
+# (K4's, `gru_bf16`, lives in kernels/gru.py)
+LIBRARIES = ('conv_stack_bf16', 'conv_stack_f32', 'dense_stack_bf16', 'gru_bf16')
 # shared memory one thread block can use on sm_90 (227 KB)
 SMEM_LIMIT = 232448
 
@@ -794,6 +796,10 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _weights(layers: Layers) -> List[torch.Tensor]:
+    return [t for p in layers for t in (p['w'], p['b'])]
+
+
 @dataclass(frozen=True)
 class _Spec:
     """What a wrapper's launch needs of its kernel."""
@@ -801,10 +807,11 @@ class _Spec:
     max_rows: Callable      # k<i>_max_rows
     pack: Callable          # pack_weights[_bf16]
     dtype: torch.dtype      # of x and out
-    span: str               # the wrapper's span, 'k1', 'k2' or 'k3'
+    span: str               # the wrapper's span, 'k1', 'k2', 'k3' or 'k4'
     check: Callable = _check_layers   # the layers' shapes against x's channels, -> (C, K)
     # the plan's fields that the packed weights depend on (with the weights' shapes)
     pack_key: Callable = lambda p: (p.N, p.ngroups, p.S, p.S0, p.Kc, p.Kc0)
+    tensors: Callable = _weights      # the tensors that the pack reads, in order
 
 
 # the most stacks whose packed weights are kept; the least recently used goes
@@ -847,12 +854,12 @@ def _stamp(tensors) -> Optional[tuple]:
 
 
 def packed(wrapper, layers: Layers, plan):
-    """The wrapper's packed weights (w0, b0, wr, br) for `plan`, bit for bit
-    `pack_weights[_bf16](layers, plan)`: kept from an earlier call where the
-    weights are the same tensors, unwritten since, on the same stream;
-    packed anew (the span `<k>.pack.weights`) otherwise."""
+    """The wrapper's packed planes for `plan` ((w0, b0, wr, br) for K1-K3,
+    (w, b) for K4), bit for bit its spec's `pack(layers, plan)`: kept from
+    an earlier call where the weights are the same tensors, unwritten since,
+    on the same stream; packed anew (the span `<k>.pack.weights`) otherwise."""
     name, spec = wrapper.__name__, _SPECS[wrapper.__name__]
-    tensors = [t for p in layers for t in (p['w'], p['b'])]
+    tensors = spec.tensors(layers)
     stamp = _stamp(tensors)
     if stamp is None:
         with span(f'{spec.span}.pack.weights'):

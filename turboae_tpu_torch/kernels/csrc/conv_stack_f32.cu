@@ -149,16 +149,6 @@ __device__ __forceinline__ void split(uint32_t a, uint32_t& big, uint32_t& small
   small = tf32_rna(__uint_as_float(a) - __uint_as_float(big));
 }
 
-// pins registers at this point of the program (hopper.cuh's fence_operands
-// for accumulators): A fragments before wgmma.fence (nor the instructions
-// that write them below it, which would make ptxas add a warpgroup.arrive
-// before each product)
-template <int n>
-__device__ __forceinline__ void fence_operands(uint32_t (&r)[n]) {
-#pragma unroll
-  for (int i = 0; i < n; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
 // D (m64 x N f32, N/2 a thread) = A (m64 x k8 TF32, from registers: each
 // warp's 16 rows as mma.m16n8k8's A fragment) x B (k8 x N TF32, K-major,
 // descriptor) (+ D when scale_d), the instruction's operand list written

@@ -1,5 +1,6 @@
-// Hopper (sm_90a) building blocks of the three conv-stack kernels: K1
-// (conv_stack_f32.cu), K2 (conv_stack_bf16.cu) and K3 (dense_stack_bf16.cu).
+// Hopper (sm_90a) building blocks of the three conv-stack kernels, K1
+// (conv_stack_f32.cu), K2 (conv_stack_bf16.cu) and K3 (dense_stack_bf16.cu),
+// and of the GRU layer K4 (gru_bf16.cu).
 // Each source includes this header once, and all of it lies in an anonymous
 // namespace, as the kernels do: every library keeps its own copy.
 //   - the block's register rule (one producer warpgroup beside nc consumer
@@ -7,13 +8,13 @@
 //   - shared addresses, ldmatrix, the mbarriers, the bulk copy, the
 //     consumers' named barrier, the wgmma fences and waits, the proxy and
 //     operand fences, the descriptor of a 128-byte-swizzled B operand and
-//     that of a K-major operand without swizzle (K3's A);
-//   - K2's and K3's ELU (ex2.approx) and their bf16 wgmma products
-//     (MmaBf16<N>, A from registers; MmaBf16Smem<N>, A by descriptor; K1
-//     has its own ELU and TF32 products);
-//   - the launchers' once-a-device prelude (`prepare`).
+//     that of a K-major operand without swizzle (K3's A, K4's operands);
+//   - K2's and K3's ELU (ex2.approx) and the bf16 wgmma products of K2, K3
+//     and K4 (MmaBf16<N>, A from registers; MmaBf16Smem<N>, A by
+//     descriptor; K1 has its own ELU and TF32 products);
+//   - the conv-stack launchers' once-a-device prelude (`prepare`).
 // kernels/build.py hashes this header into every library's name, so an edit
-// here builds all three anew.
+// here builds all four anew.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -111,8 +112,9 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 // pins registers at this point of the program: an accumulator set after a
 // wait (the compiler may not move a read of it above the wait), descriptors
-// before wgmma.fence (nor the instructions that set them below it, which
-// would make ptxas add a warpgroup.arrive before each product)
+// or A fragments before wgmma.fence (nor the instructions that set them
+// below it, which would make ptxas add a warpgroup.arrive before each
+// product)
 template <int n>
 __device__ __forceinline__ void fence_operands(float (&r)[n]) {
 #pragma unroll
@@ -122,6 +124,11 @@ template <int n>
 __device__ __forceinline__ void fence_operands(uint64_t (&r)[n]) {
 #pragma unroll
   for (int i = 0; i < n; ++i) asm volatile("" : "+l"(r[i])::"memory");
+}
+template <int n>
+__device__ __forceinline__ void fence_operands(uint32_t (&r)[n]) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 // makes this thread's shared-memory stores visible to the async proxy,
 // through which wgmma reads its descriptor operands; a barrier follows
@@ -304,6 +311,42 @@ struct MmaBf16Smem<104> {
         "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  }
+};
+
+// K4's two column halves of a GRU gate (n56 + n48 = 104), A by descriptor
+template <>
+struct MmaBf16Smem<56> {
+  static __device__ __forceinline__ void run(float (&d)[28], uint64_t desc_a, uint64_t desc_b,
+                                             int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %30, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n56k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27"
+      "}, %28, %29, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  }
+};
+
+template <>
+struct MmaBf16Smem<48> {
+  static __device__ __forceinline__ void run(float (&d)[24], uint64_t desc_a, uint64_t desc_b,
+                                             int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, %24, %25, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
   }
 };

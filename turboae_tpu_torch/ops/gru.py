@@ -9,7 +9,7 @@ n = tanh(i_n + r * (h W_hn + b_hn)). A layer's output is
 concat([fwd, bwd]) over the features, the reverse direction's outputs in
 input order.
 
-Two routes compute the same function:
+Three routes compute the same function:
   - 'scan', the plain version and the CPU's: the input projection of every
     step is hoisted out of the loop, the recurrence is a Python loop over
     time with an f32 carry, and under compute_dtype bf16 both matmuls take
@@ -26,12 +26,19 @@ Two routes compute the same function:
     The pack writes straight into the graph's weight buffer and the input's
     cast into its input buffer; the output is copied out as f32, so the next
     replay may overwrite it. Under gradients, or inside another
-    capture, the call runs eagerly.
-A tensor on the CPU always takes the scan, one on the card cuDNN, in f32 and
-in bf16: cuDNN's bf16 RNN keeps its hidden state in bf16 where JAX's scan
-keeps f32, and still lands within 5e-3 of the bf16 scan with the RNN
-models' decisions agreeing (PERF.md §6). `route=` forces one; nothing
-falls back to the other. The scan also runs in f64
+    capture, the call runs eagerly;
+  - 'kernel', K4 (kernels/gru.py:gru_bf16): one launch a layer, all its
+    steps of both directions, the weights in shared memory and h on chip,
+    the scan's bf16 arithmetic with its f32 carry. A stack's inner layers
+    hand their output to the next in bf16, which that layer rounds its input
+    to anyway; the last writes f32.
+`route_for` decides by what a call shows: a tensor on the CPU takes the
+scan; on the card a GRU in bf16 without gradients or dropout whose widths
+fit K4's block (H <= 104, inputs <= 208) takes K4, every other call cuDNN
+(f32, the LSTM, training, wider layers). cuDNN's bf16 RNN keeps its hidden
+state in bf16 where the scan keeps f32, and still lands within 5e-3 of the
+bf16 scan (PERF.md §6). `route=` forces one ('kernel' raises on a call that
+K4 cannot take); nothing falls back to another. The scan also runs in f64
 (compute_dtype float64), as a reference for the routes' f32 rounding.
 
 Dropout between layers (torch's `dropout=`) follows every layer but the last
@@ -43,11 +50,12 @@ ROUTE_CALLS counts the layer calls of each route, so a caller can see which
 one ran.
 
 A stack's call is the span `rnn`, each of its layers a span `rnn.layer`
-(either route), and the build of cuDNN's flat weight buffer a span
-`rnn.pack` inside it (utils/logging.py: recorded only under a profiler
-session). `birnn_apply.calls` counts the stacks, `birnn_apply.layers` their
-layers and `birnn_apply.pack_bytes` the bytes written into flat buffers (0
-on the scan).
+(every route), and the build of cuDNN's flat weight buffer a span
+`rnn.pack` inside it, K4's call the span `k4` (utils/logging.py: recorded
+only under a profiler session). `birnn_apply.calls` counts the stacks,
+`birnn_apply.layers` their layers and `birnn_apply.pack_bytes` the bytes
+written into cuDNN's flat buffers or K4's packed planes (0 on the scan, and
+on K4's cache hits).
 
 A recurrence over time has no local form over a rank's positions: under a
 mesh that shards time (dist/mesh.py) `birnn_apply` gathers its input, runs
@@ -65,11 +73,12 @@ from typing import Dict, List, Optional
 import torch
 
 from ..dist import mesh as dm
+from ..kernels import gru as k4
 from ..utils.logging import span
 
 Layer = Dict[str, Dict[str, torch.Tensor]]
 
-ROUTE_CALLS = {'scan': 0, 'cudnn': 0}
+ROUTE_CALLS = {'scan': 0, 'cudnn': 0, 'kernel': 0}
 _GATES = {'gru': 3, 'lstm': 4}
 _DIR_KEYS = ('w_ih', 'w_hh', 'b_ih', 'b_hh')
 
@@ -234,16 +243,37 @@ def _cudnn_layer(layer: Layer, x: torch.Tensor, kind: str, dtype) -> torch.Tenso
     return _cudnn_call(kind, x.to(dtype).contiguous(), buf, places, H, train).float()
 
 
+# ---------------------------------------------------------------- K4
+
+def _kernel_layer(layer: Layer, x: torch.Tensor, last: bool) -> torch.Tensor:
+    hits = k4.gru_bf16.pack_hits
+    out = k4.gru_bf16(layer, x, out_f32=last)
+    if k4.gru_bf16.pack_hits == hits:
+        birnn_apply.pack_bytes += k4.packed_bytes(x.shape[-1])
+    return out
+
+
 # ---------------------------------------------------------------- apply
 
-def _route(x: torch.Tensor, route: Optional[str]) -> str:
-    if x.device.type == 'cpu':
-        if route == 'cudnn':
-            raise ValueError("route 'cudnn' needs a CUDA tensor")
-        return 'scan'
+def route_for(device_type: str, kind: str, dtype, grad: bool, dropout: bool, H: int, In: int,
+              route: Optional[str] = None) -> str:
+    """The route of a stack's call: `device_type` of its input, its `kind`,
+    compute `dtype`, whether it needs gradients or draws dropout, its units
+    H and widest layer input In; `route` forces one (see the module's
+    docstring)."""
     if route is not None and route not in ROUTE_CALLS:
         raise ValueError(f'route must be one of {tuple(ROUTE_CALLS)}, got {route!r}')
-    return route or 'cudnn'
+    if device_type == 'cpu':
+        if route in ('cudnn', 'kernel'):
+            raise ValueError(f'route {route!r} needs a CUDA tensor')
+        return 'scan'
+    fits = (kind == 'gru' and dtype == torch.bfloat16 and not grad and not dropout
+            and k4.fits(In, H))
+    if route == 'kernel' and not fits:
+        raise ValueError('route \'kernel\' takes a GRU in bf16 without gradients or dropout, '
+                         f'H <= {k4.GRU_H} and inputs <= {k4.GRU_IN}; got {kind}, {dtype}, '
+                         f'gradients {grad}, dropout {dropout}, H={H}, In={In}')
+    return route or ('kernel' if fits else 'cudnn')
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
@@ -279,11 +309,18 @@ birnn_apply.calls = birnn_apply.layers = birnn_apply.pack_bytes = 0
 
 
 def _birnn(layers, x, kind, compute_dtype, dropout, generator, route):
-    r = _route(x, route)
+    H = layers[0]['fwd']['w_hh'].shape[1]
+    tensors = [t for layer in layers for d in layer.values() for t in d.values()]
+    grad = torch.is_grad_enabled() and (x.requires_grad or any(t.requires_grad for t in tensors))
+    dropped = dropout > 0.0 and generator is not None and len(layers) > 1
+    r = route_for(x.device.type, kind, compute_dtype, grad, dropped, H,
+                  max(x.shape[-1], 2 * H if len(layers) > 1 else 0), route)
     for i, layer in enumerate(layers):
         ROUTE_CALLS[r] += 1
         with span('rnn.layer'):
-            if r == 'cudnn':
+            if r == 'kernel':
+                x = _kernel_layer(layer, x, i == len(layers) - 1)
+            elif r == 'cudnn':
                 x = _cudnn_layer(layer, x, kind, compute_dtype)
             else:
                 x = _scan_layer(layer, x, kind, compute_dtype)
